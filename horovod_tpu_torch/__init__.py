@@ -1,0 +1,27 @@
+"""horovod_tpu_torch -- the PyTorch/CUDA port of ``horovod_tpu``.
+
+Same framework, one process per NVIDIA GPU: topology from the launcher's
+environment, gradients averaged over ``torch.distributed`` (NCCL), and the
+JAX package's Pallas kernels rewritten by hand in CUDA C++ for Hopper
+(``csrc/``).  The JAX package stays the reference; this package imports
+nothing of it, nor JAX.
+
+Ported so far: basics and topology, cast compression, the bucket
+scheduler, the data-parallel train step (:mod:`.spmd`), the TransformerLM
+(:mod:`.models`), flash attention (:mod:`.ops.flash_attention`) and the
+fused softmax cross-entropy (:mod:`.ops.losses`)::
+
+    import horovod_tpu_torch as hvd
+    hvd.init()                                   # cuda:local_rank, NCCL
+    step = hvd.spmd.make_train_step(model, loss_fn, optimizer)
+    loss = step(batch)
+"""
+
+from horovod_tpu_torch.basics import (      # noqa: F401
+    NotInitializedError, init, is_initialized, local_rank, local_size,
+    rank, shutdown, size,
+)
+from horovod_tpu_torch.compression import Compression   # noqa: F401
+from horovod_tpu_torch import spmd                        # noqa: F401
+
+__version__ = "0.1.0"
