@@ -23,14 +23,38 @@ the checkout.  Phases, in order; any failure ends the run:
    seq 2048, batch 8, bf16) through ``make_train_step`` with the fused
    cross-entropy and SGD with momentum, 2 warm-up and 5 timed steps.  The
    kernels' launch counters are zeroed just before and read just after;
-   each must equal depth x steps.  Losses must be finite and fall.  One
-   more step runs under torch.profiler for the device time by kernel.
+   each flash kernel must equal depth x steps.  Losses must be finite and
+   fall.  One more step runs under torch.profiler for the device time by
+   kernel.
+5. Codec: the int8 kernels (quantize P4, dequantize P5) against their
+   plain versions on the card, bit for bit, on edge blocks (all zero, tiny,
+   subnormal, near 1e38, randn * exp(U(-6, 6))), a 1025-element tail
+   through ``snap_to_grid`` and the timing shape (n = 67,108,864, the
+   ``head`` leaf); then timed beside their plain versions and their bound,
+   and dequantize beside ``torch.mul(q, scales)`` as a yardstick.
+6. Ring: the int8 ring of 4 ranks driven in lockstep on the card, 16,777,216
+   elements each: bit-identical to the same ring on the plain codec and
+   within 5% (relative Frobenius) of the f32 mean.
+7. Train, int8: the model of phase 4 (freed and rebuilt from the same
+   seed) through ``hvd.DistributedOptimizer(SGD momentum,
+   Compression.int8, error_feedback=True)``, 2 warm-up and 5 timed steps,
+   counters zeroed just before and read just after: each codec kernel
+   launches once per int8-eligible leaf per step (51 leaves at depth 12),
+   each flash kernel depth x steps.  Losses finite and falling, the first
+   equal to phase 4's first to 1e-5 relative, every one within 1e-4.  One
+   more step runs under torch.profiler.  Then one wrapper step of the
+   ``head`` leaf is replayed from the trained state on the kernels and on
+   the plain codec: bit-identical, the residual bit for bit ``g - Q(g)``,
+   momentum and parameter within a bf16 step of the step written out.
+8. NCCL ring: two processes, one card each, only with two or more cards;
+   otherwise a line says it did not run.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -42,6 +66,7 @@ from pathlib import Path
 import torch
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL_O = 2e-2                 # bf16 output max abs error
 TOL_LSE = 1e-3               # f32 lse max abs error
@@ -51,6 +76,14 @@ SEED = 0
 # Training shape of the headline leg (bench.py:332-356).
 VOCAB, DIM, DEPTH, HEADS, SEQ, BATCH = 32768, 2048, 12, 16, 2048, 8
 WARMUP, TIMED = 2, 5
+FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+CODEC_N = VOCAB * DIM              # the head leaf: 67,108,864 elements
+RING_RANKS, RING_N = 4, 16_777_216
+TOL_RING = 5e-2                    # ring vs f32 mean, relative Frobenius
+TOL_FIRST_LOSS = 1e-5              # int8 phase vs plain phase, relative
+# Every int8 loss against the plain phase's, relative: about 8x the
+# 1.21e-5 measured on an H100 80GB HBM3 at 700 W (PERF.md, PR 2).
+TOL_LOSS_TRACK = 1e-4
 
 
 def _fail(msg: str) -> None:
@@ -66,6 +99,15 @@ def _check(ok: bool, msg: str) -> None:
 def _gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _clocks() -> str:
+    """The card's SM clock, power draw and temperature right now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
@@ -113,10 +155,12 @@ def phase_device():
     libs, seconds, log = _cuda.build()
     print(f"kernels built in {seconds:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
-    # ptxas' resource lines for the D=128 instantiations (registers, spills).
+    # ptxas' resource lines for the D=128 flash instantiations and the
+    # codec kernels (registers, spills).
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "ILi128E" in line:
+        if "Compiling entry function" in line and (
+                "ILi128E" in line or "int8" in line):
             name = line.split("'")[1] if "'" in line else line
             usage = " | ".join(l.strip() for l in lines[i + 1:i + 4]
                                if "ptxas info" in l or "bytes stack" in l)
@@ -205,8 +249,9 @@ def _run_case(c, label, timing=False):
 
 
 def _kernel_row(name, replaces, source, launches, err, ms, plain_ms,
-                flops, nbytes, library_ms, library_call):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+                flops, nbytes, library_ms, library_call,
+                peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {
         "name": name, "route": "cuda", "source": source,
@@ -272,13 +317,12 @@ def phase_reference():
     _check(rel <= 5e-2, f"small-model grads rel error {rel}")
 
 
-def phase_train(depth: int):
+def _train_setup(depth: int):
+    """The full-width model (random weights from ``SEED``), one batch and
+    the loss of the headline leg."""
     from horovod_tpu_torch.models import TransformerLM
-    from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.ops.losses import fused_softmax_xent
-    from horovod_tpu_torch.spmd import make_train_step
     bf16 = torch.bfloat16
-    torch.cuda.reset_peak_memory_stats()
     model = TransformerLM(vocab=VOCAB, dim=DIM, depth=depth,
                           num_heads=HEADS, max_len=SEQ, attn="flash",
                           dtype=bf16, head_dtype=bf16, ln_dtype=bf16,
@@ -292,6 +336,14 @@ def phase_train(depth: int):
         return fused_softmax_xent(h.reshape(-1, DIM), model.head.kernel,
                                   batch[:, 1:].reshape(-1)).mean()
 
+    return model, tokens, loss_fn
+
+
+def phase_train(depth: int):
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.spmd import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    model, tokens, loss_fn = _train_setup(depth)
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     step = make_train_step(model, loss_fn, opt)
     torch.cuda.synchronize()
@@ -317,18 +369,362 @@ def phase_train(depth: int):
           + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms), "
           f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.3f} at 989 TFLOP/s, "
           f"peak memory {peak_gb:.2f} GiB, launches {launches}")
+    print(f"train: after the timed steps, SM clock, power, temperature: "
+          f"{_clocks()}")
     _check(all(math.isfinite(x) for x in losses), "non-finite loss")
     _check(losses[-1] < losses[0],
            f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    for name, n in launches.items():
-        _check(n == depth * steps,
-               f"{name} launched {n} times, expected {depth * steps}")
+    for name in FLASH:
+        _check(launches[name] == depth * steps,
+               f"{name} launched {launches[name]} times, expected "
+               f"{depth * steps}")
     _profile_step(step, tokens)
-    return launches
+    return {"launches": launches, "losses": losses, "step_s": step_s}
+
+
+# --------------------------------------------------------------------------
+# The int8 codec (P4, P5), the ring and the DistributedOptimizer.
+
+
+def _bits_equal(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _snap_plain(x):
+    """``snap_to_grid`` on the plain codec."""
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    n = x.numel()
+    flat = torch.nn.functional.pad(x.reshape(-1).float(),
+                                   (0, -n % qc.BLOCK_ELEMS))
+    q, s = qc._quantize_plain(flat.reshape(-1, qc.BLOCK_ELEMS))
+    return qc._dequantize_plain(q, s).reshape(-1)[:n].reshape(x.shape)
+
+
+def _edge_blocks(gen):
+    """Five 1024-element blocks: all zero; two tiny normal values; a
+    subnormal absmax; values near 1e38; randn * exp(U(-6, 6))."""
+    def uniform(lo, hi):
+        return torch.rand(1024, generator=gen, device="cuda") * (hi - lo) \
+            + lo
+
+    zero = torch.zeros(1024, device="cuda")
+    tiny = torch.zeros(1024, device="cuda")
+    tiny[7], tiny[100] = 2e-38, -1.5e-38
+    sub = uniform(-1.1e-38, 1.1e-38)
+    big = uniform(-1e38, 1e38)
+    big[5] = 3e38
+    wide = torch.randn(1024, generator=gen, device="cuda") \
+        * torch.exp(uniform(-6, 6))
+    return torch.cat([zero, tiny, sub, big, wide])
+
+
+def _codec_agrees(x, label):
+    """P4 and P5 against their plain versions on ``x`` (a multiple of 1024
+    elements), bit for bit."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    grid = x.reshape(-1, qc.BLOCK_ELEMS)
+    q, s = _cuda.int8_quantize(grid)
+    q_ref, s_ref = qc._quantize_plain(grid)
+    d = _cuda.int8_dequantize(q_ref, s_ref)
+    d_ref = qc._dequantize_plain(q_ref, s_ref)
+    torch.cuda.synchronize()
+    ok = {"q": _bits_equal(q, q_ref), "scales": _bits_equal(s, s_ref),
+          "dequantized": _bits_equal(d, d_ref)}
+    print(f"  {label}: " + ", ".join(
+        f"{k} {'bit-identical' if v else 'DIFFERENT'}" for k, v in ok.items())
+        + f"; max abs error of the round trip vs input "
+        f"{_max_abs(d, x.reshape(grid.shape)):.3e}")
+    _check(all(ok.values()), f"{label}: codec kernel differs from its "
+           f"plain version: {ok}")
+    return max(_max_abs(d, d_ref), _max_abs(q, q_ref), _max_abs(s, s_ref))
+
+
+def phase_codec():
+    """Returns the timing shape's numbers; launches come from the int8
+    train phase."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    print("int8 codec kernels vs plain versions:")
+    _codec_agrees(_edge_blocks(gen), "edge blocks")
+    tail = torch.randn(1025, generator=gen, device="cuda")
+    snapped, snapped_ref = qc.snap_to_grid(tail), _snap_plain(tail)
+    torch.cuda.synchronize()
+    print(f"  1025-element tail through snap_to_grid: "
+          f"{'bit-identical' if _bits_equal(snapped, snapped_ref) else 'DIFFERENT'}")
+    _check(_bits_equal(snapped, snapped_ref), "snap_to_grid tail differs")
+    x = torch.randn(CODEC_N, generator=gen, device="cuda") \
+        * torch.exp(torch.rand(CODEC_N, generator=gen, device="cuda") * 12
+                    - 6)
+    err = _codec_agrees(x, f"n={CODEC_N}")
+    grid = x.reshape(-1, qc.BLOCK_ELEMS)
+    q, s = _cuda.int8_quantize(grid)
+    times = {
+        "int8_quantize": _median_ms(lambda: _cuda.int8_quantize(grid)),
+        "int8_dequantize": _median_ms(lambda: _cuda.int8_dequantize(q, s)),
+        "int8_quantize_plain": _median_ms(lambda: qc._quantize_plain(grid)),
+        "int8_dequantize_plain": _median_ms(
+            lambda: qc._dequantize_plain(q, s)),
+        # Yardstick only: one PyTorch call, int8 x f32 promoted to f32.
+        "int8_dequantize_library": _median_ms(lambda: torch.mul(q, s)),
+    }
+    lib_same = _bits_equal(torch.mul(q, s), qc._dequantize_plain(q, s))
+    blocks = CODEC_N // qc.BLOCK_ELEMS
+    nbytes = CODEC_N * 4 + CODEC_N + blocks * 4   # f32 <-> int8 + scales
+    print(f"  n={CODEC_N}: quantize {times['int8_quantize']:.4f} ms (plain "
+          f"{times['int8_quantize_plain']:.4f}), dequantize "
+          f"{times['int8_dequantize']:.4f} ms (plain "
+          f"{times['int8_dequantize_plain']:.4f}, torch.mul "
+          f"{times['int8_dequantize_library']:.4f}, "
+          f"{'bit-identical' if lib_same else 'DIFFERENT'}); bound "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms each ({nbytes} bytes at "
+          f"3.35 TB/s)")
+    _check(lib_same, "torch.mul(q, scales) differs from the plain "
+           "dequantize")
+    return {"err": err, "times": times, "work": {
+        # abs, max, scale, clamp x2, round per element; a convert and a
+        # multiply per element.
+        "int8_quantize": (6 * CODEC_N, nbytes),
+        "int8_dequantize": (2 * CODEC_N, nbytes)}}
+
+
+class _PlainCodec:
+    """Within the block, the codec's CUDA entry points run the plain
+    versions: the ring on the same data without the kernels."""
+
+    def __enter__(self):
+        from horovod_tpu_torch.ops import _cuda
+        from horovod_tpu_torch.ops import quantized_collectives as qc
+        self.saved = (_cuda.int8_quantize, _cuda.int8_dequantize)
+        _cuda.int8_quantize = qc._quantize_plain
+        _cuda.int8_dequantize = qc._dequantize_plain
+
+    def __exit__(self, *exc):
+        from horovod_tpu_torch.ops import _cuda
+        _cuda.int8_quantize, _cuda.int8_dequantize = self.saved
+
+
+def _ring_inputs(rank: int):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + rank)
+    return torch.randn(RING_N, generator=gen, device="cuda") * (1 + rank)
+
+
+def phase_ring():
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    xs = [_ring_inputs(r) for r in range(RING_RANKS)]
+    t0 = time.perf_counter()
+    out = qc.lockstep_ring_allreduce(xs, average=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with _PlainCodec():
+        ref = qc.lockstep_ring_allreduce(xs, average=True)
+    mean = torch.stack(xs).mean(0)
+    rel = _rel_fro(out[0], mean)
+    same = all(_bits_equal(o, r) for o, r in zip(out, ref))
+    print(f"ring: {RING_RANKS} ranks in lockstep x {RING_N} elements, "
+          f"kernels vs plain codec "
+          f"{'bit-identical' if same else 'DIFFERENT'}, rel fro vs f32 "
+          f"mean {rel:.3e}, {seconds * 1e3:.1f} ms host clock")
+    _check(same, "ring on the kernels differs from the ring on the plain "
+           "codec")
+    _check(rel <= TOL_RING, f"ring vs mean rel error {rel} > {TOL_RING}")
+
+
+def phase_train_int8(depth: int, plain: dict):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    torch.cuda.reset_peak_memory_stats()
+    model, tokens, loss_fn = _train_setup(depth)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        compression=hvd.Compression.int8, error_feedback=True)
+    leaves = sum(qc.int8_eligible(p.shape, p.dtype)
+                 for p in model.parameters())
+    _check(leaves == 3 + 4 * depth,
+           f"{leaves} int8-eligible leaves, expected {3 + 4 * depth}")
+
+    def step(batch):
+        opt.zero_grad()
+        loss = loss_fn(model, batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    losses, times = [], []
+    for _ in range(WARMUP + TIMED):
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(_cuda.LAUNCHES)
+    steps = WARMUP + TIMED
+    step_s = statistics.median(times[WARMUP:])
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = abs(losses[0] - plain["losses"][0]) / abs(plain["losses"][0])
+    track = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+    print(f"train int8: depth {depth}, DistributedOptimizer(SGD momentum, "
+          f"int8, error feedback), losses "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"train int8: step {step_s * 1e3:.1f} ms against "
+          f"{plain['step_s'] * 1e3:.1f} ms plain (median of {TIMED}; all "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms), "
+          f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GiB, {leaves} int8 leaves, first loss vs plain "
+          f"{first:.2e} relative, every loss vs plain {track:.2e} at most, "
+          f"launches {launches}")
+    print(f"train int8: after the timed steps, SM clock, power, "
+          f"temperature: {_clocks()}")
+    _check(all(math.isfinite(x) for x in losses), "int8: non-finite loss")
+    _check(losses[-1] < losses[0],
+           f"int8: loss did not fall: {losses[0]} -> {losses[-1]}")
+    _check(first <= TOL_FIRST_LOSS,
+           f"int8: first loss {losses[0]} vs plain {plain['losses'][0]}")
+    _check(track <= TOL_LOSS_TRACK,
+           f"int8: losses {losses} stray from plain {plain['losses']}")
+    for name in FLASH:
+        _check(launches[name] == depth * steps,
+               f"int8: {name} launched {launches[name]} times, expected "
+               f"{depth * steps}")
+    for name in ("int8_quantize", "int8_dequantize"):
+        _check(launches[name] == leaves * steps,
+               f"int8: {name} launched {launches[name]} times, expected "
+               f"{leaves * steps}")
+    _profile_step(step, tokens)
+    _replay_head_step(model, opt, tokens, loss_fn)
+    return {"launches": launches, "losses": losses, "step_s": step_s}
+
+
+def _replay_head_step(model, opt, tokens, loss_fn) -> None:
+    """The wrapper's arithmetic on the card: one ``DistributedOptimizer``
+    step of the ``head`` leaf from the trained state (parameter, momentum,
+    residual) and its gradient there, on the kernels and on the plain
+    codec.  The two must agree bit for bit, and with the step written out
+    here: carry-in ``g + r``, residual ``g - Q(g)`` (bit for bit), momentum
+    ``0.9 buf + g`` and ``p - lr buf`` (each element to one bf16 step of
+    its value; at world size 1 the reduction is the identity)."""
+    import contextlib
+    import horovod_tpu_torch as hvd
+    src = model.head.kernel
+    grad, = torch.autograd.grad(loss_fn(model, tokens), [src])
+    st = opt.state[src]
+    lr, momentum = opt.param_groups[0]["lr"], 0.9
+    out = []
+    for codec in (contextlib.nullcontext(), _PlainCodec()):
+        p = torch.nn.Parameter(src.detach().clone())
+        one = hvd.DistributedOptimizer(
+            torch.optim.SGD([p], lr=lr, momentum=momentum),
+            compression=hvd.Compression.int8, error_feedback=True,
+            overlap=False)
+        one.state[p]["momentum_buffer"] = st["momentum_buffer"].clone()
+        one.state[p]["residual"] = st["residual"].clone()
+        p.grad = grad.clone()
+        with codec:
+            one.step()
+        out.append((p.detach(), one.state[p]["momentum_buffer"],
+                    one.state[p]["residual"]))
+    g = grad + st["residual"].to(grad.dtype)
+    residual = g.float() - _snap_plain(g.float())
+    buf = st["momentum_buffer"] * momentum + g
+    param = torch.add(src.detach(), buf, alpha=-lr)
+
+    def off(a, b):
+        """Elements of ``a`` more than one bf16 step from ``b``."""
+        a, b = a.float(), b.float()
+        return int(((a - b).abs() > 2 ** -7 * b.abs()).sum().item())
+
+    same = all(_bits_equal(a, b) for a, b in zip(*out))
+    res_ok = _bits_equal(out[0][2], residual)
+    buf_off, p_off = off(out[0][1], buf), off(out[0][0], param)
+    moved = int((out[0][0] != src.detach()).sum().item())
+    print(f"train int8: one head step replayed, kernels vs plain codec "
+          f"{'bit-identical' if same else 'DIFFERENT'}; residual vs "
+          f"g - Q(g) {'bit-identical' if res_ok else 'DIFFERENT'} (max "
+          f"{residual.abs().max().item():.3e}); momentum and parameter vs "
+          f"the step written out: {buf_off} and {p_off} elements more than "
+          f"one bf16 step off, {_max_abs(out[0][1], buf):.3e} and "
+          f"{_max_abs(out[0][0], param):.3e} max abs; {moved} of "
+          f"{src.numel()} parameters moved")
+    _check(same, "int8: the wrapper's step on the kernels differs from the "
+           "plain codec")
+    _check(res_ok, "int8: the residual is not g - Q(g) of the carried-in "
+           "gradient")
+    _check(buf_off == 0 and p_off == 0,
+           f"int8: {buf_off} momentum and {p_off} parameter elements off "
+           f"the step")
+    _check(moved > 0 and residual.abs().max().item() > 0,
+           "int8: the replayed step moved nothing")
+
+
+def _nccl_worker(rank: int, port: int, results) -> None:
+    try:
+        import torch.distributed as dist
+        from horovod_tpu_torch.ops import quantized_collectives as qc
+        torch.cuda.set_device(rank)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        out = qc.quantized_ring_allreduce(_ring_inputs(rank), average=True)
+        want = qc.lockstep_ring_allreduce(
+            [_ring_inputs(r) for r in range(2)], average=True)[rank]
+        torch.cuda.synchronize()
+        ok = _bits_equal(out, want)
+        dist.destroy_process_group()
+        results.put((rank, ok))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def phase_nccl_ring():
+    if torch.cuda.device_count() < 2:
+        print("nccl ring: not run (one CUDA device; it needs two)")
+        return
+    import queue
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_nccl_worker, args=(r, port, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + 300
+    try:
+        while len(got) < len(procs):
+            try:
+                rank, ok = results.get(timeout=5)
+                got[rank] = ok
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    got["timeout"] = "no result within 300 s"
+                    break
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead:
+                    got["exit"] = f"a worker exited with {dead}"
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    print(f"nccl ring: 2 processes x {RING_N} elements, distributed vs "
+          f"lockstep ring: {got}")
+    _check(got == {0: True, 1: True}, f"nccl ring failed: {got}")
 
 
 def _category(name: str) -> str:
-    for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+    for kernel in FLASH + ("int8_quantize", "int8_dequantize"):
         if f"{kernel}_kernel" in name:
             return kernel
     low = name.lower()
@@ -380,6 +776,10 @@ SOURCES = {
                        "horovod_tpu/ops/flash_attention.py:675"),
     "flash_bwd_dq": ("horovod_tpu_torch/csrc/flash_bwd.cu",
                      "horovod_tpu/ops/flash_attention.py:730"),
+    "int8_quantize": ("horovod_tpu_torch/csrc/int8_codec.cu",
+                      "horovod_tpu/ops/quantized_collectives.py:166"),
+    "int8_dequantize": ("horovod_tpu_torch/csrc/int8_codec.cu",
+                        "horovod_tpu/ops/quantized_collectives.py:176"),
 }
 
 
@@ -388,12 +788,20 @@ def main() -> None:
         _fail("torch.cuda.is_available() is false: this needs a CUDA GPU")
     gpu = _gpu_line()
     phase_device()
+    import horovod_tpu_torch as hvd
+    hvd.init()
     k = phase_kernels()
     phase_reference()
-    launches = phase_train(DEPTH)
+    plain = phase_train(DEPTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    codec = phase_codec()
+    phase_ring()
+    int8 = phase_train_int8(DEPTH, plain)
+    phase_nccl_ring()
     t, e = k["times"], k["errs"]
     rows = []
-    for name, ms, plain, err, lib, call in (
+    for name, ms, plain_ms, err, lib, call in (
             ("flash_fwd", t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],
              "scaled_dot_product_attention forward"),
             ("flash_bwd_dkdv", t["dkdv"], t["dkdv_plain"], e["dkdv_abs"],
@@ -404,8 +812,18 @@ def main() -> None:
              "scaled_dot_product_attention backward (dq, dk and dv)")):
         flops, nbytes = k["work"][name]
         src, rep = SOURCES[name]
-        rows.append(_kernel_row(name, rep, src, launches[name], err, ms,
-                                plain, flops, nbytes, lib, call))
+        rows.append(_kernel_row(name, rep, src, plain["launches"][name], err,
+                                ms, plain_ms, flops, nbytes, lib, call))
+    for name, lib, call in (
+            ("int8_quantize", None, None),
+            ("int8_dequantize", codec["times"]["int8_dequantize_library"],
+             "torch.mul (int8 x f32 promotion)")):
+        flops, nbytes = codec["work"][name]
+        src, rep = SOURCES[name]
+        rows.append(_kernel_row(
+            name, rep, src, int8["launches"][name], codec["err"],
+            codec["times"][name], codec["times"][name + "_plain"], flops,
+            nbytes, lib, call, peak_flops=PEAK_F32_FLOPS))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

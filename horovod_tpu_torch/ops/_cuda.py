@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Kernel launches since the last reset_launches(), per kernel.
 LAUNCHES: Dict[str, int] = {
-    "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+    "int8_quantize": 0, "int8_dequantize": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -48,6 +49,8 @@ _ARGTYPES = {
     "htt_flash_fwd": _VIEW * 4 + (_P,) + _TAIL,
     "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _TAIL,
     "htt_flash_bwd_dq": _VIEW * 4 + (_P, _P) + _VIEW + _TAIL,
+    "htt_int8_quantize": (_P, _P, _P, _I64, _P),
+    "htt_int8_dequantize": (_P, _P, _P, _I64, _P),
 }
 
 
@@ -256,3 +259,75 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_heads: int, *, scale: float,
     _check(err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
+
+
+_CODEC_BLOCK = 1024
+_MAX_GRID = 2 ** 31 - 1
+
+
+def _codec_tensor(x, name: str, dtype, shape, align: int,
+                  device=None) -> int:
+    if not isinstance(x, torch.Tensor) or not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.data_ptr() % align:
+        raise ValueError(f"{name} must start {align}-byte aligned")
+    return x.data_ptr()
+
+
+def _codec_blocks(x, name: str) -> int:
+    if not isinstance(x, torch.Tensor) or x.dim() != 2 \
+            or x.shape[1] != _CODEC_BLOCK:
+        raise ValueError(f"{name} must be (blocks, {_CODEC_BLOCK}), got "
+                         f"{getattr(x, 'shape', None)}")
+    blocks = int(x.shape[0])
+    if blocks > _MAX_GRID:
+        raise ValueError(f"{blocks} blocks exceed one launch")
+    return blocks
+
+
+def int8_quantize(grid):
+    """Port kernel P4.  grid: (blocks, 1024) contiguous f32.  Returns
+    (q int8 (blocks, 1024), scales f32 (blocks, 1))."""
+    blocks = _codec_blocks(grid, "grid")
+    x = _codec_tensor(grid, "grid", torch.float32, grid.shape, 16)
+    dev = grid.device
+    q = torch.empty((blocks, _CODEC_BLOCK), dtype=torch.int8, device=dev)
+    scales = torch.empty((blocks, 1), dtype=torch.float32, device=dev)
+    if blocks == 0:
+        return q, scales
+    fn = _lib("int8_codec").htt_int8_quantize
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x, q.data_ptr(), scales.data_ptr(), blocks, stream)
+    _check(err, "int8_quantize")
+    LAUNCHES["int8_quantize"] += 1
+    return q, scales
+
+
+def int8_dequantize(q, scales):
+    """Port kernel P5.  q: (blocks, 1024) contiguous int8, scales: (blocks,
+    1) contiguous f32 on the same device.  Returns ``float(q) * scale`` as
+    (blocks, 1024) f32."""
+    blocks = _codec_blocks(q, "q")
+    qp = _codec_tensor(q, "q", torch.int8, q.shape, 4)
+    dev = q.device
+    sp = _codec_tensor(scales, "scales", torch.float32, (blocks, 1), 4,
+                       dev)
+    out = torch.empty((blocks, _CODEC_BLOCK), dtype=torch.float32,
+                      device=dev)
+    if blocks == 0:
+        return out
+    fn = _lib("int8_codec").htt_int8_dequantize
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(qp, sp, out.data_ptr(), blocks, stream)
+    _check(err, "int8_dequantize")
+    LAUNCHES["int8_dequantize"] += 1
+    return out

@@ -1,7 +1,7 @@
 """Collectives of the train step over ``torch.distributed``.
 
-Port of ``horovod_tpu/ops/injit.py``: ``allreduce`` (:58) and
-``staged_bucket_allreduce`` (:181).  In the JAX package these are ops
+Port of ``horovod_tpu/ops/injit.py``: ``allreduce`` (:58), ``allgather``
+(:78) and ``staged_bucket_allreduce`` (:181).  In the JAX package these are ops
 inside one XLA program over the mesh axis; here they are NCCL (or gloo)
 collectives over a process group, the world group by default.  The bucket
 plan and issue order come from the same :mod:`..scheduler` rules.
@@ -37,6 +37,17 @@ def allreduce(x: torch.Tensor, *, average: bool = True,
     if op == AVERAGE:
         out.div_(dist.get_world_size(group))
     return out
+
+
+def allgather(x: torch.Tensor, *, group=None) -> torch.Tensor:
+    """Concatenate ``x`` from all ranks of ``group`` along its first
+    dimension, in rank order; every rank's ``x`` has the same shape.
+    Without a process group this is ``x`` itself."""
+    if not dist.is_initialized():
+        return x
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def staged_bucket_allreduce(leaves, reduce_flat, *, bucket_bytes=None,
