@@ -17,36 +17,50 @@ the checkout.  Phases, in order; any failure ends the run:
    plain version, its bound at the H100 SXM peaks and
    ``scaled_dot_product_attention`` as a yardstick.  One line
    ``{"kernels": [...]}`` carries the numbers.
-3. Reference: a small TransformerLM step through the kernels against the
+3. One-pass backward: P6 (``flash_bwd_fused``) on the same three cases,
+   held against its plain version and against P2 + P3 on the same inputs,
+   then timed at the training shape beside its plain version and the
+   ``scaled_dot_product_attention`` backward.
+4. Reference: a small TransformerLM step through the kernels against the
    same model on the oracle attention, same parameters, on the card.
-4. Train: the full-width TransformerLM (d 2048, 16 heads, vocab 32768,
+5. Train: the full-width TransformerLM (d 2048, 16 heads, vocab 32768,
    seq 2048, batch 8, bf16) through ``make_train_step`` with the fused
    cross-entropy and SGD with momentum, 2 warm-up and 5 timed steps.  The
    kernels' launch counters are zeroed just before and read just after;
    each flash kernel must equal depth x steps.  Losses must be finite and
    fall.  One more step runs under torch.profiler for the device time by
    kernel.
-5. Codec: the int8 kernels (quantize P4, dequantize P5) against their
+6. Train, one-pass: phase 5 again (model rebuilt from the same seed) under
+   ``HOROVOD_TPU_FLASH_BWD=fullunroll``: P6 must launch depth x steps times
+   and P2/P3 never; the first loss equals phase 5's bit for bit (the
+   forward is the same) and every loss stays within ``TOL_ONE_PASS`` of
+   phase 5's.  The knob is unset afterwards.
+7. Routing: ``flash_attention(bwd_impl="pallas_fused")`` at B 2, H 16,
+   D 128 runs P6 at T 8192 (T * D * 4 bytes = 4 MiB, the JAX package's
+   limit) and P2 + P3 at T 16384; at T 8192 its gradients agree with the
+   split pair's, and ``bwd_impl="xla"`` (plain PyTorch, chunked) agrees
+   with the split pair's at T 2048.
+8. Codec: the int8 kernels (quantize P4, dequantize P5) against their
    plain versions on the card, bit for bit, on edge blocks (all zero, tiny,
    subnormal, near 1e38, randn * exp(U(-6, 6))), a 1025-element tail
    through ``snap_to_grid`` and the timing shape (n = 67,108,864, the
    ``head`` leaf); then timed beside their plain versions and their bound,
    and dequantize beside ``torch.mul(q, scales)`` as a yardstick.
-6. Ring: the int8 ring of 4 ranks driven in lockstep on the card, 16,777,216
+9. Ring: the int8 ring of 4 ranks driven in lockstep on the card, 16,777,216
    elements each: bit-identical to the same ring on the plain codec and
    within 5% (relative Frobenius) of the f32 mean.
-7. Train, int8: the model of phase 4 (freed and rebuilt from the same
+10. Train, int8: the model of phase 5 (freed and rebuilt from the same
    seed) through ``hvd.DistributedOptimizer(SGD momentum,
    Compression.int8, error_feedback=True)``, 2 warm-up and 5 timed steps,
    counters zeroed just before and read just after: each codec kernel
    launches once per int8-eligible leaf per step (51 leaves at depth 12),
    each flash kernel depth x steps.  Losses finite and falling, the first
-   equal to phase 4's first to 1e-5 relative, every one within 1e-4.  One
+   equal to phase 5's first to 1e-5 relative, every one within 1e-4.  One
    more step runs under torch.profiler.  Then one wrapper step of the
    ``head`` leaf is replayed from the trained state on the kernels and on
    the plain codec: bit-identical, the residual bit for bit ``g - Q(g)``,
    momentum and parameter within a bf16 step of the step written out.
-8. NCCL ring: two processes, one card each, only with two or more cards;
+11. NCCL ring: two processes, one card each, only with two or more cards;
    otherwise a line says it did not run.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -54,9 +68,11 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -77,6 +93,7 @@ SEED = 0
 VOCAB, DIM, DEPTH, HEADS, SEQ, BATCH = 32768, 2048, 12, 16, 2048, 8
 WARMUP, TIMED = 2, 5
 FLASH = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+FUSED = "flash_bwd_fused"
 CODEC_N = VOCAB * DIM              # the head leaf: 67,108,864 elements
 RING_RANKS, RING_N = 4, 16_777_216
 TOL_RING = 5e-2                    # ring vs f32 mean, relative Frobenius
@@ -84,6 +101,11 @@ TOL_FIRST_LOSS = 1e-5              # int8 phase vs plain phase, relative
 # Every int8 loss against the plain phase's, relative: about 8x the
 # 1.21e-5 measured on an H100 80GB HBM3 at 700 W (PERF.md, PR 2).
 TOL_LOSS_TRACK = 1e-4
+# Every loss of the one-pass phase against the split phase's, relative.
+# P6 sums dq with atomics in another order than P3, so the gradients
+# differ in their last bits and the losses drift apart a little: about 7x
+# the 1.51e-5 measured on an H100 80GB HBM3 at 700 W (PERF.md).
+TOL_ONE_PASS = 1e-4
 
 
 def _fail(msg: str) -> None:
@@ -284,8 +306,75 @@ def phase_kernels():
             "flash_fwd": (4 * D * pairs, 4 * tensor + rows),
             "flash_bwd_dkdv": (8 * D * pairs, 6 * tensor + 2 * rows),
             "flash_bwd_dq": (6 * D * pairs, 5 * tensor + 2 * rows),
+            # Five products per pair; q, k, v, dO read, dq, dk, dv written,
+            # lse and delta read.
+            FUSED: (10 * D * pairs, 7 * tensor + 2 * rows),
         },
     }
+
+
+def _fused_case(c, label, timing=False):
+    """Hold P6 against its plain version and against P2 + P3 on one case;
+    with ``timing``, also time P6 and its plain version."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
+    o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
+    delta = fa._delta(do, o, H)
+    got = _cuda.flash_bwd_fused(q, k, v, do, lse, delta, H, **kw)
+    ref = fa._flash_bwd_fused_plain(q, k, v, do, lse, delta, H, **kw)
+    dk2, dv2 = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    dq2 = _cuda.flash_bwd_dq(q, k, v, do, lse, delta, H, **kw)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    errs = {n: _rel_fro(g, r) for n, g, r in zip(names, got, ref)}
+    split = {n: _rel_fro(g, r) for n, g, r in zip(names, got, (dq2, dk2,
+                                                                dv2))}
+    errs["abs"] = max(_max_abs(g, r) for g, r in zip(got, ref))
+    same = [n for n, g, r in zip(names, got, (dq2, dk2, dv2))
+            if torch.equal(g, r)]
+    print(f"  {label}: rel fro vs plain dq {errs['dq']:.3e} dk "
+          f"{errs['dk']:.3e} dv {errs['dv']:.3e}; vs P2 + P3 dq "
+          f"{split['dq']:.3e} dk {split['dk']:.3e} dv {split['dv']:.3e} "
+          f"(bit-identical: {', '.join(same) or 'none'})")
+    for n in names:
+        _check(math.isfinite(errs[n]) and errs[n] <= TOL_GRAD,
+               f"{label}: P6 {n} rel error vs plain {errs[n]} > {TOL_GRAD}")
+        _check(math.isfinite(split[n]) and split[n] <= TOL_GRAD,
+               f"{label}: P6 {n} rel error vs P2 + P3 {split[n]} > "
+               f"{TOL_GRAD}")
+    if not timing:
+        return errs, None
+    del ref, dk2, dv2, dq2
+    times = {
+        FUSED: _median_ms(lambda: _cuda.flash_bwd_fused(
+            q, k, v, do, lse, delta, H, **kw)),
+        FUSED + "_plain": _median_ms(lambda: fa._flash_bwd_fused_plain(
+            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1),
+    }
+    return errs, times
+
+
+def phase_fused_kernel(k):
+    """P6 against its plain version and P2 + P3; adds its numbers to the
+    kernel phase's ``k``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    print("one-pass backward P6 vs its plain version and P2 + P3 (bf16):")
+    _fused_case(_case(2, 2, 512, 128, False, None, gen), "non-causal T=512")
+    _fused_case(_case(2, 3, 200, 64, True, 150, gen),
+                "ragged T=200 seq_len=150 D=64")
+    errs, times = _fused_case(
+        _case(BATCH, HEADS, SEQ, DIM // HEADS, True, None, gen),
+        "main B=8 H=16 T=2048 D=128 causal", timing=True)
+    t = k["times"]
+    print(f"  main: P6 {times[FUSED]:.3f} ms (plain "
+          f"{times[FUSED + '_plain']:.2f}) against P2 + P3 "
+          f"{t['dkdv'] + t['dq']:.3f} ms and the scaled_dot_product_attention "
+          f"backward {t['sdpa_bwd']:.3f} ms; bound "
+          f"{k['work'][FUSED][0] / PEAK_BF16_FLOPS * 1e3:.3f} ms")
+    k["errs"][FUSED] = errs["abs"]
+    t.update(times)
 
 
 def phase_reference():
@@ -339,23 +428,40 @@ def _train_setup(depth: int):
     return model, tokens, loss_fn
 
 
-def phase_train(depth: int):
+@contextlib.contextmanager
+def _one_pass(on: bool):
+    """Within the block, ``HOROVOD_TPU_FLASH_BWD=fullunroll`` when ``on``:
+    the backward of every layer is then P6."""
+    if on:
+        os.environ.update(HOROVOD_TPU_FLASH_BWD="fullunroll")
+    try:
+        yield
+    finally:
+        if on:
+            os.environ.pop("HOROVOD_TPU_FLASH_BWD", None)
+
+
+def phase_train(depth: int, one_pass: bool = False):
+    """The headline step; with ``one_pass``, under
+    ``HOROVOD_TPU_FLASH_BWD=fullunroll``."""
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.spmd import make_train_step
+    label = "train one-pass" if one_pass else "train"
     torch.cuda.reset_peak_memory_stats()
     model, tokens, loss_fn = _train_setup(depth)
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     step = make_train_step(model, loss_fn, opt)
     torch.cuda.synchronize()
-    _cuda.reset_launches()
-    losses, times = [], []
-    for i in range(WARMUP + TIMED):
-        t0 = time.perf_counter()
-        loss = step(tokens)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-    launches = dict(_cuda.LAUNCHES)
+    with _one_pass(one_pass):
+        _cuda.reset_launches()
+        losses, times = [], []
+        for i in range(WARMUP + TIMED):
+            t0 = time.perf_counter()
+            loss = step(tokens)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        launches = dict(_cuda.LAUNCHES)
     steps = WARMUP + TIMED
     step_s = statistics.median(times[WARMUP:])
     tokens_per_s = BATCH * SEQ / step_s
@@ -363,23 +469,102 @@ def phase_train(depth: int):
     model_flops = (6 * n_matmul + 12 * depth * SEQ * DIM) * (BATCH * SEQ)
     mfu = model_flops / step_s / PEAK_BF16_FLOPS
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train: depth {depth} of {DEPTH}, losses "
+    print(f"{label}: depth {depth} of {DEPTH}, losses "
           + ", ".join(f"{x:.4f}" for x in losses))
-    print(f"train: step {step_s * 1e3:.1f} ms (median of {TIMED}; all "
+    print(f"{label}: step {step_s * 1e3:.1f} ms (median of {TIMED}; all "
           + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms), "
           f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.3f} at 989 TFLOP/s, "
           f"peak memory {peak_gb:.2f} GiB, launches {launches}")
-    print(f"train: after the timed steps, SM clock, power, temperature: "
+    print(f"{label}: after the timed steps, SM clock, power, temperature: "
           f"{_clocks()}")
-    _check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    _check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
     _check(losses[-1] < losses[0],
-           f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    for name in FLASH:
-        _check(launches[name] == depth * steps,
-               f"{name} launched {launches[name]} times, expected "
-               f"{depth * steps}")
-    _profile_step(step, tokens)
+           f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    bwd = (FUSED,) if one_pass else FLASH[1:]
+    for name in FLASH + (FUSED,):
+        want = depth * steps if name == "flash_fwd" or name in bwd else 0
+        _check(launches[name] == want,
+               f"{label}: {name} launched {launches[name]} times, expected "
+               f"{want}")
+    with _one_pass(one_pass):
+        _profile_step(step, tokens)
     return {"launches": launches, "losses": losses, "step_s": step_s}
+
+
+def check_one_pass(one: dict, plain: dict) -> None:
+    """The one-pass phase's losses against the split phase's: the first
+    bit for bit (the forward is the same), every one within
+    ``TOL_ONE_PASS``."""
+    track = max(abs(a - b) / abs(b) for a, b in zip(one["losses"],
+                                                     plain["losses"]))
+    print(f"train one-pass: step {one['step_s'] * 1e3:.1f} ms against "
+          f"{plain['step_s'] * 1e3:.1f} ms split; first loss "
+          f"{'bit-identical' if one['losses'][0] == plain['losses'][0] else 'DIFFERENT'}"
+          f", every loss vs split {track:.2e} relative at most")
+    _check(one["losses"][0] == plain["losses"][0],
+           f"one-pass first loss {one['losses'][0]} differs from the split "
+           f"phase's {plain['losses'][0]}")
+    _check(track <= TOL_ONE_PASS,
+           f"one-pass losses {one['losses']} stray from the split phase's "
+           f"{plain['losses']}")
+
+
+def phase_routing():
+    """``bwd_impl`` picks the backward on the card as the JAX package
+    does: P6 while T * D * 4 bytes <= 4 MiB, else P2 + P3; ``"xla"`` is
+    plain PyTorch and agrees with the split pair."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops.flash_attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, H, D = 2, HEADS, DIM // HEADS
+
+    def inputs(T):
+        ins = [torch.randn((B, T, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+        g = torch.randn((B, T, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        return ins, g
+
+    def run(T, impl, ins, g):
+        _cuda.reset_launches()
+        grads = torch.autograd.grad(flash_attention(*ins, bwd_impl=impl),
+                                    ins, g)
+        torch.cuda.synchronize()
+        return grads, {n: _cuda.LAUNCHES[n] for n in FLASH[1:] + (FUSED,)}
+
+    def routed(T, impl, ins, g, want):
+        grads, launches = run(T, impl, ins, g)
+        print(f"routing: T={T} bwd_impl={impl!r}, T*D*4 = "
+              f"{T * D * 4 / 2 ** 20:g} MiB: backward launches {launches}")
+        _check(tuple(launches.values()) == want,
+               f"routing: T={T} {impl}: launches {launches}, expected "
+               f"{dict(zip(launches, want))}")
+        return grads
+
+    ins, g = inputs(8192)
+    fused = routed(8192, "pallas_fused", ins, g, (0, 0, 1))
+    split = routed(8192, "pallas", ins, g, (1, 1, 0))
+    errs = [_rel_fro(a, b) for a, b in zip(fused, split)]
+    print("routing: T=8192 P6 vs P2 + P3 gradients, rel fro "
+          + ", ".join(f"{e:.3e}" for e in errs))
+    _check(max(errs) <= TOL_GRAD, f"routing: P6 vs split {errs}")
+    del ins, g, fused, split
+    ins, g = inputs(16384)
+    routed(16384, "pallas_fused", ins, g, (1, 1, 0))
+    del ins, g
+    ins, g = inputs(SEQ)
+    split, _ = run(SEQ, "pallas", ins, g)
+    t0 = time.perf_counter()
+    xla, launches = run(SEQ, "xla", ins, g)
+    seconds = time.perf_counter() - t0
+    errs = [_rel_fro(a, b) for a, b in zip(xla, split)]
+    print(f"routing: T={SEQ} bwd_impl='xla' (plain PyTorch, "
+          f"{seconds * 1e3:.1f} ms host clock for forward and backward) vs "
+          f"P2 + P3, rel fro " + ", ".join(f"{e:.3e}" for e in errs)
+          + f"; kernel launches in its backward {launches}")
+    _check(not any(launches.values()),
+           f"routing: the xla backward launched kernels {launches}")
+    _check(max(errs) <= TOL_GRAD, f"routing: xla vs split {errs}")
 
 
 # --------------------------------------------------------------------------
@@ -724,8 +909,8 @@ def phase_nccl_ring():
 
 
 def _category(name: str) -> str:
-    for kernel in FLASH + ("int8_quantize", "int8_dequantize"):
-        if f"{kernel}_kernel" in name:
+    for kernel in FLASH + (FUSED, "int8_quantize", "int8_dequantize"):
+        if f"{kernel}_" in name:   # P6's dq cast kernel counts as P6
             return kernel
     low = name.lower()
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass",
@@ -769,18 +954,31 @@ def _profile_step(step, tokens) -> None:
         print(f"  top: {ms:8.2f} ms x{n:<4d} {name[:90]}")
 
 
+# Every TPU kernel of the JAX package (each function that reaches
+# pl.pallas_call), in PERF.md's order, with the port kernel that replaces
+# it.
+TPU_KERNELS = (
+    ("flash_fwd", "horovod_tpu/ops/flash_attention.py:255"),
+    ("flash_fwd", "horovod_tpu/ops/flash_attention.py:351"),
+    ("flash_fwd", "horovod_tpu/ops/flash_attention.py:418"),
+    ("flash_bwd_dkdv", "horovod_tpu/ops/flash_attention.py:675"),
+    ("flash_bwd_dq", "horovod_tpu/ops/flash_attention.py:730"),
+    ("flash_bwd_dkdv", "horovod_tpu/ops/flash_attention.py:955"),
+    ("flash_bwd_dq", "horovod_tpu/ops/flash_attention.py:1013"),
+    (FUSED, "horovod_tpu/ops/flash_attention.py:776"),
+    (FUSED, "horovod_tpu/ops/flash_attention.py:1152"),
+    ("int8_quantize", "horovod_tpu/ops/quantized_collectives.py:166"),
+    ("int8_dequantize", "horovod_tpu/ops/quantized_collectives.py:176"),
+)
 SOURCES = {
-    "flash_fwd": ("horovod_tpu_torch/csrc/flash_fwd.cu",
-                  "horovod_tpu/ops/flash_attention.py:255"),
-    "flash_bwd_dkdv": ("horovod_tpu_torch/csrc/flash_bwd.cu",
-                       "horovod_tpu/ops/flash_attention.py:675"),
-    "flash_bwd_dq": ("horovod_tpu_torch/csrc/flash_bwd.cu",
-                     "horovod_tpu/ops/flash_attention.py:730"),
-    "int8_quantize": ("horovod_tpu_torch/csrc/int8_codec.cu",
-                      "horovod_tpu/ops/quantized_collectives.py:166"),
-    "int8_dequantize": ("horovod_tpu_torch/csrc/int8_codec.cu",
-                        "horovod_tpu/ops/quantized_collectives.py:176"),
+    "flash_fwd": "horovod_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dkdv": "horovod_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/csrc/flash_bwd.cu",
+    FUSED: "horovod_tpu_torch/csrc/flash_bwd_fused.cu",
+    "int8_quantize": "horovod_tpu_torch/csrc/int8_codec.cu",
+    "int8_dequantize": "horovod_tpu_torch/csrc/int8_codec.cu",
 }
+SDPA_BWD = "scaled_dot_product_attention backward (dq, dk and dv)"
 
 
 def main() -> None:
@@ -791,8 +989,16 @@ def main() -> None:
     import horovod_tpu_torch as hvd
     hvd.init()
     k = phase_kernels()
+    phase_fused_kernel(k)
     phase_reference()
     plain = phase_train(DEPTH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = phase_train(DEPTH, one_pass=True)
+    check_one_pass(one, plain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_routing()
     gc.collect()
     torch.cuda.empty_cache()
     codec = phase_codec()
@@ -800,28 +1006,33 @@ def main() -> None:
     int8 = phase_train_int8(DEPTH, plain)
     phase_nccl_ring()
     t, e = k["times"], k["errs"]
+    flash = {
+        "flash_fwd": (t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],
+                      "scaled_dot_product_attention forward",
+                      plain["launches"]),
+        "flash_bwd_dkdv": (t["dkdv"], t["dkdv_plain"], e["dkdv_abs"],
+                           t["sdpa_bwd"], SDPA_BWD, plain["launches"]),
+        "flash_bwd_dq": (t["dq"], t["dq_plain"], e["dq_abs"], t["sdpa_bwd"],
+                         SDPA_BWD, plain["launches"]),
+        FUSED: (t[FUSED], t[FUSED + "_plain"], e[FUSED], t["sdpa_bwd"],
+                SDPA_BWD, one["launches"]),
+    }
     rows = []
-    for name, ms, plain_ms, err, lib, call in (
-            ("flash_fwd", t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],
-             "scaled_dot_product_attention forward"),
-            ("flash_bwd_dkdv", t["dkdv"], t["dkdv_plain"], e["dkdv_abs"],
-             t["sdpa_bwd"],
-             "scaled_dot_product_attention backward (dq, dk and dv)"),
-            ("flash_bwd_dq", t["dq"], t["dq_plain"], e["dq_abs"],
-             t["sdpa_bwd"],
-             "scaled_dot_product_attention backward (dq, dk and dv)")):
-        flops, nbytes = k["work"][name]
-        src, rep = SOURCES[name]
-        rows.append(_kernel_row(name, rep, src, plain["launches"][name], err,
-                                ms, plain_ms, flops, nbytes, lib, call))
-    for name, lib, call in (
-            ("int8_quantize", None, None),
-            ("int8_dequantize", codec["times"]["int8_dequantize_library"],
-             "torch.mul (int8 x f32 promotion)")):
+    for name, rep in TPU_KERNELS:
+        if name in flash:
+            ms, plain_ms, err, lib, call, launches = flash[name]
+            flops, nbytes = k["work"][name]
+            rows.append(_kernel_row(name, rep, SOURCES[name], launches[name],
+                                    err, ms, plain_ms, flops, nbytes, lib,
+                                    call))
+            continue
+        lib, call = None, None
+        if name == "int8_dequantize":
+            lib = codec["times"]["int8_dequantize_library"]
+            call = "torch.mul (int8 x f32 promotion)"
         flops, nbytes = codec["work"][name]
-        src, rep = SOURCES[name]
         rows.append(_kernel_row(
-            name, rep, src, int8["launches"][name], codec["err"],
+            name, rep, SOURCES[name], int8["launches"][name], codec["err"],
             codec["times"][name], codec["times"][name + "_plain"], flops,
             nbytes, lib, call, peak_flops=PEAK_F32_FLOPS))
     print(gpu)

@@ -1,5 +1,6 @@
 // Shared pieces of the flash-attention kernels: tile loads, mma.sync
-// fragment loads and the mask.  Included by flash_fwd.cu and flash_bwd.cu.
+// fragment loads and the mask.  Included by flash_fwd.cu, flash_bwd.cu and
+// flash_bwd_fused.cu.
 //
 // Layout contract (all three kernels): every bf16 operand is a (B, T, H*D)
 // view with unit column stride, a row stride `st` and a batch stride `sb`
@@ -106,6 +107,58 @@ __device__ __forceinline__ void frag_b_kn(uint32_t b[2], const bf16* s,
   const bf16* p = s + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
   b[0] = pack_bf16(p, p + LD);
   b[1] = pack_bf16(p + 8 * LD, p + 9 * LD);
+}
+
+// The same fragments with ldmatrix: one instruction per warp loads four
+// 8x8 b16 matrices, lane l giving the address of row l % 8 of matrix
+// l / 8 (rows 16-byte aligned).  Used by flash_bwd_fused.cu.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// As frag_a: A (16x16) at (row0, k0) of a row-major [m][k] matrix.
+template <int LD>
+__device__ __forceinline__ void ldsm_a(uint32_t a[4], const bf16* s,
+                                       int row0, int k0, int lane) {
+  const int m = lane >> 3;
+  ldsm_x4(a, s + (row0 + (lane & 7) + 8 * (m & 1)) * LD + k0 + 8 * (m >> 1));
+}
+
+// As frag_a, from a matrix stored transposed, [k][m].
+template <int LD>
+__device__ __forceinline__ void ldsm_a_t(uint32_t a[4], const bf16* s,
+                                         int row0, int k0, int lane) {
+  const int m = lane >> 3;
+  ldsm_x4_t(a, s + (k0 + (lane & 7) + 8 * (m >> 1)) * LD + row0 + 8 * (m & 1));
+}
+
+// As frag_b_nk for the two n-tiles n0 and n0 + 8: b = {b0[0], b0[1],
+// b1[0], b1[1]}.
+template <int LD>
+__device__ __forceinline__ void ldsm_b_nk(uint32_t b[4], const bf16* s,
+                                          int n0, int k0, int lane) {
+  const int m = lane >> 3;
+  ldsm_x4(b, s + (n0 + (lane & 7) + 8 * (m >> 1)) * LD + k0 + 8 * (m & 1));
+}
+
+// As frag_b_kn for the two n-tiles n0 and n0 + 8 (transposing load).
+template <int LD>
+__device__ __forceinline__ void ldsm_b_kn(uint32_t b[4], const bf16* s,
+                                          int k0, int n0, int lane) {
+  const int m = lane >> 3;
+  ldsm_x4_t(b, s + (k0 + (lane & 7) + 8 * (m & 1)) * LD + n0 + 8 * (m >> 1));
 }
 
 // A operand for k-step kk taken from two f32 accumulator tiles (16x8 each,

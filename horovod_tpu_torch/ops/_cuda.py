@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches since the last reset_launches(), per kernel.
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
-    "int8_quantize": 0, "int8_dequantize": 0}
+    "flash_bwd_fused": 0, "int8_quantize": 0, "int8_dequantize": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -49,6 +49,7 @@ _ARGTYPES = {
     "htt_flash_fwd": _VIEW * 4 + (_P,) + _TAIL,
     "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _TAIL,
     "htt_flash_bwd_dq": _VIEW * 4 + (_P, _P) + _VIEW + _TAIL,
+    "htt_flash_bwd_fused": _VIEW * 4 + (_P, _P) + _VIEW * 3 + (_P,) + _TAIL,
     "htt_int8_quantize": (_P, _P, _P, _I64, _P),
     "htt_int8_dequantize": (_P, _P, _P, _I64, _P),
 }
@@ -259,6 +260,36 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_heads: int, *, scale: float,
     _check(err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
+
+
+def flash_bwd_fused(q, k, v, do, lse, delta, num_heads: int, *,
+                    scale: float, causal: bool,
+                    seq_len: Optional[int] = None, dq=None, dk=None,
+                    dv=None):
+    """Port kernel P6, the one-pass backward.  Inputs as
+    :func:`flash_bwd_dkdv`; writes dq, dk and dv into the given
+    (B, T, H*D) bf16 views, or into new tensors, and returns (dq, dk, dv).
+    dq is summed in an f32 workspace of (B, T, H*D) with atomics, so its
+    last bits vary from run to run."""
+    (B, T, C, H, D, lim, dev), args = _bwd_inputs(
+        q, k, v, do, lse, delta, num_heads, seq_len)
+    fn = _lib("flash_bwd_fused").htt_flash_bwd_fused
+    dq = torch.empty((B, T, C), dtype=q.dtype, device=dev) if dq is None \
+        else dq
+    dk = torch.empty((B, T, C), dtype=k.dtype, device=dev) if dk is None \
+        else dk
+    dv = torch.empty((B, T, C), dtype=v.dtype, device=dev) if dv is None \
+        else dv
+    outs = [a for x, n in ((dq, "dq"), (dk, "dk"), (dv, "dv"))
+            for a in _view(x, n, (B, T, C), dev)]
+    work = torch.empty((B, T, C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, *outs, work.data_ptr(), B, H, T, D, lim,
+                 int(bool(causal)), float(scale), stream)
+    _check(err, "flash_bwd_fused")
+    LAUNCHES["flash_bwd_fused"] += 1
+    return dq, dk, dv
 
 
 _CODEC_BLOCK = 1024

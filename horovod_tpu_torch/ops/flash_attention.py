@@ -7,13 +7,20 @@ Port of ``horovod_tpu/ops/flash_attention.py:1406-1812``: the entry points
 here the autograd Functions ``_FlashQKVProj``, ``_FlashQKV`` and
 ``_FlashPacked``.
 
-Three kernels carry it (``csrc/``, built by :mod:`._cuda`):
+Four kernels carry it (``csrc/``, built by :mod:`._cuda`):
 
 * ``flash_fwd`` (P1) replaces the three Pallas forward forms
   (``_fwd_kernel``, ``_fwd_kernel_unrollkv``, ``_fwd_kernel_fullunroll``);
 * ``flash_bwd_dkdv`` (P2) replaces ``_dkdv_kernel`` and its head-grouped
   form;
-* ``flash_bwd_dq`` (P3) replaces ``_dq_kernel`` and its head-grouped form.
+* ``flash_bwd_dq`` (P3) replaces ``_dq_kernel`` and its head-grouped form;
+* ``flash_bwd_fused`` (P6) replaces the one-pass backwards
+  ``_bwd_fused_kernel`` and ``_bwd_kernel_fullunroll``.
+
+Which backward runs is :func:`_bwd_form`'s choice, made at backward time
+with the JAX package's conditions: the split pair P2 + P3, the one-pass
+P6, or the chunked ``"xla"`` backward :func:`_bwd_xla`, which is plain
+PyTorch on every device as it is plain XLA in the JAX package.
 
 Every kernel reads q, k and v from (B, T, H*D) views with unit column
 stride and any row stride, so the three may be column regions of ONE fused
@@ -24,10 +31,11 @@ regions of one (B, T, 3C) gradient.  lse is a contiguous (B, H, T) f32
 tensor.
 
 Beside each kernel is a plain PyTorch version of the same signature
-(``_flash_fwd_plain``, ``_flash_bwd_dkdv_plain``, ``_flash_bwd_dq_plain``)
-that computes in f32 with the same masking, cast points and clamps, and
-materialises the (T, T) scores one batch element at a time.  A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+(``_flash_fwd_plain``, ``_flash_bwd_dkdv_plain``, ``_flash_bwd_dq_plain``,
+``_flash_bwd_fused_plain``) that computes in f32 with the same masking,
+cast points and clamps, and materialises the (T, T) scores one batch
+element at a time.  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 
 The TPU block sizes mean nothing to the Hopper kernels, which choose their
 own 64-row tiles; ``block_q``/``block_k`` and their backward twins are
@@ -37,7 +45,8 @@ package's errors.
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +57,7 @@ from horovod_tpu_torch.parallel.ring_attention import _NEG_BIG
 
 
 # --------------------------------------------------------------------------
-# Plain versions of the three kernels.
+# Plain versions of the four kernels.
 
 
 def _visible(T: int, causal: bool, seq_len: Optional[int], device):
@@ -145,10 +154,38 @@ def _flash_bwd_dq_plain(q, k, v, do, lse, delta, num_heads: int, *,
     return dq
 
 
+def _flash_bwd_fused_plain(q, k, v, do, lse, delta, num_heads: int, *,
+                           scale: float, causal: bool,
+                           seq_len: Optional[int] = None, dq=None, dk=None,
+                           dv=None):
+    """Plain version of ``flash_bwd_fused``: dq, dk and dv from one
+    computation of p and ds per batch element, with the cast points of the
+    split pair, written into ``dq``/``dk``/``dv`` (new tensors when
+    None)."""
+    B, T, C = q.shape
+    ok = _visible(T, causal, seq_len, q.device)
+    dq = torch.empty((B, T, C), dtype=q.dtype, device=q.device) \
+        if dq is None else dq
+    dk = torch.empty((B, T, C), dtype=k.dtype, device=k.device) \
+        if dk is None else dk
+    dv = torch.empty((B, T, C), dtype=v.dtype, device=v.device) \
+        if dv is None else dv
+    for b in range(B):
+        qf, kf, dof, p, ds = _probs_and_ds(q, k, v, do, lse, delta, b,
+                                           num_heads, scale, ok)
+        dv[b] = _merge(p.to(do.dtype).float().transpose(1, 2) @ dof
+                       ).to(dv.dtype)
+        dk[b] = _merge(ds.to(q.dtype).float().transpose(1, 2) @ qf
+                       ).to(dk.dtype)
+        dq[b] = _merge(ds.to(k.dtype).float() @ kf).to(dq.dtype)
+    return dq, dk, dv
+
+
 _PLAIN = {
     "flash_fwd": _flash_fwd_plain,
     "flash_bwd_dkdv": _flash_bwd_dkdv_plain,
     "flash_bwd_dq": _flash_bwd_dq_plain,
+    "flash_bwd_fused": _flash_bwd_fused_plain,
 }
 
 
@@ -173,15 +210,139 @@ def _delta(do: torch.Tensor, o: torch.Tensor, num_heads: int):
             .sum(-1).transpose(1, 2).contiguous())
 
 
-def _flash_bwd(q, k, v, o, lse, do, num_heads, scale, causal, seq_len,
-               dq=None, dk=None, dv=None):
+# The JAX package's limits on its one-pass backwards
+# (horovod_tpu/ops/flash_attention.py:477, :486-488, :855).  They bound
+# TPU VMEM there; here they only decide which backward runs, so that both
+# packages take the same form for the same call.
+_FUSED_DQ_SCRATCH_BYTES = 4 << 20
+_FULL_UNROLL_BWD_MAX_BYTES = 512 << 10
+_FULL_UNROLL_MAX_T = 4096
+_FULL_UNROLL_BLOCK = 512
+_FULL_UNROLL_MAX_NQ = 8
+
+
+class _Cfg(NamedTuple):
+    """What a backward needs besides the saved tensors."""
+    num_heads: int
+    scale: float
+    causal: bool
+    seq_len: Optional[int]
+    bwd_impl: str
+    bwd_block_q: int
+    bwd_block_k: int
+
+
+def _bwd_group(num_heads: int) -> int:
+    """The head group of ``_bwd_pallas_packed`` when
+    ``HOROVOD_TPU_FLASH_BWD_GROUP`` is set (a malformed value means 1).
+    Its automatic group stands down whenever ``HOROVOD_TPU_FLASH_BWD`` is
+    set, so only the knob can shadow the one-pass form."""
+    try:
+        group = int(os.environ.get("HOROVOD_TPU_FLASH_BWD_GROUP", "1"))
+    except ValueError:
+        return 1
+    return group if group > 1 and num_heads % group == 0 else 1
+
+
+def _bwd_form(bwd_impl: str, T: int, D: int, itemsize: int,
+              bwd_block_q: int, bwd_block_k: int, num_heads: int) -> str:
+    """The backward the JAX package runs for this call: ``"fused"`` (the
+    one-pass P6), ``"split"`` (P2 + P3) or ``"xla"``.  The knobs are read
+    now, at backward time, as the JAX package reads them.
+
+    ``bwd_impl="pallas_fused"`` takes the merged ``_flash`` route there
+    and runs ``_bwd_fused_kernel`` while the f32 dq scratch fits
+    (``_flash_bwd`` :1592-1597); ``"pallas"``/``"pallas_split"`` with
+    D % 128 != 0 take the merged split pair, which never reads a knob.
+    The head-packed route (D % 128 == 0: ``flash_attention``,
+    ``flash_attention_qkv``, ``flash_qkv_proj``) runs
+    ``_bwd_kernel_fullunroll`` only under
+    ``HOROVOD_TPU_FLASH_BWD=fullunroll`` within its size limits
+    (``_bwd_pallas_packed`` :1231-1318)."""
+    if bwd_impl == "xla":
+        return "xla"
+    if bwd_impl == "pallas_fused":
+        return "fused" if T * D * 4 <= _FUSED_DQ_SCRATCH_BYTES else "split"
+    if D % 128:
+        return "split"
+    if os.environ.get("HOROVOD_TPU_FLASH_PACKED_BWD", "1") == "0" \
+            or _bwd_group(num_heads) > 1:
+        return "split"
+    fbb = min(_FULL_UNROLL_BLOCK, bwd_block_q, bwd_block_k, T)
+    if (os.environ.get("HOROVOD_TPU_FLASH_BWD") == "fullunroll"
+            and T <= _FULL_UNROLL_MAX_T and T % fbb == 0
+            and T // fbb <= _FULL_UNROLL_MAX_NQ
+            and T * D * itemsize <= _FULL_UNROLL_BWD_MAX_BYTES):
+        return "fused"
+    return "split"
+
+
+def _bwd_xla(q, k, v, o, lse, do, num_heads: int, *, scale: float,
+             causal: bool, chunk: int, seq_len: Optional[int] = None,
+             dq=None, dk=None, dv=None):
+    """Port of ``_bwd_xla`` (``flash_attention.py:629``): the flash
+    backward as f32 products over KV chunks of width ``chunk``, from the
+    saved lse.  dq accumulates across the chunks; dk and dv are computed
+    per chunk.  Plain PyTorch on every device, as it is plain XLA in the
+    JAX package.  Results in the dtypes of q, k and v, written into
+    ``dq``/``dk``/``dv`` when given."""
+    T = q.shape[1]
+
+    def heads(x):   # (B, T, H*D) -> (B, H, T, D) f32
+        return x.unflatten(-1, (num_heads, -1)).transpose(1, 2).float()
+
+    qf, kf, vf, dof = (heads(x) for x in (q, k, v, do))
+    delta = _delta(do, o, num_heads)[..., None]              # (B, H, T, 1)
+    lse = lse[..., None]
+    rows = torch.arange(T, device=q.device)
+    dqf = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for start in range(0, T, chunk):
+        ks = kf[:, :, start:start + chunk]
+        vs = vf[:, :, start:start + chunk]
+        cols = rows[start:start + chunk]
+        s = qf @ ks.transpose(-1, -2) * scale
+        mask = None
+        if causal:
+            mask = cols[None, :] <= rows[:, None]
+        if seq_len is not None:
+            lim = (rows[:, None] < seq_len) & (cols[None, :] < seq_len)
+            mask = lim if mask is None else mask & lim
+        if mask is not None:
+            s = torch.where(mask, s, _NEG_BIG)
+        p = torch.exp(s - lse)
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+        dp = dof @ vs.transpose(-1, -2)
+        ds = p * (dp - delta) * scale
+        dqf = dqf + ds @ ks
+        dks.append(ds.transpose(-1, -2) @ qf)
+        dvs.append(p.transpose(-1, -2) @ dof)
+    outs = []
+    for g, like, out in ((dqf, q, dq), (torch.cat(dks, 2), k, dk),
+                         (torch.cat(dvs, 2), v, dv)):
+        g = g.transpose(1, 2).flatten(2).to(like.dtype)
+        outs.append(g if out is None else out.copy_(g))
+    return tuple(outs)
+
+
+def _flash_bwd(q, k, v, o, lse, do, cfg: _Cfg, dq=None, dk=None, dv=None):
     do = do.contiguous()
-    delta = _delta(do, o, num_heads)
-    kw = dict(scale=scale, causal=causal, seq_len=seq_len)
-    dk, dv = _dispatch("flash_bwd_dkdv", q, k, v, do, lse, delta,
-                       num_heads, dk=dk, dv=dv, **kw)
-    dq = _dispatch("flash_bwd_dq", q, k, v, do, lse, delta, num_heads,
-                   dq=dq, **kw)
+    H = cfg.num_heads
+    T, D = q.shape[1], q.shape[2] // H
+    form = _bwd_form(cfg.bwd_impl, T, D, q.element_size(), cfg.bwd_block_q,
+                     cfg.bwd_block_k, H)
+    kw = dict(scale=cfg.scale, causal=cfg.causal, seq_len=cfg.seq_len)
+    if form == "xla":
+        return _bwd_xla(q, k, v, o, lse, do, H, chunk=cfg.bwd_block_k,
+                        dq=dq, dk=dk, dv=dv, **kw)
+    delta = _delta(do, o, H)
+    if form == "fused":
+        return _dispatch("flash_bwd_fused", q, k, v, do, lse, delta, H,
+                         dq=dq, dk=dk, dv=dv, **kw)
+    dk, dv = _dispatch("flash_bwd_dkdv", q, k, v, do, lse, delta, H,
+                       dk=dk, dv=dv, **kw)
+    dq = _dispatch("flash_bwd_dq", q, k, v, do, lse, delta, H, dq=dq, **kw)
     return dq, dk, dv
 
 
@@ -191,22 +352,28 @@ def _split3(x: torch.Tensor):
     return x[..., :C], x[..., C:2 * C], x[..., 2 * C:]
 
 
+def _forward(q, k, v, cfg: _Cfg):
+    return _dispatch("flash_fwd", q, k, v, cfg.num_heads, scale=cfg.scale,
+                     causal=cfg.causal, seq_len=cfg.seq_len)
+
+
 class _FlashPacked(torch.autograd.Function):
-    """Flash attention on three (B, T, H*D) tensors (``_flash_packed``)."""
+    """Flash attention on three (B, T, H*D) tensors (``_flash_packed``,
+    and ``_flash`` for the backwards that the JAX package runs on merged
+    views)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, scale, causal, seq_len):
-        o, lse = _dispatch("flash_fwd", q, k, v, num_heads, scale=scale,
-                           causal=causal, seq_len=seq_len)
+    def forward(ctx, q, k, v, cfg):
+        o, lse = _forward(q, k, v, cfg)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (num_heads, scale, causal, seq_len)
+        ctx.cfg = cfg
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, ctx.cfg)
+        return dq, dk, dv, None
 
 
 class _FlashQKV(torch.autograd.Function):
@@ -215,19 +382,18 @@ class _FlashQKV(torch.autograd.Function):
     kernels in place of the JAX package's concatenate."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, scale, causal, seq_len):
-        o, lse = _dispatch("flash_fwd", *_split3(qkv), num_heads,
-                           scale=scale, causal=causal, seq_len=seq_len)
+    def forward(ctx, qkv, cfg):
+        o, lse = _forward(*_split3(qkv), cfg)
         ctx.save_for_backward(qkv, o, lse)
-        ctx.cfg = (num_heads, scale, causal, seq_len)
+        ctx.cfg = cfg
         return o
 
     @staticmethod
     def backward(ctx, do):
         qkv, o, lse = ctx.saved_tensors
         dqkv = torch.empty_like(qkv)
-        _flash_bwd(*_split3(qkv), o, lse, do, *ctx.cfg, *_split3(dqkv))
-        return dqkv, None, None, None, None
+        _flash_bwd(*_split3(qkv), o, lse, do, ctx.cfg, *_split3(dqkv))
+        return dqkv, None
 
 
 class _FlashQKVProj(torch.autograd.Function):
@@ -236,12 +402,10 @@ class _FlashQKVProj(torch.autograd.Function):
     (x, w), one extra product in exchange for never holding it."""
 
     @staticmethod
-    def forward(ctx, x, w, num_heads, scale, causal, seq_len):
-        qkv = x @ w.to(x.dtype)
-        o, lse = _dispatch("flash_fwd", *_split3(qkv), num_heads,
-                           scale=scale, causal=causal, seq_len=seq_len)
+    def forward(ctx, x, w, cfg):
+        o, lse = _forward(*_split3(x @ w.to(x.dtype)), cfg)
         ctx.save_for_backward(x, w, o, lse)
-        ctx.cfg = (num_heads, scale, causal, seq_len)
+        ctx.cfg = cfg
         return o
 
     @staticmethod
@@ -250,12 +414,12 @@ class _FlashQKVProj(torch.autograd.Function):
         wc = w.to(x.dtype)
         qkv = x @ wc
         dqkv = torch.empty_like(qkv)
-        _flash_bwd(*_split3(qkv), o, lse, do, *ctx.cfg, *_split3(dqkv))
+        _flash_bwd(*_split3(qkv), o, lse, do, ctx.cfg, *_split3(dqkv))
         del qkv
         dx = (dqkv @ wc.t()).to(x.dtype)
         dw = mm_f32(x.reshape(-1, x.shape[-1]).t(),
                     dqkv.reshape(-1, dqkv.shape[-1])).to(w.dtype)
-        return dx, dw, None, None, None, None
+        return dx, dw, None
 
 
 # --------------------------------------------------------------------------
@@ -351,11 +515,12 @@ def flash_qkv_proj(x, w, num_heads: int, *, causal: bool = True,
             f"got D={D}")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    *_, seq_len = _resolve_blocks(
+    _, _, bwd_block_q, bwd_block_k, seq_len = _resolve_blocks(
         T, "flash_qkv_proj", block_q, block_k, bwd_block_q, bwd_block_k,
         seq_len, "pad the sequence to a tileable length")
-    return _FlashQKVProj.apply(x, w, int(num_heads), float(scale),
-                               bool(causal), seq_len)
+    return _FlashQKVProj.apply(x, w, _Cfg(
+        int(num_heads), float(scale), bool(causal), seq_len, "pallas",
+        bwd_block_q, bwd_block_k))
 
 
 def flash_attention_qkv(qkv, num_heads: int, *, causal: bool = True,
@@ -381,11 +546,12 @@ def flash_attention_qkv(qkv, num_heads: int, *, causal: bool = True,
             f"flash_attention instead")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    *_, seq_len = _resolve_blocks(
+    _, _, bwd_block_q, bwd_block_k, seq_len = _resolve_blocks(
         T, "flash_attention_qkv", block_q, block_k, bwd_block_q,
         bwd_block_k, seq_len, "pad, or split and use flash_attention_auto")
-    return _FlashQKV.apply(qkv, int(num_heads), float(scale), bool(causal),
-                           seq_len)
+    return _FlashQKV.apply(qkv, _Cfg(
+        int(num_heads), float(scale), bool(causal), seq_len, "pallas",
+        bwd_block_q, bwd_block_k))
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -400,10 +566,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
     :func:`~horovod_tpu_torch.parallel.ring_attention.full_attention`.
 
     ``seq_len``: real length when the inputs are zero-padded to ``T``;
-    positions past it are masked on rows and columns.  ``bwd_impl``
-    ``"pallas"``/``"pallas_split"`` is the split dk/dv + dq kernel pair;
-    the one-pass ``"pallas_fused"`` and the chunked ``"xla"`` backwards are
-    not ported yet and raise ``NotImplementedError``."""
+    positions past it are masked on rows and columns.  ``bwd_impl``:
+    ``"pallas"``/``"pallas_split"`` is the split dk/dv + dq kernel pair
+    (the one-pass kernel under ``HOROVOD_TPU_FLASH_BWD=fullunroll``, as in
+    the JAX package), ``"pallas_fused"`` the one-pass kernel while the
+    JAX package's 4 MiB f32 dq bound (T * D * 4 bytes) holds and the
+    split pair past it, ``"xla"`` the chunked backward over KV chunks of
+    ``bwd_block_k`` (:func:`_bwd_xla`)."""
     B, T, H, D = q.shape
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -411,19 +580,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"bwd_impl must be 'pallas' (auto fused/split), "
                          f"'pallas_fused', 'pallas_split' or 'xla', got "
                          f"{bwd_impl!r}")
-    if bwd_impl in ("pallas_fused", "xla"):
-        raise NotImplementedError(
-            f"flash_attention: bwd_impl={bwd_impl!r} is not ported yet; "
-            f"use 'pallas' (the split dk/dv + dq kernels)")
-    *_, seq_len = _resolve_blocks(
+    _, _, bwd_block_q, bwd_block_k, seq_len = _resolve_blocks(
         T, "flash_attention", block_q, block_k, bwd_block_q, bwd_block_k,
         seq_len, "T divisible by the blocks is required — use "
         "flash_attention_auto (pads and masks) or full_attention for "
         "ragged lengths")
     out = _FlashPacked.apply(
         q.reshape(B, T, H * D), k.reshape(B, T, H * D),
-        v.reshape(B, T, H * D), int(H), float(scale), bool(causal),
-        seq_len)
+        v.reshape(B, T, H * D), _Cfg(int(H), float(scale), bool(causal),
+                                     seq_len, bwd_impl, bwd_block_q,
+                                     bwd_block_k))
     return out.reshape(B, T, H, D)
 
 

@@ -3,10 +3,15 @@
 The same numpy inputs go through ``horovod_tpu.ops.flash_attention`` (Pallas
 in interpret mode) and ``horovod_tpu_torch.ops.flash_attention``, whose CPU
 path is the plain PyTorch version of each kernel; the CUDA kernels are held
-against those plain versions on the card by ``chip_smoke.py``.  Everything
-is f32.  Tolerances: 2e-5 on o and lse (the two sum the same terms in
-another order); 1e-4 absolute and relative on gradients, which add one
-more reassociated product.
+against those plain versions on the card by ``chip_smoke.py``.  The
+backward forms (the split pair, the one-pass kernel under
+``bwd_impl="pallas_fused"`` or ``HOROVOD_TPU_FLASH_BWD=fullunroll``, and
+the chunked ``"xla"`` backward) are each held against the JAX package's,
+and the port's choice between them against what JAX traces for the same
+call.  Everything is f32 unless a test says otherwise.  Tolerances: 2e-5
+on o and lse (the two sum the same terms in another order); 1e-4
+absolute and relative on gradients, which add one more reassociated
+product.
 """
 
 import ast
@@ -226,19 +231,189 @@ def test_entry_point_errors_match_jax():
 
 
 def test_unported_backward_forms_raise():
-    q = torch.zeros((B, T, H, D))
-    for impl in ("pallas_fused", "xla"):
-        with pytest.raises(NotImplementedError):
-            tfa.flash_attention(q, q, q, bwd_impl=impl)
+    """Every ``bwd_impl`` of the JAX package has a backward in the port;
+    only a name that neither package has raises, as in the JAX package."""
+    q = torch.zeros((B, T, H, D), requires_grad=True)
+    for impl in ("pallas", "pallas_fused", "pallas_split", "xla"):
+        q.grad = None
+        tfa.flash_attention(q, q, q, bwd_impl=impl).sum().backward()
+        assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    with pytest.raises(ValueError, match="bwd_impl must be"):
+        tfa.flash_attention(q, q, q, bwd_impl="pallas_grouped")
 
 
-def test_dispatch_sends_cpu_tensors_to_plain_versions(monkeypatch):
+def _attention_grads(impl, D_, causal, seq_len, blocks, rng):
+    """Gradients of ``flash_attention(bwd_impl=impl)`` from both packages
+    on the same inputs and cotangent."""
+    q, k, v, g = (_normal(rng, (B, T, H, D_)) for _ in range(4))
+    kw = dict(causal=causal, seq_len=seq_len, bwd_impl=impl, **blocks)
+
+    def jloss(q, k, v):
+        return (jfa.flash_attention(q, k, v, interpret=True, **kw)
+                * jnp.asarray(g)).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (tfa.flash_attention(*ts, **kw) * torch.from_numpy(g)).sum().backward()
+    return [t.grad.numpy() for t in ts], [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("impl,D_,causal,seq_len,blocks", [
+    ("pallas_fused", 128, True, None, dict(block_q=32, block_k=32)),
+    ("pallas_fused", 64, False, 100, dict(bwd_block_q=32, bwd_block_k=64)),
+    ("pallas_fused", 128, True, 72, dict(bwd_block_q=64, bwd_block_k=16)),
+    ("xla", 128, True, None, dict(block_q=32, block_k=32)),
+    ("xla", 64, True, 100, dict(bwd_block_q=64, bwd_block_k=32)),
+    ("xla", 128, False, 72, dict(bwd_block_q=16, bwd_block_k=64)),
+])
+def test_bwd_impl_grads_match_jax(impl, D_, causal, seq_len, blocks):
+    """``bwd_impl="pallas_fused"`` (JAX: ``_bwd_fused_kernel`` in
+    interpret mode; the port: the one-pass plain version) and ``"xla"``
+    (the chunked backward in both), with ``seq_len`` padding and uneven
+    backward blocks."""
+    got, want = _attention_grads(impl, D_, causal, seq_len, blocks,
+                                 _rng(7))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **GRAD_TOL)
+
+
+def _spy_kernels(monkeypatch, module, names):
+    """Record which of ``module``'s functions ``names`` run."""
+    seen = []
+    for name in names:
+        fn = getattr(module, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            seen.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(module, name, spy)
+    return seen
+
+
+def _spy_plain(monkeypatch):
     calls = []
     for name, fn in list(tfa._PLAIN.items()):
         def spy(*a, _fn=fn, _name=name, **kw):
             calls.append(_name)
             return _fn(*a, **kw)
         monkeypatch.setitem(tfa._PLAIN, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("entry,causal,seq_len", [
+    ("proj", True, None), ("proj", True, 100),
+    ("packed", False, None), ("packed", True, 72)])
+def test_fullunroll_grads_match_jax(monkeypatch, entry, causal, seq_len):
+    """Under ``HOROVOD_TPU_FLASH_BWD=fullunroll`` with blocks of 32 at
+    T 128, JAX runs ``_bwd_kernel_fullunroll`` with n = 4 (called outside
+    ``shard_map``, where interpret mode would take the split pair) and the
+    port its one-pass backward; the gradients agree."""
+    monkeypatch.setenv("HOROVOD_TPU_FLASH_BWD", "fullunroll")
+    ran = _spy_kernels(monkeypatch, jfa, ["_bwd_kernel_fullunroll"])
+    calls = _spy_plain(monkeypatch)
+    rng = _rng(8)
+    kw = dict(causal=causal, seq_len=seq_len, block_q=32, block_k=32)
+    if entry == "proj":
+        ins = [_normal(rng, (B, T, C)), _normal(rng, (C, 3 * C), C ** -0.5)]
+        jfn = lambda x, w: jfa.flash_qkv_proj(x, w, H, interpret=True, **kw)
+        tfn = lambda x, w: tfa.flash_qkv_proj(x, w, H, **kw)
+        g = _normal(rng, (B, T, C))
+    else:
+        ins = [_normal(rng, (B, T, H, D)) for _ in range(3)]
+        jfn = lambda *a: jfa.flash_attention(*a, interpret=True, **kw)
+        tfn = lambda *a: tfa.flash_attention(*a, **kw)
+        g = _normal(rng, (B, T, H, D))
+    want = jax.grad(lambda *a: (jfn(*a) * jnp.asarray(g)).sum(),
+                    argnums=tuple(range(len(ins))))(*map(jnp.asarray, ins))
+    ts = [torch.from_numpy(a).requires_grad_() for a in ins]
+    (tfn(*ts) * torch.from_numpy(g)).sum().backward()
+    assert ran and calls == ["flash_fwd", "flash_bwd_fused"]
+    for t, w_ in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w_),
+                                   **GRAD_TOL)
+
+
+# The backward kernel each JAX route traces first, by the form it is.
+_JAX_FORMS = {"_bwd_kernel_fullunroll": "fused", "_bwd_fused_kernel": "fused",
+              "_dkdv_kernel": "split", "_dkdv_kernel_grouped": "split",
+              "_bwd_xla": "xla"}
+
+
+@pytest.mark.parametrize("dtype,T_,D_,impl,env,bwd", [
+    # bwd_impl="pallas_fused": the f32 dq scratch T * D * 4 <= 4 MiB.
+    ("float32", 8192, 128, "pallas_fused", {}, None),
+    ("float32", 16384, 128, "pallas_fused", {}, None),
+    ("bfloat16", 16384, 64, "pallas_fused", {}, None),
+    ("bfloat16", 32768, 64, "pallas_fused", {}, None),
+    # The knob on the packed route: T * D * itemsize <= 512 KiB ...
+    ("float32", 1024, 128, "pallas", {"FLASH_BWD": "fullunroll"}, None),
+    ("float32", 2048, 128, "pallas", {"FLASH_BWD": "fullunroll"}, None),
+    ("bfloat16", 2048, 128, "pallas", {"FLASH_BWD": "fullunroll"}, None),
+    ("bfloat16", 4096, 128, "pallas", {"FLASH_BWD": "fullunroll"}, None),
+    # ... T <= 4096, T // fbb <= 8 and T % fbb == 0 (fbb <= 512) ...
+    ("bfloat16", 8192, 128, "pallas_split", {"FLASH_BWD": "fullunroll"},
+     None),
+    ("float32", 1024, 128, "pallas", {"FLASH_BWD": "fullunroll"}, 128),
+    ("float32", 1024, 128, "pallas", {"FLASH_BWD": "fullunroll"}, 64),
+    ("bfloat16", 1280, 128, "pallas", {"FLASH_BWD": "fullunroll"}, None),
+    # ... D % 128 == 0, no head group, no merged layout, and the knob.
+    ("float32", 1024, 64, "pallas", {"FLASH_BWD": "fullunroll"}, None),
+    ("float32", 1024, 128, "pallas", {"FLASH_BWD_GROUP": "2",
+                                      "FLASH_BWD": "fullunroll"}, None),
+    ("float32", 1024, 128, "pallas", {"FLASH_PACKED_BWD": "0",
+                                      "FLASH_BWD": "fullunroll"}, None),
+    ("float32", 1024, 128, "pallas", {"FLASH_BWD": "split"}, None),
+    ("float32", 1024, 128, "xla", {"FLASH_BWD": "fullunroll"}, None),
+])
+def test_bwd_form_matches_jax(monkeypatch, dtype, T_, D_, impl, env, bwd):
+    """The port's routing function names the backward that the JAX
+    package traces for the same call, at each of its size limits.  JAX
+    is only traced (``jax.eval_shape``), never run, at these lengths."""
+    for knob in ("FLASH_BWD", "FLASH_BWD_GROUP", "FLASH_PACKED_BWD"):
+        monkeypatch.delenv("HOROVOD_TPU_" + knob, raising=False)
+    for knob, value in env.items():
+        monkeypatch.setenv("HOROVOD_TPU_" + knob, value)
+    seen = _spy_kernels(monkeypatch, jfa, list(_JAX_FORMS))
+    H_ = 2
+    blocks = {} if bwd is None else dict(bwd_block_q=bwd, bwd_block_k=bwd)
+    x = jax.ShapeDtypeStruct((1, T_, H_, D_), jnp.dtype(dtype))
+
+    def loss(q, k, v):
+        return jfa.flash_attention(q, k, v, interpret=True, bwd_impl=impl,
+                                   **blocks).astype(jnp.float32).sum()
+
+    jax.eval_shape(jax.grad(loss, argnums=(0, 1, 2)), x, x, x)
+    _, _, bq, bk, _ = tfa._resolve_blocks(T_, "f", None, None, bwd, bwd,
+                                          None, "")
+    itemsize = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    assert seen and tfa._bwd_form(impl, T_, D_, itemsize, bq, bk, H_) == \
+        _JAX_FORMS[seen[0]]
+
+
+@pytest.mark.parametrize("dtype,causal,seq_len", [
+    (torch.float32, True, None), (torch.float32, False, 40),
+    (torch.bfloat16, True, 50)])
+def test_fused_plain_equals_split_plain(dtype, causal, seq_len):
+    """The one-pass plain version computes the split pair's arithmetic in
+    the same order: bit for bit the same dq, dk and dv."""
+    rng = _rng(9)
+    qkv = torch.from_numpy(_normal(rng, (2, 64, 3 * C))).to(dtype)
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    do = torch.from_numpy(_normal(rng, (2, 64, C))).to(dtype)
+    kw = dict(scale=D ** -0.5, causal=causal, seq_len=seq_len)
+    o, lse = tfa._flash_fwd_plain(q, k, v, H, **kw)
+    delta = tfa._delta(do, o, H)
+    dq, dk, dv = tfa._flash_bwd_fused_plain(q, k, v, do, lse, delta, H,
+                                            **kw)
+    dk2, dv2 = tfa._flash_bwd_dkdv_plain(q, k, v, do, lse, delta, H, **kw)
+    dq2 = tfa._flash_bwd_dq_plain(q, k, v, do, lse, delta, H, **kw)
+    for a, b in ((dq, dq2), (dk, dk2), (dv, dv2)):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_dispatch_sends_cpu_tensors_to_plain_versions(monkeypatch):
+    monkeypatch.delenv("HOROVOD_TPU_FLASH_BWD", raising=False)
+    calls = _spy_plain(monkeypatch)
 
     def fail(*a, **kw):
         raise AssertionError("a CPU tensor reached a CUDA kernel wrapper")
@@ -250,18 +425,35 @@ def test_dispatch_sends_cpu_tensors_to_plain_versions(monkeypatch):
     assert calls == ["flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"]
 
 
+def test_fullunroll_knob_sends_cpu_backward_to_fused(monkeypatch):
+    """Under the knob the CPU backward takes the one-pass plain version,
+    and no CUDA wrapper; read at backward time, as in the JAX package."""
+    calls = _spy_plain(monkeypatch)
+
+    def fail(*a, **kw):
+        raise AssertionError("a CPU tensor reached a CUDA kernel wrapper")
+
+    for name in tfa._PLAIN:
+        monkeypatch.setattr(_cuda, name, fail)
+    x = torch.randn(1, 64, 3 * C, requires_grad=True)
+    out = tfa.flash_attention_qkv(x, H)
+    monkeypatch.setenv("HOROVOD_TPU_FLASH_BWD", "fullunroll")
+    out.sum().backward()
+    assert calls == ["flash_fwd", "flash_bwd_fused"]
+
+
 def test_dispatch_has_no_fallback():
     """No ``try`` around the kernel path: the dispatcher and the kernel
     wrappers contain no exception handler at all."""
     for fn in (tfa._dispatch, _cuda.flash_fwd, _cuda.flash_bwd_dkdv,
-               _cuda.flash_bwd_dq, _cuda._lib):
+               _cuda.flash_bwd_dq, _cuda.flash_bwd_fused, _cuda._lib):
         tree = ast.parse(inspect.getsource(fn).strip())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], \
             fn.__name__
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkdv",
-                                  "flash_bwd_dq"])
+                                  "flash_bwd_dq", "flash_bwd_fused"])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """A kernel wrapper never computes on the CPU: it raises before it
     builds anything."""

@@ -3,7 +3,8 @@
 * Whole slice: two steps of the JAX package's ``make_train_step`` (fused
   cross-entropy, ``optax.sgd(0.01, momentum=0.9)``) and two of the port's,
   from identical params, in f32 on the CPU: losses to rtol 1e-5, every
-  param after step 2 to atol 1e-5 (reassociated f32 sums).
+  param after step 2 to atol 1e-5 (reassociated f32 sums); once more with
+  the port's one-pass flash backward (``HOROVOD_TPU_FLASH_BWD=fullunroll``).
 * Reduction: a 2-process gloo group; averages equal numpy's mean of the
   per-rank gradients exactly, the bucket plan is ``pack_buckets``' in the
   scheduler's issue order, overlap on and off are bit-identical, and two
@@ -45,6 +46,29 @@ CFG = dict(vocab=512, dim=256, depth=2, num_heads=2, max_len=128,
 
 
 def test_two_sgd_momentum_steps_match_jax():
+    _two_steps_match_jax()
+
+
+def test_two_sgd_momentum_steps_match_jax_one_pass(monkeypatch):
+    """The slice under ``HOROVOD_TPU_FLASH_BWD=fullunroll``: the port's
+    backward is the one-pass form at every layer; the JAX step runs under
+    ``shard_map``, where interpret mode keeps the split pair, which
+    computes the same function, so the tolerances hold unchanged."""
+    from horovod_tpu_torch.ops import flash_attention as tfa
+    monkeypatch.setenv("HOROVOD_TPU_FLASH_BWD", "fullunroll")
+    calls = []
+    fused = tfa._PLAIN["flash_bwd_fused"]
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return fused(*a, **kw)
+
+    monkeypatch.setitem(tfa._PLAIN, "flash_bwd_fused", spy)
+    _two_steps_match_jax()
+    assert len(calls) == 2 * CFG["depth"]
+
+
+def _two_steps_match_jax():
     jmodel = JaxLM(**CFG, dtype=jnp.float32, head_dtype=jnp.float32,
                    ln_dtype=jnp.float32)
     tokens = np.random.default_rng(0).integers(
