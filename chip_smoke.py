@@ -11,12 +11,15 @@ the checkout.  Phases, in order; any failure ends the run:
    CUDA kernels from ``horovod_tpu_torch/csrc`` (timed).
 2. Kernels: each flash kernel (forward P1, dk/dv P2, dq P3) at the training
    shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read from one
-   (B, T, 3C) projection) and on a small non-causal and a ragged
-   ``seq_len`` case, held against its plain PyTorch version on the same
-   inputs; then timed (CUDA events, median of 20 launches) beside its
-   plain version, its bound at the H100 SXM peaks and
-   ``scaled_dot_product_attention`` as a yardstick.  One line
-   ``{"kernels": [...]}`` carries the numbers.
+   (B, T, 3C) projection) and on four small cases (non-causal T 512; a
+   ragged ``seq_len`` at D 64; D 80, which P1 and P2 pad to 128 columns;
+   T 192 with ``seq_len`` 130, a ragged edge inside a 128-row tile and
+   across a 64-row one), held against its plain PyTorch version on the
+   same inputs; P1 and P2 launched twice on the training shape must give
+   bit-identical results.  Then timed (CUDA events around 10 launches,
+   median of 20 such batches) beside its plain version, its bound at the
+   H100 SXM peaks and ``scaled_dot_product_attention`` as a yardstick.
+   One line ``{"kernels": [...]}`` carries the numbers.
 3. One-pass backward: P6 (``flash_bwd_fused``) on the same three cases,
    held against its plain version and against P2 + P3 on the same inputs,
    then timed at the training shape beside its plain version and the
@@ -102,9 +105,10 @@ TOL_FIRST_LOSS = 1e-5              # int8 phase vs plain phase, relative
 # 1.21e-5 measured on an H100 80GB HBM3 at 700 W (PERF.md, PR 2).
 TOL_LOSS_TRACK = 1e-4
 # Every loss of the one-pass phase against the split phase's, relative.
-# P6 sums dq with atomics in another order than P3, so the gradients
-# differ in their last bits and the losses drift apart a little: about 7x
-# the 1.51e-5 measured on an H100 80GB HBM3 at 700 W (PERF.md).
+# P6 sums dq with atomics in another order than P3, and dk and dv in
+# another order than P2, so the gradients differ in their last bits and
+# the losses drift apart a little: about 7x the 1.51e-5 measured on an
+# H100 80GB HBM3 at 700 W (PERF.md).
 TOL_ONE_PASS = 1e-4
 
 
@@ -135,8 +139,12 @@ def _clocks() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of per-launch CUDA-event times of ``fn()``."""
+def _median_ms(fn, runs: int = 20, warmup: int = 3, reps: int = 10) -> float:
+    """Median over ``runs`` of the CUDA-event time of ``reps`` back-to-back
+    calls of ``fn()``, per call.  Events around a single call would also
+    count the host's launch overhead (tens of microseconds for a wrapper
+    that encodes tensor maps) whenever that exceeds the device's time
+    queued ahead; a batch keeps the device busy from the first call on."""
     for _ in range(warmup):
         fn()
     times = []
@@ -144,10 +152,11 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -177,8 +186,10 @@ def phase_device():
     libs, seconds, log = _cuda.build()
     print(f"kernels built in {seconds:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
-    # ptxas' resource lines for the D=128 flash instantiations and the
-    # codec kernels (registers, spills).
+    # ptxas' resource lines for the D=128 flash instantiations (P1 and P2
+    # are instantiated for the padded head size, 128 at D 128) and the
+    # codec kernels (registers, spills), and any ptxas warning (a
+    # setmaxnreg that ptxas ignored shows there).
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and (
@@ -187,6 +198,8 @@ def phase_device():
             usage = " | ".join(l.strip() for l in lines[i + 1:i + 4]
                                if "ptxas info" in l or "bytes stack" in l)
             print(f"  {name}: {usage}")
+        elif "warning" in line.lower():
+            print(f"  {line.strip()}")
 
 
 def _case(B, H, T, D, causal, seq_len, gen):
@@ -245,11 +258,11 @@ def _run_case(c, label, timing=False):
         "dq": _median_ms(lambda: _cuda.flash_bwd_dq(
             q, k, v, do, lse, delta, H, **kw)),
         "fwd_plain": _median_ms(lambda: fa._flash_fwd_plain(
-            q, k, v, H, **kw), runs=3, warmup=1),
+            q, k, v, H, **kw), runs=3, warmup=1, reps=1),
         "dkdv_plain": _median_ms(lambda: fa._flash_bwd_dkdv_plain(
-            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1),
+            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1, reps=1),
         "dq_plain": _median_ms(lambda: fa._flash_bwd_dq_plain(
-            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1),
+            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1, reps=1),
     }
     # Yardstick only: PyTorch's own fused attention on the same data in
     # its (B, H, T, D) layout.  The port never calls it.
@@ -293,24 +306,60 @@ def phase_kernels():
     _run_case(_case(2, 2, 512, 128, False, None, gen), "non-causal T=512")
     _run_case(_case(2, 3, 200, 64, True, 150, gen),
               "ragged T=200 seq_len=150 D=64")
+    _run_case(_case(2, 3, 200, 80, True, 150, gen),
+              "padded head T=200 seq_len=150 D=80")
+    _run_case(_case(2, 2, 192, 128, True, 130, gen),
+              "ragged T=192 seq_len=130 D=128")
     main = _case(BATCH, HEADS, SEQ, DIM // HEADS, True, None, gen)
     errs, times = _run_case(main, "main B=8 H=16 T=2048 D=128 causal",
                             timing=True)
+    _check_deterministic(main)
     B, H, T, D = BATCH, HEADS, SEQ, DIM // HEADS
     pairs = B * H * _visible_pairs(T, True, None)
     tensor = B * T * H * D * 2          # one (B, T, C) bf16 tensor
     rows = B * H * T * 4                # one (B, H, T) f32 tensor
-    return {
-        "errs": errs, "times": times,
-        "work": {
-            "flash_fwd": (4 * D * pairs, 4 * tensor + rows),
-            "flash_bwd_dkdv": (8 * D * pairs, 6 * tensor + 2 * rows),
-            "flash_bwd_dq": (6 * D * pairs, 5 * tensor + 2 * rows),
-            # Five products per pair; q, k, v, dO read, dq, dk, dv written,
-            # lse and delta read.
-            FUSED: (10 * D * pairs, 7 * tensor + 2 * rows),
-        },
+    work = {
+        "flash_fwd": (4 * D * pairs, 4 * tensor + rows),
+        "flash_bwd_dkdv": (8 * D * pairs, 6 * tensor + 2 * rows),
+        "flash_bwd_dq": (6 * D * pairs, 5 * tensor + 2 * rows),
+        # Five products per pair; q, k, v, dO read, dq, dk, dv written,
+        # lse and delta read.
+        FUSED: (10 * D * pairs, 7 * tensor + 2 * rows),
     }
+    for name, key, lib in (("flash_fwd", "fwd", "sdpa_fwd"),
+                           ("flash_bwd_dkdv", "dkdv", "sdpa_bwd"),
+                           ("flash_bwd_dq", "dq", "sdpa_bwd")):
+        flops = work[name][0]
+        bound = flops / PEAK_BF16_FLOPS * 1e3
+        print(f"  main: {name} {times[key]:.4f} ms, "
+              f"{flops / times[key] / 1e9:.1f} TFLOP/s, "
+              f"{bound / times[key]:.3f} of its bound ({bound:.4f} ms); "
+              f"{times[key] / times[lib]:.2f}x the "
+              f"scaled_dot_product_attention "
+              f"{'forward' if lib == 'sdpa_fwd' else 'backward'} "
+              f"({times[lib]:.4f} ms)")
+    return {"errs": errs, "times": times, "work": work}
+
+
+def _check_deterministic(c) -> None:
+    """P1 and P2 launched twice on the same inputs give the same bits (no
+    atomics, a fixed order); P3 is deterministic too, P6 is not."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
+    o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
+    o2, lse2 = _cuda.flash_fwd(q, k, v, H, **kw)
+    delta = fa._delta(do, o, H)
+    dk, dv = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    dk2, dv2 = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    torch.cuda.synchronize()
+    same = {"o": _bits_equal(o, o2), "lse": _bits_equal(lse, lse2),
+            "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2)}
+    print("  main: P1 and P2 launched twice: " + ", ".join(
+        f"{n} {'bit-identical' if ok else 'DIFFERENT'}"
+        for n, ok in same.items()))
+    _check(all(same.values()), f"P1/P2 are not deterministic: {same}")
 
 
 def _fused_case(c, label, timing=False):
@@ -351,7 +400,7 @@ def _fused_case(c, label, timing=False):
         FUSED: _median_ms(lambda: _cuda.flash_bwd_fused(
             q, k, v, do, lse, delta, H, **kw)),
         FUSED + "_plain": _median_ms(lambda: fa._flash_bwd_fused_plain(
-            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1),
+            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1, reps=1),
     }
     return errs, times
 
@@ -441,6 +490,13 @@ def _one_pass(on: bool):
             os.environ.pop("HOROVOD_TPU_FLASH_BWD", None)
 
 
+def _model_flops(depth: int) -> int:
+    """Model FLOPs of one step, as bench.py counts them: 6 x matmul
+    parameters + 12 x depth x seq x dim per token."""
+    n_matmul = 12 * depth * DIM * DIM + VOCAB * DIM
+    return (6 * n_matmul + 12 * depth * SEQ * DIM) * (BATCH * SEQ)
+
+
 def phase_train(depth: int, one_pass: bool = False):
     """The headline step; with ``one_pass``, under
     ``HOROVOD_TPU_FLASH_BWD=fullunroll``."""
@@ -465,9 +521,7 @@ def phase_train(depth: int, one_pass: bool = False):
     steps = WARMUP + TIMED
     step_s = statistics.median(times[WARMUP:])
     tokens_per_s = BATCH * SEQ / step_s
-    n_matmul = 12 * depth * DIM * DIM + VOCAB * DIM
-    model_flops = (6 * n_matmul + 12 * depth * SEQ * DIM) * (BATCH * SEQ)
-    mfu = model_flops / step_s / PEAK_BF16_FLOPS
+    mfu = _model_flops(depth) / step_s / PEAK_BF16_FLOPS
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label}: depth {depth} of {DEPTH}, losses "
           + ", ".join(f"{x:.4f}" for x in losses))
@@ -760,7 +814,9 @@ def phase_train_int8(depth: int, plain: dict):
     print(f"train int8: step {step_s * 1e3:.1f} ms against "
           f"{plain['step_s'] * 1e3:.1f} ms plain (median of {TIMED}; all "
           + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms), "
-          f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
+          f"{BATCH * SEQ / step_s:.0f} tokens/s, MFU "
+          f"{_model_flops(depth) / step_s / PEAK_BF16_FLOPS:.3f} at 989 "
+          f"TFLOP/s, peak memory "
           f"{peak_gb:.2f} GiB, {leaves} int8 leaves, first loss vs plain "
           f"{first:.2e} relative, every loss vs plain {track:.2e} at most, "
           f"launches {launches}")
@@ -972,7 +1028,7 @@ TPU_KERNELS = (
 )
 SOURCES = {
     "flash_fwd": "horovod_tpu_torch/csrc/flash_fwd.cu",
-    "flash_bwd_dkdv": "horovod_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkdv": "horovod_tpu_torch/csrc/flash_bwd_dkdv.cu",
     "flash_bwd_dq": "horovod_tpu_torch/csrc/flash_bwd.cu",
     FUSED: "horovod_tpu_torch/csrc/flash_bwd_fused.cu",
     "int8_quantize": "horovod_tpu_torch/csrc/int8_codec.cu",

@@ -15,10 +15,11 @@
 //
 // What the design does about it: it is the FlashAttention-2 backward, not
 // the TPU's grid.  One block of 4 warps per (kv tile of 64 rows, head,
-// batch), as P2: the k/v tile stays in shared memory while the q and dO
-// tiles from the causal diagonal on stream through, and each warp keeps the
-// f32 dk and dv of its 16 key rows in registers.  Per q tile a warp
-// computes s^T, p^T, dv, dp^T and ds^T for its key rows as P2 does, stages
+// batch), as P2 was before its wgmma redesign: the k/v tile stays in
+// shared memory while the q and dO tiles from the causal diagonal on
+// stream through, and each warp keeps the f32 dk and dv of its 16 key
+// rows in registers.  Per q tile a warp
+// computes s^T, p^T, dv, dp^T and ds^T for its key rows as P2 did, stages
 // ds (bf16, [key][query]) in shared memory and adds ds^T q to dk; then the
 // warps switch to query rows, read ds back transposed as the A operand and
 // form ds k, 16 or 32 columns of D at a time so that no f32 dq fragment
@@ -33,9 +34,8 @@
 // Hopper run in no order, so the cross-block sum is an atomic one.
 //
 // Determinism: the order in which the kv-tile blocks add to a dq row
-// changes from run to run, so dq's last bits do (dk and dv do not, and
-// equal P2's bit for bit).  The JAX kernels sum in kv order; P3 stays the
-// deterministic path.
+// changes from run to run, so dq's last bits do (dk and dv do not).  The
+// JAX kernels sum in kv order; P2 + P3 stay the deterministic path.
 //
 // Numerics follow _bwd_fused_kernel: p = exp(s*scale - lse) with masked
 // entries 0, dv += bf16(p)^T dO, ds = p * (dO V^T - delta) * scale,

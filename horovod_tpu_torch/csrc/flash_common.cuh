@@ -1,8 +1,12 @@
-// Shared pieces of the flash-attention kernels: tile loads, mma.sync
-// fragment loads and the mask.  Included by flash_fwd.cu, flash_bwd.cu and
-// flash_bwd_fused.cu.
+// Shared pieces of the flash-attention kernels: the mask, the _NEG_BIG
+// constant, bf16 packing and the quad reductions (all five kernels), and
+// the pieces of the mma.sync kernels P3 (flash_bwd.cu) and P6
+// (flash_bwd_fused.cu): synchronous tile loads, mma.sync fragment loads
+// (plain and ldmatrix) and row stores.  P1 (flash_fwd.cu) and P2
+// (flash_bwd_dkdv.cu) run on the Hopper pieces of hopper.cuh instead: TMA,
+// mbarriers, wgmma and setmaxnreg.
 //
-// Layout contract (all three kernels): every bf16 operand is a (B, T, H*D)
+// Layout contract (all kernels): every bf16 operand is a (B, T, H*D)
 // view with unit column stride, a row stride `st` and a batch stride `sb`
 // (both in elements, multiples of 8).  Head h of an operand starts at
 // column h*D of its view, so q, k and v may be three column regions of one

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,9 +45,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _VIEW = (_P, _I64, _I64)          # pointer, batch stride, row stride
 _TAIL = (_I,) * 6 + (_F, _P)       # B, H, T, D, seq_len, causal, scale, stream
+_PLAN_TAIL = _TAIL[:-1] + (_I, _I, _P)   # ... scale, stages, smem bytes, stream
 _ARGTYPES = {
-    "htt_flash_fwd": _VIEW * 4 + (_P,) + _TAIL,
-    "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _TAIL,
+    "htt_flash_fwd": _VIEW * 4 + (_P,) + _PLAN_TAIL,
+    "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _PLAN_TAIL,
     "htt_flash_bwd_dq": _VIEW * 4 + (_P, _P) + _VIEW + _TAIL,
     "htt_flash_bwd_fused": _VIEW * 4 + (_P, _P) + _VIEW * 3 + (_P,) + _TAIL,
     "htt_int8_quantize": (_P, _P, _P, _I64, _P),
@@ -146,13 +147,22 @@ def _view(x: torch.Tensor, name: str, shape, device) -> tuple:
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(x.shape)}")
-    sb, st, sc = x.stride()
-    if sc != 1 or sb % 8 or st % 8 or x.data_ptr() % 16:
+    if not kernel_strides_ok(x.stride(), x.data_ptr()):
         raise ValueError(
             f"{name}: the kernels need unit column stride, batch and row "
             f"strides that are multiples of 8 and a 16-byte aligned start; "
             f"got strides {x.stride()}")
+    sb, st, _ = x.stride()
     return x.data_ptr(), sb, st
+
+
+def kernel_strides_ok(strides, data_ptr: int) -> bool:
+    """Whether the flash kernels read a (B, T, C) bf16 view with these
+    element strides and start address: unit column stride, batch and row
+    strides that are multiples of 8, a 16-byte aligned start (what TMA
+    and the 16-byte loads need)."""
+    sb, st, sc = strides
+    return sc == 1 and sb % 8 == 0 and st % 8 == 0 and data_ptr % 16 == 0
 
 
 def _rows(x: torch.Tensor, name: str, shape, device) -> int:
@@ -183,6 +193,67 @@ def _geometry(q: torch.Tensor, num_heads: int, seq_len: Optional[int]):
     return B, T, C, H, D, lim
 
 
+# The launch plan of the warp-specialised kernels P1 (csrc/flash_fwd.cu)
+# and P2 (csrc/flash_bwd_dkdv.cu); their C entry points check it.
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
+_BLOCK_COLS = 64         # bf16 columns of one 128-byte swizzled TMA box
+_STAGES = 2              # buffers in the ring of streamed tiles
+
+
+class FlashPlan(NamedTuple):
+    d_pad: int           # head size padded in shared memory: 64 or 128
+    rows: int            # rows of the block's own tile (q for P1, k/v P2)
+    stream_rows: int     # rows of each streamed tile (k/v for P1, q/dO P2)
+    grid: Tuple[int, int, int]   # (tiles, H, B): x tile, y head, z batch
+    stages: int
+    smem_bytes: int
+    boxes: Dict[str, Tuple[int, int, int, int]]  # TMA box per operand,
+    #                      (columns, heads, rows, batches), innermost first
+
+
+def flash_plan(kernel: str, B: int, H: int, T: int, D: int) -> FlashPlan:
+    """Launch geometry of P1 (``"flash_fwd"``) or P2
+    (``"flash_bwd_dkdv"``) for a (B, T, H*D) problem.  P1: one block per
+    128-row q tile (x = 0 is the last tile, the heaviest under causality),
+    k and v streamed in 128-row tiles.  P2: one block per 128-key kv tile
+    (x = 0 first, the heaviest), q and dO streamed in 64-row tiles with
+    their lse and delta.  The tiles of one head are neighbours in the
+    grid, so that the tiles they all stream stay in L2.  Shared memory
+    holds 1024 bytes of alignment slack, the tiles at ``d_pad`` columns
+    and 8-byte mbarriers."""
+    d_pad = 64 if D <= 64 else 128
+
+    def tile(rows):
+        return rows * d_pad * 2
+
+    def box(rows):
+        return (_BLOCK_COLS, 1, rows, 1)
+
+    if kernel == "flash_fwd":
+        rows, stream = 128, 128
+        smem = 1024 + tile(rows) + 2 * _STAGES * tile(stream) \
+            + 8 * (1 + 3 * _STAGES)
+        boxes = {"q": box(rows), "k": box(stream), "v": box(stream)}
+    elif kernel == "flash_bwd_dkdv":
+        rows, stream = 128, 64
+        smem = 1024 + 2 * tile(rows) \
+            + _STAGES * (2 * tile(stream) + 2 * stream * 4) \
+            + 8 * (1 + 2 * _STAGES)
+        boxes = {"k": box(rows), "v": box(rows), "q": box(stream),
+                 "do": box(stream)}
+    else:
+        raise ValueError(f"no launch plan for kernel {kernel!r}")
+    return FlashPlan(d_pad, rows, stream, (-(-T // rows), H, B), _STAGES,
+                     smem, boxes)
+
+
+def tma_strides(D: int, st: int, sb: int) -> Tuple[int, int, int]:
+    """Byte strides of the (D, H, T, B) tensor map over a (B, T, H*D) bf16
+    view with row stride ``st`` and batch stride ``sb`` (elements): head,
+    row, batch.  TMA needs each a multiple of 16."""
+    return 2 * D, 2 * st, 2 * sb
+
+
 def _check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
@@ -198,13 +269,15 @@ def flash_fwd(q, k, v, num_heads: int, *, scale: float, causal: bool,
     dev = q.device
     args = [a for x, n in ((q, "q"), (k, "k"), (v, "v"))
             for a in _view(x, n, (B, T, C), dev)]
+    plan = flash_plan("flash_fwd", B, H, T, D)
     fn = _lib("flash_fwd").htt_flash_fwd
     o = torch.empty((B, T, C), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, *_view(o, "o", (B, T, C), dev), lse.data_ptr(),
-                 B, H, T, D, lim, int(bool(causal)), float(scale), stream)
+                 B, H, T, D, lim, int(bool(causal)), float(scale),
+                 plan.stages, plan.smem_bytes, stream)
     _check(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
@@ -228,7 +301,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, num_heads: int, *,
     (B, T, H*D) bf16 views, or into new tensors; returns (dk, dv)."""
     (B, T, C, H, D, lim, dev), args = _bwd_inputs(
         q, k, v, do, lse, delta, num_heads, seq_len)
-    fn = _lib("flash_bwd").htt_flash_bwd_dkdv
+    plan = flash_plan("flash_bwd_dkdv", B, H, T, D)
+    fn = _lib("flash_bwd_dkdv").htt_flash_bwd_dkdv
     dk = torch.empty((B, T, C), dtype=k.dtype, device=dev) if dk is None \
         else dk
     dv = torch.empty((B, T, C), dtype=v.dtype, device=dev) if dv is None \
@@ -238,7 +312,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, num_heads: int, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, *outs, B, H, T, D, lim, int(bool(causal)),
-                 float(scale), stream)
+                 float(scale), plan.stages, plan.smem_bytes, stream)
     _check(err, "flash_bwd_dkdv")
     LAUNCHES["flash_bwd_dkdv"] += 1
     return dk, dv

@@ -1,7 +1,8 @@
 """The port imports nothing of JAX, and ``chip_smoke.py`` refuses to run
 without a GPU.
 
-Every file of ``horovod_tpu_torch/`` and ``chip_smoke.py`` is parsed, and
+Every file of ``horovod_tpu_torch/``, ``chip_smoke.py`` and
+``flash_ablation.py`` is parsed, and
 any import of ``jax``, ``flax``, ``optax`` or ``horovod_tpu`` (the JAX
 package; ``horovod_tpu_torch`` is the port itself) fails its case.
 """
@@ -18,7 +19,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu"}
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "horovod_tpu_torch").rglob("*.py")) + [
-    "chip_smoke.py"]
+    "chip_smoke.py", "flash_ablation.py"]
 
 
 def _imported_modules(tree):
