@@ -8,62 +8,76 @@ It fails (non-zero exit, no result line) without a CUDA device or outside
 the checkout.  Phases, in order; any failure ends the run:
 
 1. Device: the card's name and power limit, and the build of the port's
-   CUDA kernels from ``horovod_tpu_torch/csrc`` (timed).
-2. Kernels: each flash kernel (forward P1, dk/dv P2, dq P3) at the training
-   shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read from one
-   (B, T, 3C) projection) and on four small cases (non-causal T 512; a
-   ragged ``seq_len`` at D 64; D 80, which P1 and P2 pad to 128 columns;
-   T 192 with ``seq_len`` 130, a ragged edge inside a 128-row tile and
-   across a 64-row one), held against its plain PyTorch version on the
-   same inputs; P1 and P2 launched twice on the training shape must give
-   bit-identical results.  Then timed (CUDA events around 10 launches,
-   median of 20 such batches) beside its plain version, its bound at the
-   H100 SXM peaks and ``scaled_dot_product_attention`` as a yardstick.
-   One line ``{"kernels": [...]}`` carries the numbers.
-3. One-pass backward: P6 (``flash_bwd_fused``) on the same three cases,
+   CUDA kernels from ``horovod_tpu_torch/csrc`` (timed), with ptxas'
+   registers and spills for each kernel of the ``kernels`` line.
+2. Kernels: each Hopper flash kernel (forward P1, dk/dv P2, dq P3) at the
+   training shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read
+   from one (B, T, 3C) projection) and on four small cases (non-causal
+   T 512; a ragged ``seq_len`` at D 64; D 80, which the kernels pad to 128
+   columns; T 192 with ``seq_len`` 130, a ragged edge inside a 128-row
+   tile and across a 64-row one), held against its plain PyTorch version
+   on the same inputs; P1, P2 and P3 launched twice on the training shape
+   must give bit-identical results.  Then timed (CUDA events around 10
+   launches, median of 20 such batches) beside its plain version, its
+   bound at the H100 SXM peaks and ``scaled_dot_product_attention`` as a
+   yardstick.  One line ``{"kernels": [...]}`` carries the numbers.
+3. One-pass backward: P6 (``flash_bwd_fused``) on the same five cases,
    held against its plain version and against P2 + P3 on the same inputs,
    then timed at the training shape beside its plain version and the
    ``scaled_dot_product_attention`` backward.
-4. Reference: a small TransformerLM step through the kernels against the
-   same model on the oracle attention, same parameters, on the card.
-5. Train: the full-width TransformerLM (d 2048, 16 heads, vocab 32768,
+4. General family: G1-G3 (``flash_general.cu``, the inputs P1-P3 do not
+   take) against the plain versions in f32 at the training shape and on
+   the small cases, at D 8, 12 and 200, in fp16 at D 64 and in bf16 at
+   D 8, with TF32 off so that the f32 reference is full f32; timed at the
+   training shape in f32 beside the plain versions and f32
+   ``scaled_dot_product_attention``.  D 257 must raise.
+5. f32 models: the reference's own checks
+   (``tests/test_flash_attention.py``): ``TransformerLM(dim=256,
+   num_heads=2, attn="flash", dtype=float32)`` (D 128 through
+   ``flash_qkv_proj``) and dim 32 with 4 heads (D 8 through
+   ``flash_attention_auto``) against ``attn="full"`` on the card, logits
+   within 1e-4; G1-G3 run, P1-P3 do not (counters zeroed just before).
+6. Reference: a small bf16 TransformerLM step through the kernels against
+   the same model on the oracle attention, same parameters, on the
+   card.
+7. Train: the full-width TransformerLM (d 2048, 16 heads, vocab 32768,
    seq 2048, batch 8, bf16) through ``make_train_step`` with the fused
    cross-entropy and SGD with momentum, 2 warm-up and 5 timed steps.  The
    kernels' launch counters are zeroed just before and read just after;
    each flash kernel must equal depth x steps.  Losses must be finite and
    fall.  One more step runs under torch.profiler for the device time by
    kernel.
-6. Train, one-pass: phase 5 again (model rebuilt from the same seed) under
+8. Train, one-pass: phase 7 again (model rebuilt from the same seed) under
    ``HOROVOD_TPU_FLASH_BWD=fullunroll``: P6 must launch depth x steps times
-   and P2/P3 never; the first loss equals phase 5's bit for bit (the
+   and P2/P3 never; the first loss equals phase 7's bit for bit (the
    forward is the same) and every loss stays within ``TOL_ONE_PASS`` of
-   phase 5's.  The knob is unset afterwards.
-7. Routing: ``flash_attention(bwd_impl="pallas_fused")`` at B 2, H 16,
+   phase 7's.  The knob is unset afterwards.
+9. Routing: ``flash_attention(bwd_impl="pallas_fused")`` at B 2, H 16,
    D 128 runs P6 at T 8192 (T * D * 4 bytes = 4 MiB, the JAX package's
    limit) and P2 + P3 at T 16384; at T 8192 its gradients agree with the
    split pair's, and ``bwd_impl="xla"`` (plain PyTorch, chunked) agrees
    with the split pair's at T 2048.
-8. Codec: the int8 kernels (quantize P4, dequantize P5) against their
+10. Codec: the int8 kernels (quantize P4, dequantize P5) against their
    plain versions on the card, bit for bit, on edge blocks (all zero, tiny,
    subnormal, near 1e38, randn * exp(U(-6, 6))), a 1025-element tail
    through ``snap_to_grid`` and the timing shape (n = 67,108,864, the
    ``head`` leaf); then timed beside their plain versions and their bound,
    and dequantize beside ``torch.mul(q, scales)`` as a yardstick.
-9. Ring: the int8 ring of 4 ranks driven in lockstep on the card, 16,777,216
+11. Ring: the int8 ring of 4 ranks driven in lockstep on the card, 16,777,216
    elements each: bit-identical to the same ring on the plain codec and
    within 5% (relative Frobenius) of the f32 mean.
-10. Train, int8: the model of phase 5 (freed and rebuilt from the same
+12. Train, int8: the model of phase 7 (freed and rebuilt from the same
    seed) through ``hvd.DistributedOptimizer(SGD momentum,
    Compression.int8, error_feedback=True)``, 2 warm-up and 5 timed steps,
    counters zeroed just before and read just after: each codec kernel
    launches once per int8-eligible leaf per step (51 leaves at depth 12),
    each flash kernel depth x steps.  Losses finite and falling, the first
-   equal to phase 5's first to 1e-5 relative, every one within 1e-4.  One
+   equal to phase 7's first to 1e-5 relative, every one within 1e-4.  One
    more step runs under torch.profiler.  Then one wrapper step of the
    ``head`` leaf is replayed from the trained state on the kernels and on
    the plain codec: bit-identical, the residual bit for bit ``g - Q(g)``,
    momentum and parameter within a bf16 step of the step written out.
-11. NCCL ring: two processes, one card each, only with two or more cards;
+13. NCCL ring: two processes, one card each, only with two or more cards;
    otherwise a line says it did not run.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -76,6 +90,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +125,30 @@ TOL_LOSS_TRACK = 1e-4
 # the losses drift apart a little: about 7x the 1.51e-5 measured on an
 # H100 80GB HBM3 at 700 W (PERF.md).
 TOL_ONE_PASS = 1e-4
+GENERAL = ("flash_fwd_general", "flash_bwd_dkdv_general",
+           "flash_bwd_dq_general")
+# The general family in f32 against the plain versions in f32 with TF32
+# off: the same products summed in another order, a few 1e-7 relative
+# (2.5e-7 measured on an H100 80GB HBM3 at 700 W, PERF.md); 1e-5 leaves
+# room.  lse reaches ~10, so 1e-4 absolute is the same margin.
+TOL_F32 = 1e-5
+TOL_F32_LSE = 1e-4
+# f32 models against attn="full": the reference's own tolerance
+# (tests/test_flash_attention.py:274-300, rtol = atol = 1e-4).
+TOL_MODEL = 1e-4
+# The ptxas entry of each kernel of the kernels line (the instantiation
+# the training shape runs: D 128, or f32 for the general family).
+PTXAS_NAMES = {
+    "flash_fwd": "flash_fwd_kernelILi128E",
+    "flash_bwd_dkdv": "flash_bwd_dkdv_kernelILi128E",
+    "flash_bwd_dq": "flash_bwd_dq_kernelILi128E",
+    "flash_bwd_fused": "flash_bwd_fused_kernelILi128E",
+    "int8_quantize": "int8_quantize_kernel",
+    "int8_dequantize": "int8_dequantize_kernel",
+    "flash_fwd_general": "flash_fwd_general_kernelIfE",
+    "flash_bwd_dkdv_general": "flash_bwd_dkdv_general_kernelIfE",
+    "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfE",
+}
 
 
 def _fail(msg: str) -> None:
@@ -186,32 +225,43 @@ def phase_device():
     libs, seconds, log = _cuda.build()
     print(f"kernels built in {seconds:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
-    # ptxas' resource lines for the D=128 flash instantiations (P1 and P2
-    # are instantiated for the padded head size, 128 at D 128) and the
-    # codec kernels (registers, spills), and any ptxas warning (a
-    # setmaxnreg that ptxas ignored shows there).
+    # ptxas' registers and spills for the kernels of the kernels line, and
+    # any ptxas warning (a setmaxnreg that ptxas ignored, or wgmma
+    # instructions it serialized, shows there).
     lines = log.splitlines()
+    usage = {}
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and (
-                "ILi128E" in line or "int8" in line):
-            name = line.split("'")[1] if "'" in line else line
-            usage = " | ".join(l.strip() for l in lines[i + 1:i + 4]
-                               if "ptxas info" in l or "bytes stack" in l)
-            print(f"  {name}: {usage}")
+        if "Compiling entry function" in line:
+            for name, key in PTXAS_NAMES.items():
+                if key not in line:
+                    continue
+                text = " ".join(lines[i + 1:i + 4])
+                regs = re.search(r"Used (\d+) registers", text)
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", text)
+                usage[name] = {
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                                    if spill else None)}
         elif "warning" in line.lower():
             print(f"  {line.strip()}")
+    for name in PTXAS_NAMES:
+        _check(name in usage, f"no ptxas entry for {name}")
+        print(f"  {name}: {usage[name]['registers']} registers, "
+              f"{usage[name]['spill_bytes']} bytes spilled")
+    return usage
 
 
-def _case(B, H, T, D, causal, seq_len, gen):
-    """q/k/v as column regions of one (B, T, 3C) bf16 projection, dO."""
+def _case(B, H, T, D, causal, seq_len, gen, dtype=torch.bfloat16):
+    """q/k/v as column regions of one (B, T, 3C) projection, dO."""
     C = H * D
     qkv = torch.randn((B, T, 3 * C), generator=gen, device="cuda",
-                      dtype=torch.float32).to(torch.bfloat16)
+                      dtype=torch.float32).to(dtype)
     do = torch.randn((B, T, C), generator=gen, device="cuda",
-                     dtype=torch.float32).to(torch.bfloat16)
+                     dtype=torch.float32).to(dtype)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     return dict(q=q, k=k, v=v, do=do, H=H, D=D, T=T, B=B, causal=causal,
-                seq_len=seq_len, scale=1.0 / math.sqrt(D))
+                seq_len=seq_len, scale=1.0 / math.sqrt(D), dtype=dtype)
 
 
 def _run_case(c, label, timing=False):
@@ -284,7 +334,7 @@ def _run_case(c, label, timing=False):
 
 
 def _kernel_row(name, replaces, source, launches, err, ms, plain_ms,
-                flops, nbytes, library_ms, library_call,
+                flops, nbytes, library_ms, library_call, usage,
                 peak_flops=PEAK_BF16_FLOPS):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -294,7 +344,7 @@ def _kernel_row(name, replaces, source, launches, err, ms, plain_ms,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms, "library_call": library_call,
-        "flops": flops, "bytes": nbytes,
+        "flops": flops, "bytes": nbytes, **usage,
     }
 
 
@@ -342,8 +392,8 @@ def phase_kernels():
 
 
 def _check_deterministic(c) -> None:
-    """P1 and P2 launched twice on the same inputs give the same bits (no
-    atomics, a fixed order); P3 is deterministic too, P6 is not."""
+    """P1, P2 and P3 launched twice on the same inputs give the same bits
+    (no atomics, a fixed order); P6 is not deterministic (its dq)."""
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.ops import flash_attention as fa
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
@@ -353,18 +403,24 @@ def _check_deterministic(c) -> None:
     delta = fa._delta(do, o, H)
     dk, dv = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
     dk2, dv2 = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    dq = _cuda.flash_bwd_dq(q, k, v, do, lse, delta, H, **kw)
+    dq2 = _cuda.flash_bwd_dq(q, k, v, do, lse, delta, H, **kw)
     torch.cuda.synchronize()
     same = {"o": _bits_equal(o, o2), "lse": _bits_equal(lse, lse2),
-            "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2)}
-    print("  main: P1 and P2 launched twice: " + ", ".join(
+            "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2),
+            "dq": _bits_equal(dq, dq2)}
+    print("  main: P1, P2 and P3 launched twice: " + ", ".join(
         f"{n} {'bit-identical' if ok else 'DIFFERENT'}"
         for n, ok in same.items()))
-    _check(all(same.values()), f"P1/P2 are not deterministic: {same}")
+    _check(all(same.values()), f"P1/P2/P3 are not deterministic: {same}")
 
 
 def _fused_case(c, label, timing=False):
     """Hold P6 against its plain version and against P2 + P3 on one case;
-    with ``timing``, also time P6 and its plain version."""
+    with ``timing``, also time P6 and its plain version.  dk and dv are
+    held to P2's tolerance; dq too, though P6 sums it in f32 with TMA
+    adds whose order varies from run to run (a few ulps of f32 before the
+    bf16 rounding that dominates)."""
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.ops import flash_attention as fa
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
@@ -413,6 +469,10 @@ def phase_fused_kernel(k):
     _fused_case(_case(2, 2, 512, 128, False, None, gen), "non-causal T=512")
     _fused_case(_case(2, 3, 200, 64, True, 150, gen),
                 "ragged T=200 seq_len=150 D=64")
+    _fused_case(_case(2, 3, 200, 80, True, 150, gen),
+                "padded head T=200 seq_len=150 D=80")
+    _fused_case(_case(2, 2, 192, 128, True, 130, gen),
+                "ragged T=192 seq_len=130 D=128")
     errs, times = _fused_case(
         _case(BATCH, HEADS, SEQ, DIM // HEADS, True, None, gen),
         "main B=8 H=16 T=2048 D=128 causal", timing=True)
@@ -424,6 +484,171 @@ def phase_fused_kernel(k):
           f"{k['work'][FUSED][0] / PEAK_BF16_FLOPS * 1e3:.3f} ms")
     k["errs"][FUSED] = errs["abs"]
     t.update(times)
+
+
+def _run_general(c, label, timing=False):
+    """G1-G3 against the plain versions on one case (the wrappers must
+    route it to the general family); with ``timing``, also time kernels,
+    plain versions and f32 ``scaled_dot_product_attention``."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
+    _check(_cuda.flash_family(q.dtype, c["D"], q.stride(), q.data_ptr())
+           == "general", f"{label}: not routed to the general family")
+    _cuda.reset_launches()
+    o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
+    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, H, **kw)
+    delta = fa._delta(do, o_ref, H)
+    dk, dv = _cuda.flash_bwd_dkdv(q, k, v, do, lse_ref, delta, H, **kw)
+    dq = _cuda.flash_bwd_dq(q, k, v, do, lse_ref, delta, H, **kw)
+    ref = fa._flash_bwd_fused_plain(q, k, v, do, lse_ref, delta, H, **kw)
+    torch.cuda.synchronize()
+    launches = {n: _cuda.LAUNCHES[n] for n in FLASH + GENERAL}
+    _check(launches == {n: int(n in GENERAL) for n in launches},
+           f"{label}: launches {launches}")
+    errs = {"o": _rel_fro(o, o_ref), "lse": _max_abs(lse, lse_ref),
+            "dq": _rel_fro(dq, ref[0]), "dk": _rel_fro(dk, ref[1]),
+            "dv": _rel_fro(dv, ref[2]), "o_abs": _max_abs(o, o_ref),
+            "grad_abs": max(_max_abs(g, r) for g, r in zip((dq, dk, dv),
+                                                            ref))}
+    print(f"  {label}: rel fro o {errs['o']:.3e} dq {errs['dq']:.3e} dk "
+          f"{errs['dk']:.3e} dv {errs['dv']:.3e}, lse max abs "
+          f"{errs['lse']:.3e}")
+    f32 = c["dtype"] == torch.float32
+    tol, tol_lse = (TOL_F32, TOL_F32_LSE) if f32 else (TOL_GRAD, TOL_LSE)
+    for name in ("o", "dq", "dk", "dv"):
+        _check(math.isfinite(errs[name]) and errs[name] <= tol,
+               f"{label}: {name} rel error {errs[name]} > {tol}")
+    _check(errs["lse"] <= tol_lse,
+           f"{label}: lse error {errs['lse']} > {tol_lse}")
+    if not timing:
+        return errs, None
+    del o_ref, ref
+    slow = dict(runs=3, warmup=1, reps=2)
+    times = {
+        "flash_fwd_general": _median_ms(lambda: _cuda.flash_fwd(
+            q, k, v, H, **kw), **slow),
+        "flash_bwd_dkdv_general": _median_ms(lambda: _cuda.flash_bwd_dkdv(
+            q, k, v, do, lse, delta, H, **kw), **slow),
+        "flash_bwd_dq_general": _median_ms(lambda: _cuda.flash_bwd_dq(
+            q, k, v, do, lse, delta, H, **kw), **slow),
+        "fwd_plain": _median_ms(lambda: fa._flash_fwd_plain(
+            q, k, v, H, **kw), runs=3, warmup=1, reps=1),
+        "dkdv_plain": _median_ms(lambda: fa._flash_bwd_dkdv_plain(
+            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1, reps=1),
+        "dq_plain": _median_ms(lambda: fa._flash_bwd_dq_plain(
+            q, k, v, do, lse, delta, H, **kw), runs=3, warmup=1, reps=1),
+    }
+    # Yardstick only, as in _run_case, here in f32.
+    D = c["D"]
+
+    def bhtd(x):
+        return x.unflatten(-1, (H, D)).transpose(1, 2).contiguous()
+
+    F = torch.nn.functional
+    qs, ks, vs = (bhtd(x).requires_grad_() for x in (q, k, v))
+    dos = bhtd(do)
+    times["sdpa_fwd"] = _median_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=c["causal"]), **slow)
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=c["causal"])
+    times["sdpa_bwd"] = _median_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True), **slow)
+    del out, qs, ks, vs, dos
+    return errs, times
+
+
+def phase_general():
+    """G1-G3 against the plain versions: f32 at the training shape, on
+    the small cases and at head sizes P1-P3 do not take, fp16, bf16 at
+    D 8; D 257 raises.  Returns the training shape's numbers."""
+    from horovod_tpu_torch.ops import _cuda
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 reference
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    print("general family G1-G3 vs plain versions (f32 unless named; "
+          f"tolerance f32 {TOL_F32} rel fro, fp16/bf16 {TOL_GRAD}):")
+    for B, H, T, D, causal, sl, dt, label in (
+            (2, 2, 512, 128, False, None, f32, "non-causal T=512"),
+            (2, 3, 200, 64, True, 150, f32, "ragged T=200 seq_len=150 D=64"),
+            (2, 3, 200, 80, True, 150, f32, "T=200 seq_len=150 D=80"),
+            (2, 2, 192, 128, True, 130, f32, "ragged T=192 seq_len=130"),
+            (2, 4, 256, 8, True, None, f32, "D=8"),
+            (2, 3, 256, 12, True, 200, f32, "D=12 seq_len=200"),
+            (2, 2, 256, 200, True, None, f32, "D=200"),
+            (2, 2, 256, 64, True, 230, f16, "fp16 D=64 seq_len=230"),
+            (2, 4, 256, 8, True, None, bf16, "bf16 D=8")):
+        _run_general(_case(B, H, T, D, causal, sl, gen, dt), label)
+    errs, times = _run_general(
+        _case(BATCH, HEADS, SEQ, DIM // HEADS, True, None, gen, f32),
+        "main f32 B=8 H=16 T=2048 D=128 causal", timing=True)
+    for name in GENERAL:
+        print(f"  main f32: {name} {times[name]:.3f} ms")
+    wide = torch.zeros((1, 64, 2 * 257), device="cuda")
+    try:
+        _cuda.flash_fwd(wide, wide, wide, 2, scale=1.0, causal=True)
+    except ValueError as e:
+        print(f"  D=257: ValueError: {e}")
+        _check("from 1 to 256" in str(e), f"D=257: unexpected error {e}")
+    else:
+        _fail("D=257 did not raise")
+    B, H, T, D = BATCH, HEADS, SEQ, DIM // HEADS
+    pairs = B * H * _visible_pairs(T, True, None)
+    tensor = B * T * H * D * 4          # one (B, T, C) f32 tensor
+    rows = B * H * T * 4
+    work = {"flash_fwd_general": (4 * D * pairs, 4 * tensor + rows),
+            "flash_bwd_dkdv_general": (8 * D * pairs,
+                                       6 * tensor + 2 * rows),
+            "flash_bwd_dq_general": (6 * D * pairs, 5 * tensor + 2 * rows)}
+    return {"errs": errs, "times": times, "work": work}
+
+
+def phase_models_f32():
+    """The reference's f32 model checks on the card: the flash model's
+    logits equal the attn="full" model's elementwise within ``TOL_MODEL``
+    (relative and absolute), through the general family, and so do its
+    gradients (relative Frobenius: the same f32 sums in another order).
+    Counters are zeroed before each flash model's forward and backward and
+    read after: G1-G3 run once per layer, P1-P3 never.  Returns the
+    launches of both flash models."""
+    from horovod_tpu_torch.models import TransformerLM
+    from horovod_tpu_torch.ops import _cuda
+    f32 = torch.float32
+    launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+    for vocab, dim, depth, heads in ((64, 256, 1, 2), (64, 32, 2, 4)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        tokens = torch.randint(0, vocab, (2, 32), generator=gen,
+                               device="cuda")
+        cot = torch.randn((2, 32, vocab), generator=gen, device="cuda")
+        logits, grads = {}, {}
+        for attn in ("full", "flash"):
+            model = TransformerLM(vocab=vocab, dim=dim, depth=depth,
+                                  num_heads=heads, max_len=32, attn=attn,
+                                  dtype=f32, head_dtype=f32, ln_dtype=f32,
+                                  seed=SEED, device="cuda")
+            _cuda.reset_launches()
+            logits[attn] = model(tokens)
+            (logits[attn] * cot).sum().backward()
+            torch.cuda.synchronize()
+            ran = dict(_cuda.LAUNCHES)
+            grads[attn] = torch.cat([p.grad.flatten()
+                                     for p in model.parameters()])
+        a, b = logits["flash"].detach(), logits["full"].detach()
+        bad = int(((a - b).abs() > TOL_MODEL + TOL_MODEL * b.abs()).sum())
+        rel = _rel_fro(grads["flash"], grads["full"])
+        print(f"f32 model dim {dim} heads {heads} (D {dim // heads}): "
+              f"logits flash vs full max abs {_max_abs(a, b):.3e}, "
+              f"{bad} outside rtol = atol = {TOL_MODEL}; gradients rel fro "
+              f"{rel:.3e}; launches { {n: c for n, c in ran.items() if c} }")
+        _check(bad == 0, f"f32 model dim {dim}: {bad} logits differ")
+        _check(rel <= TOL_MODEL, f"f32 model dim {dim}: grads rel {rel}")
+        want = {n: depth if n in GENERAL else 0 for n in FLASH + GENERAL}
+        _check({n: ran[n] for n in want} == want,
+               f"f32 model dim {dim}: launches {ran}")
+        for n, c in ran.items():
+            launches[n] += c
+    return launches
 
 
 def phase_reference():
@@ -535,7 +760,7 @@ def phase_train(depth: int, one_pass: bool = False):
     _check(losses[-1] < losses[0],
            f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
     bwd = (FUSED,) if one_pass else FLASH[1:]
-    for name in FLASH + (FUSED,):
+    for name in FLASH + (FUSED,) + GENERAL:
         want = depth * steps if name == "flash_fwd" or name in bwd else 0
         _check(launches[name] == want,
                f"{label}: {name} launched {launches[name]} times, expected "
@@ -965,7 +1190,8 @@ def phase_nccl_ring():
 
 
 def _category(name: str) -> str:
-    for kernel in FLASH + (FUSED, "int8_quantize", "int8_dequantize"):
+    for kernel in GENERAL + FLASH + (FUSED, "int8_quantize",
+                                     "int8_dequantize"):
         if f"{kernel}_" in name:   # P6's dq cast kernel counts as P6
             return kernel
     low = name.lower()
@@ -1029,10 +1255,11 @@ TPU_KERNELS = (
 SOURCES = {
     "flash_fwd": "horovod_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dkdv": "horovod_tpu_torch/csrc/flash_bwd_dkdv.cu",
-    "flash_bwd_dq": "horovod_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/csrc/flash_bwd_dq.cu",
     FUSED: "horovod_tpu_torch/csrc/flash_bwd_fused.cu",
     "int8_quantize": "horovod_tpu_torch/csrc/int8_codec.cu",
     "int8_dequantize": "horovod_tpu_torch/csrc/int8_codec.cu",
+    "general": "horovod_tpu_torch/csrc/flash_general.cu",
 }
 SDPA_BWD = "scaled_dot_product_attention backward (dq, dk and dv)"
 
@@ -1041,11 +1268,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this needs a CUDA GPU")
     gpu = _gpu_line()
-    phase_device()
+    usage = phase_device()
     import horovod_tpu_torch as hvd
     hvd.init()
     k = phase_kernels()
     phase_fused_kernel(k)
+    general = phase_general()
+    f32_launches = phase_models_f32()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_reference()
     plain = phase_train(DEPTH)
     gc.collect()
@@ -1080,7 +1311,7 @@ def main() -> None:
             flops, nbytes = k["work"][name]
             rows.append(_kernel_row(name, rep, SOURCES[name], launches[name],
                                     err, ms, plain_ms, flops, nbytes, lib,
-                                    call))
+                                    call, usage[name]))
             continue
         lib, call = None, None
         if name == "int8_dequantize":
@@ -1090,7 +1321,25 @@ def main() -> None:
         rows.append(_kernel_row(
             name, rep, SOURCES[name], int8["launches"][name], codec["err"],
             codec["times"][name], codec["times"][name + "_plain"], flops,
-            nbytes, lib, call, peak_flops=PEAK_F32_FLOPS))
+            nbytes, lib, call, usage[name], peak_flops=PEAK_F32_FLOPS))
+    # The general family: the same TPU kernels, for the inputs P1-P3 do
+    # not take; timed in f32 at the training shape, launched by the f32
+    # models.
+    gt, ge = general["times"], general["errs"]
+    for name, rep, plain_key, err, lib, call in (
+            ("flash_fwd_general", "horovod_tpu/ops/flash_attention.py:255",
+             "fwd_plain", ge["o_abs"], gt["sdpa_fwd"],
+             "scaled_dot_product_attention forward, f32"),
+            ("flash_bwd_dkdv_general",
+             "horovod_tpu/ops/flash_attention.py:675", "dkdv_plain",
+             ge["grad_abs"], gt["sdpa_bwd"], SDPA_BWD + ", f32"),
+            ("flash_bwd_dq_general", "horovod_tpu/ops/flash_attention.py:730",
+             "dq_plain", ge["grad_abs"], gt["sdpa_bwd"], SDPA_BWD + ", f32")):
+        flops, nbytes = general["work"][name]
+        rows.append(_kernel_row(
+            name, rep, SOURCES["general"], f32_launches[name], err, gt[name],
+            gt[plain_key], flops, nbytes, lib, call, usage[name],
+            peak_flops=PEAK_F32_FLOPS))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,26 @@
-"""What bounds the flash kernels P1 and P2 on the card: each one timed
-against variants of itself.
+"""What bounds the Hopper flash kernels P1, P2, P3 and P6 on the card: each
+one timed against variants of itself.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
     python3 flash_ablation.py
 
 The variants are text edits of the committed sources
-(``horovod_tpu_torch/csrc/flash_fwd.cu`` and ``flash_bwd_dkdv.cu``), built
+(``horovod_tpu_torch/csrc/flash_fwd.cu``, ``flash_bwd_dkdv.cu``,
+``flash_bwd_dq.cu`` and ``flash_bwd_fused.cu``), built
 with the port's ``nvcc`` flags into ``build/flash_ablation/`` and timed at
 the training shape of ``chip_smoke.py`` (B 8, H 16, T 2048, D 128, bf16,
 causal).  Their outputs are wrong by design; only their times count.
 
 - ``no reload``: once the ring is full the producer stops loading the
-  streamed tiles (k and v for P1, q and dO for P2) and only signals the
-  ring, so the kernel runs without its data movement.
+  streamed tiles (k and v for P1 and P3, q and dO for P2 and P6) and only
+  signals the ring, so the kernel runs without its data movement.
 - ``no softmax`` (P1 only): s goes to p.v as it is, without the mask, the
   running max, exp and the rescale: the products and the pipeline alone.
+- ``no dq sum`` (P6 only): the dq product runs but its adds to the f32
+  workspace do not.
+- ``no dq`` (P6 only): neither the dq product nor its adds run; the ds
+  tile is still staged and the consumers still meet at their barriers.
 - ``heads first``: the grid issues the heaviest tile of every head before
   the next tile of any head (tile index in grid z), so that a head's
   streamed tiles leave L2 between its blocks.
@@ -39,7 +44,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "flash_ablation"
 
-# The streamed tiles of P1 and P2 after the ring is full: signal, no load.
+# The streamed tiles of P1, P3, P6 and P2 after the ring is full: signal,
+# no load.
 _P1_LOADS = """\
         mbar_arrive_expect_tx(&k_full[s], kKvBytes);
         tma_load_tile<DP>(sK + s * kKvBytes, &p.tk, &k_full[s], kFwdKv, h,
@@ -47,6 +53,20 @@ _P1_LOADS = """\
         mbar_arrive_expect_tx(&v_full[s], kKvBytes);
         tma_load_tile<DP>(sV + s * kKvBytes, &p.tv, &v_full[s], kFwdKv, h,
                           j * kFwdKv, b);
+"""
+_P3_LOADS = """\
+        mbar_arrive_expect_tx(&full[s], 2 * kKvBytes);
+        tma_load_tile<DP>(sK + s * kKvBytes, &p.tk, &full[s], kDqKv, h,
+                          j * kDqKv, b);
+        tma_load_tile<DP>(sV + s * kKvBytes, &p.tv, &full[s], kDqKv, h,
+                          j * kDqKv, b);
+"""
+_P6_LOADS = """\
+          mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
+          tma_load_tile<DP>(sQ + s * kQBytes, &p.tq, &full[s], kFusedQ, h,
+                            q0, b);
+          tma_load_tile<DP>(sO + s * kQBytes, &p.tdo, &full[s], kFusedQ, h,
+                            q0, b);
 """
 _P2_LOADS = """\
           mbar_arrive_expect_tx(&full[s], 2 * kQBytes);
@@ -82,6 +102,17 @@ EDITS = {
          "  const int b = blockIdx.y;"),
         ("const dim3 grid((p.T + kDkdvKeys - 1) / kDkdvKeys, p.H, B);",
          "const dim3 grid(p.H, B, (p.T + kDkdvKeys - 1) / kDkdvKeys);")],
+    ("flash_bwd_dq", "no reload"): [
+        (_P3_LOADS, "if (j < p.stages) {\n" + _P3_LOADS + "} else {\n"
+         "mbar_arrive(&full[s]);\n}\n")],
+    ("flash_bwd_fused", "no reload"): [
+        (_P6_LOADS, "if (it < p.stages) {\n" + _P6_LOADS + "} else {\n"
+         "mbar_arrive(&full[s]);\n}\n")],
+    ("flash_bwd_fused", "no dq sum"): [
+        ("              tma_add(&p.tdq, buf + cb * kDqTile, 64 * cb, h, q0, "
+         "b);\n", "")],
+    ("flash_bwd_fused", "no dq"): [
+        ("        if (dq_work) {", "        if (false) {")],
 }
 
 
@@ -127,7 +158,10 @@ def main() -> None:
     csrc = ROOT / "horovod_tpu_torch" / "csrc"
     variants = {"flash_fwd": ["kernel", "no reload", "no softmax",
                               "heads first"],
-                "flash_bwd_dkdv": ["kernel", "no reload", "heads first"]}
+                "flash_bwd_dkdv": ["kernel", "no reload", "heads first"],
+                "flash_bwd_dq": ["kernel", "no reload"],
+                "flash_bwd_fused": ["kernel", "no reload", "no dq sum",
+                                    "no dq"]}
     libs = {(stem, v): _build(stem, v, csrc)
             for stem, names in variants.items() for v in names}
 
@@ -141,6 +175,10 @@ def main() -> None:
     calls = {
         "flash_fwd": lambda: _cuda.flash_fwd(q, k, v, H, **kw),
         "flash_bwd_dkdv": lambda: _cuda.flash_bwd_dkdv(
+            q, k, v, do, lse, delta, H, **kw),
+        "flash_bwd_dq": lambda: _cuda.flash_bwd_dq(
+            q, k, v, do, lse, delta, H, **kw),
+        "flash_bwd_fused": lambda: _cuda.flash_bwd_fused(
             q, k, v, do, lse, delta, H, **kw),
     }
     times: dict = {}

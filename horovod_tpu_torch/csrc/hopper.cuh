@@ -1,7 +1,8 @@
-// Hopper building blocks of the flash kernels P1 (flash_fwd.cu) and P2
-// (flash_bwd_dkdv.cu), sm_90a only: tensor maps and TMA loads, mbarriers,
-// wgmma descriptors and instructions, register reallocation.  All of it is
-// inline PTX, as the mma.sync and ldmatrix helpers of flash_common.cuh.
+// Hopper building blocks of the flash kernels P1 (flash_fwd.cu), P2
+// (flash_bwd_dkdv.cu), P3 (flash_bwd_dq.cu) and P6 (flash_bwd_fused.cu),
+// sm_90a only: tensor maps and TMA loads, mbarriers, named barriers, wgmma
+// descriptors and instructions, register reallocation.  All of it is
+// inline PTX.
 //
 // Shared-memory layout of every tile (the contract between the TMA loads
 // and the wgmma descriptors): a tile of R rows by DP columns (DP = 64 or
@@ -49,30 +50,41 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of one head-packed operand, a (B, T, H*D) bf16 view with
-// row stride st and batch stride sb (elements), seen as the 4-D tensor
-// (D, H, T, B), innermost first, with byte strides (2D, 2st, 2sb).  A box
-// is 64 columns of `rows` rows of one head: column blocks past D and rows
-// past T are out of bounds and arrive as zeros, which pads D up to DP and
-// the last tile up to its full height.
-inline cudaError_t encode_heads(CUtensorMap* map, const void* ptr, int D,
-                                int H, int T, int B, long long st,
-                                long long sb, int rows) {
+// The tensor map of a head-packed (B, T, H*D) view with row stride st and
+// batch stride sb (elements of `bytes` bytes), seen as the 4-D tensor
+// (D, H, T, B), innermost first.  A box is `cols` columns of `rows` rows of
+// one head.
+inline cudaError_t encode_map(CUtensorMap* map, const void* ptr,
+                              CUtensorMapDataType type, int bytes,
+                              CUtensorMapSwizzle swizzle, int D, int H,
+                              int T, int B, long long st, long long sb,
+                              int cols, int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBlockCols, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * bytes,
+                                 (cuuint64_t)st * bytes,
+                                 (cuuint64_t)sb * bytes};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of one head-packed bf16 operand, with byte strides (2D,
+// 2st, 2sb) and boxes of 64 columns as TMA's 128-byte swizzle writes them:
+// column blocks past D and rows past T are out of bounds and arrive as
+// zeros, which pads D up to DP and the last tile up to its full height.
+inline cudaError_t encode_heads(CUtensorMap* map, const void* ptr, int D,
+                                int H, int T, int B, long long st,
+                                long long sb, int rows) {
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                    CU_TENSOR_MAP_SWIZZLE_128B, D, H, T, B, st, sb,
+                    kBlockCols, rows);
 }
 
 // Bytes of one tile of `rows` rows at padded head size dp.
@@ -131,10 +143,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // Orders this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma, TMA) of the same bytes: for a kernel that
-// stages an operand with ordinary stores, as P6 does its ds tile.  P1 and
-// P2 read only what TMA wrote.
+// stages an operand with ordinary stores, as P6 does its ds and dq tiles.
+// P1, P2 and P3 read only what TMA wrote.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32: lets some warpgroups meet without the others.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Arrives at barrier `id` without waiting for the others.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // One box of a 4-D tensor map into shared memory; completion is counted
@@ -149,6 +172,32 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row), "r"(batch)
       : "memory");
+}
+
+// Adds a box of shared memory (dense rows, no swizzle) to the global
+// tensor of a 4-D map, element-wise, in the TMA unit, asynchronously.
+// Elements out of the tensor's bounds are dropped.  The issuing thread
+// tracks completion with bulk groups.  Coordinates as tma_load.
+__device__ __forceinline__ void tma_add(const CUtensorMap* map,
+                                        const void* src, int col, int head,
+                                        int row, int batch) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Until this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // All DP / 64 column blocks of `rows` rows starting at `row`.
@@ -229,7 +278,8 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][M]) {
 
 // The A fragment of k-step kk (accumulator columns 16kk..16kk+15) from an
 // f32 wgmma accumulator, rounded to bf16: each warp's accumulator rows are
-// laid out as the m16n8k16 A operand, as in acc_to_a (flash_common.cuh).
+// laid out as the A operand of mma.sync m16n8k16, which is the register A
+// operand of wgmma.
 template <int N>
 __device__ __forceinline__ void acc_to_a_frag(uint32_t a[4],
                                               const float (&c)[N], int kk) {
@@ -299,6 +349,59 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// d (+)= a b, m64n64k16; a [k][64] and b [k][64] both MN-major in shared
+// memory (16-bit types may transpose either operand).
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= a b, m64n128k16; a [k][64] and b [k][128] both MN-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d (+)= a b, m64n128k16; a [64][k] and b [128][k] K-major in shared memory.

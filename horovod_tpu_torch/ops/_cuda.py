@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches since the last reset_launches(), per kernel.
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
-    "flash_bwd_fused": 0, "int8_quantize": 0, "int8_dequantize": 0}
+    "flash_bwd_fused": 0, "flash_fwd_general": 0,
+    "flash_bwd_dkdv_general": 0, "flash_bwd_dq_general": 0,
+    "int8_quantize": 0, "int8_dequantize": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
@@ -44,13 +46,21 @@ _I64 = ctypes.c_longlong
 _I = ctypes.c_int
 _F = ctypes.c_float
 _VIEW = (_P, _I64, _I64)          # pointer, batch stride, row stride
-_TAIL = (_I,) * 6 + (_F, _P)       # B, H, T, D, seq_len, causal, scale, stream
-_PLAN_TAIL = _TAIL[:-1] + (_I, _I, _P)   # ... scale, stages, smem bytes, stream
+# B, H, T, D, seq_len, causal, scale, stages, smem bytes, stream
+_PLAN_TAIL = (_I,) * 6 + (_F, _I, _I, _P)
+# B, H, T, D, seq_len, causal, scale, smem bytes, stream
+_GEN_TAIL = (_I,) * 6 + (_F, _I, _P)
 _ARGTYPES = {
     "htt_flash_fwd": _VIEW * 4 + (_P,) + _PLAN_TAIL,
     "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _PLAN_TAIL,
-    "htt_flash_bwd_dq": _VIEW * 4 + (_P, _P) + _VIEW + _TAIL,
-    "htt_flash_bwd_fused": _VIEW * 4 + (_P, _P) + _VIEW * 3 + (_P,) + _TAIL,
+    "htt_flash_bwd_dq": _VIEW * 4 + (_P, _P) + _VIEW + _PLAN_TAIL,
+    "htt_flash_bwd_fused": _VIEW * 4 + (_P, _P) + _VIEW * 3 + (_P,)
+    + _PLAN_TAIL,
+    "htt_flash_fwd_general": (_I,) + _VIEW * 4 + (_P,) + _GEN_TAIL,
+    "htt_flash_bwd_dkdv_general": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW * 2
+    + _GEN_TAIL,
+    "htt_flash_bwd_dq_general": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW
+    + _GEN_TAIL,
     "htt_int8_quantize": (_P, _P, _P, _I64, _P),
     "htt_int8_dequantize": (_P, _P, _P, _I64, _P),
 }
@@ -84,22 +94,26 @@ def _target(source: Path) -> Path:
 def build() -> Tuple[Dict[str, Path], float, str]:
     """Compile every ``csrc/*.cu`` that has no up-to-date library, one
     ``nvcc`` process per source, all at once.  Returns ``({stem: library},
-    seconds, compiler log)``; raises ``RuntimeError`` with the compiler's
-    output when a source does not build."""
+    seconds, compiler log)``, the log of a library built earlier read from
+    beside it; raises ``RuntimeError`` with the compiler's output when a
+    source does not build."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {src.stem: (src, _target(src))
                for src in sorted(CSRC.glob("*.cu"))}
     procs = []
+    log = []
     for stem, (src, out) in targets.items():
         if out.exists():
+            saved = out.with_suffix(".log")
+            if saved.exists():
+                log.append(saved.read_text())
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs.append((stem, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    log = []
     failed = []
     for stem, tmp, out, proc in procs:
         text, _ = proc.communicate()
@@ -108,6 +122,7 @@ def build() -> Tuple[Dict[str, Path], float, str]:
             failed.append(stem)
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log[-1])
             os.replace(tmp, out)   # atomic: concurrent builders agree
     if failed:
         raise RuntimeError(
@@ -134,35 +149,68 @@ def _lib(stem: str) -> ctypes.CDLL:
     return _LIBS[stem]
 
 
-def _view(x: torch.Tensor, name: str, shape, device) -> tuple:
-    """(pointer, batch stride, row stride) of a (B, T, C) bf16 view that
-    the kernels can read: unit column stride, strides that keep every row
-    16-byte aligned."""
+def kernel_strides_ok(strides, data_ptr: int) -> bool:
+    """Whether the Hopper flash kernels read a (B, T, C) bf16 view with
+    these element strides and start address: unit column stride, batch and
+    row strides that are multiples of 8, a 16-byte aligned start (what TMA
+    and the 16-byte loads need)."""
+    sb, st, sc = strides
+    return sc == 1 and sb % 8 == 0 and st % 8 == 0 and data_ptr % 16 == 0
+
+
+# Element types of the general family, by the dtype code of its entry
+# points.
+_GEN_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+GENERAL_MAX_D = 256
+
+
+def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
+    """Which family of flash kernels takes a (B, T, H*D) operand of this
+    dtype, head size, element strides and start address.
+
+    ``"hopper"`` (P1, P2, P3, P6: wgmma and TMA): bfloat16 at a head size
+    that is a multiple of 16 in [16, 128], with :func:`kernel_strides_ok`
+    strides.  ``"general"`` (G1-G3, ``csrc/flash_general.cu``, f32 on the
+    CUDA cores): float32 and float16 at any head size up to 256, and
+    bfloat16 at the other head sizes up to 256, with a unit column
+    stride.  A rule on the input, fixed in advance: anything else raises
+    ``ValueError`` naming the limit, and nothing falls back from one
+    family to the other."""
+    if dtype not in _GEN_DTYPES:
+        raise ValueError(f"the flash kernels take float32, float16 or "
+                         f"bfloat16, got {dtype}")
+    if not 1 <= D <= GENERAL_MAX_D:
+        raise ValueError(f"the flash kernels take a head size from 1 to "
+                         f"{GENERAL_MAX_D}, got D={D}")
+    if strides[-1] != 1:
+        raise ValueError(f"the flash kernels need a unit column stride; "
+                         f"got strides {tuple(strides)}")
+    if dtype == torch.bfloat16 and D % 16 == 0 and 16 <= D <= 128:
+        if not kernel_strides_ok(strides, data_ptr):
+            raise ValueError(
+                f"the Hopper flash kernels (bfloat16, D={D}) need batch "
+                f"and row strides that are multiples of 8 and a 16-byte "
+                f"aligned start; got strides {tuple(strides)}")
+        return "hopper"
+    return "general"
+
+
+def _view(x: torch.Tensor, name: str, shape, device, dtype,
+          D: int) -> tuple:
+    """(pointer, batch stride, row stride) of a (B, T, C) view of
+    ``dtype`` that the flash kernels can read (:func:`flash_family`)."""
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"{name} must be bfloat16, got {x.dtype}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(x.shape)}")
-    if not kernel_strides_ok(x.stride(), x.data_ptr()):
-        raise ValueError(
-            f"{name}: the kernels need unit column stride, batch and row "
-            f"strides that are multiples of 8 and a 16-byte aligned start; "
-            f"got strides {x.stride()}")
+    flash_family(dtype, D, x.stride(), x.data_ptr())
     sb, st, _ = x.stride()
     return x.data_ptr(), sb, st
-
-
-def kernel_strides_ok(strides, data_ptr: int) -> bool:
-    """Whether the flash kernels read a (B, T, C) bf16 view with these
-    element strides and start address: unit column stride, batch and row
-    strides that are multiples of 8, a 16-byte aligned start (what TMA
-    and the 16-byte loads need)."""
-    sb, st, sc = strides
-    return sc == 1 and sb % 8 == 0 and st % 8 == 0 and data_ptr % 16 == 0
 
 
 def _rows(x: torch.Tensor, name: str, shape, device) -> int:
@@ -184,17 +232,18 @@ def _geometry(q: torch.Tensor, num_heads: int, seq_len: Optional[int]):
     if H < 1 or C % H:
         raise ValueError(f"width {C} is not a multiple of num_heads={H}")
     D = C // H
-    if D % 16 or not 16 <= D <= 128:
-        raise ValueError(f"the flash kernels take a head size that is a "
-                         f"multiple of 16 up to 128, got D={D}")
+    if not 1 <= D <= GENERAL_MAX_D:
+        raise ValueError(f"the flash kernels take a head size from 1 to "
+                         f"{GENERAL_MAX_D}, got D={D}")
     lim = T if seq_len is None else int(seq_len)
     if not 0 < lim <= T:
         raise ValueError(f"seq_len {seq_len} out of range for T={T}")
     return B, T, C, H, D, lim
 
 
-# The launch plan of the warp-specialised kernels P1 (csrc/flash_fwd.cu)
-# and P2 (csrc/flash_bwd_dkdv.cu); their C entry points check it.
+# The launch plan of the Hopper kernels P1 (csrc/flash_fwd.cu), P2
+# (csrc/flash_bwd_dkdv.cu), P3 (csrc/flash_bwd_dq.cu) and P6
+# (csrc/flash_bwd_fused.cu); their C entry points check it.
 SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
 _BLOCK_COLS = 64         # bf16 columns of one 128-byte swizzled TMA box
 _STAGES = 2              # buffers in the ring of streamed tiles
@@ -202,8 +251,10 @@ _STAGES = 2              # buffers in the ring of streamed tiles
 
 class FlashPlan(NamedTuple):
     d_pad: int           # head size padded in shared memory: 64 or 128
-    rows: int            # rows of the block's own tile (q for P1, k/v P2)
-    stream_rows: int     # rows of each streamed tile (k/v for P1, q/dO P2)
+    rows: int            # rows of the block's own tile (q: P1, P3; k/v:
+    #                      P2, P6)
+    stream_rows: int     # rows of each streamed tile (k/v: P1, P3; q/dO:
+    #                      P2, P6)
     grid: Tuple[int, int, int]   # (tiles, H, B): x tile, y head, z batch
     stages: int
     smem_bytes: int
@@ -212,16 +263,20 @@ class FlashPlan(NamedTuple):
 
 
 def flash_plan(kernel: str, B: int, H: int, T: int, D: int) -> FlashPlan:
-    """Launch geometry of P1 (``"flash_fwd"``) or P2
-    (``"flash_bwd_dkdv"``) for a (B, T, H*D) problem.  P1: one block per
-    128-row q tile (x = 0 is the last tile, the heaviest under causality),
-    k and v streamed in 128-row tiles.  P2: one block per 128-key kv tile
-    (x = 0 first, the heaviest), q and dO streamed in 64-row tiles with
-    their lse and delta.  The tiles of one head are neighbours in the
-    grid, so that the tiles they all stream stay in L2.  Shared memory
-    holds 1024 bytes of alignment slack, the tiles at ``d_pad`` columns
-    and 8-byte mbarriers."""
+    """Launch geometry of a Hopper flash kernel for a (B, T, H*D) problem.
+    P1 (``"flash_fwd"``): one block per 128-row q tile (x = 0 is the last
+    tile, the heaviest under causality), k and v streamed in 128-row
+    tiles.  P3 (``"flash_bwd_dq"``): the same q tiles with q and dO
+    resident, k and v streamed in 64-row tiles.  P2 (``"flash_bwd_dkdv"``)
+    and P6 (``"flash_bwd_fused"``): one block per 128-key kv tile (x = 0
+    first, the heaviest), q and dO streamed in 64-row tiles with their lse
+    and delta; P6 also holds two 128 x 64 bf16 tiles of staged ds^T and
+    four 64 x 64 f32 tiles of staged dq (two per consumer).  The
+    tiles of one head are neighbours in the grid, so that the tiles they
+    all stream stay in L2.  Shared memory holds 1024 bytes of alignment
+    slack, the tiles at ``d_pad`` columns and 8-byte mbarriers."""
     d_pad = 64 if D <= 64 else 128
+    stages = _STAGES
 
     def tile(rows):
         return rows * d_pad * 2
@@ -231,20 +286,64 @@ def flash_plan(kernel: str, B: int, H: int, T: int, D: int) -> FlashPlan:
 
     if kernel == "flash_fwd":
         rows, stream = 128, 128
-        smem = 1024 + tile(rows) + 2 * _STAGES * tile(stream) \
-            + 8 * (1 + 3 * _STAGES)
+        smem = 1024 + tile(rows) + 2 * stages * tile(stream) \
+            + 8 * (1 + 3 * stages)
         boxes = {"q": box(rows), "k": box(stream), "v": box(stream)}
-    elif kernel == "flash_bwd_dkdv":
+    elif kernel == "flash_bwd_dq":
+        rows, stream = 128, 64
+        smem = 1024 + 2 * tile(rows) + 2 * stages * tile(stream) \
+            + 8 * (1 + 2 * stages)
+        boxes = {"q": box(rows), "do": box(rows), "k": box(stream),
+                 "v": box(stream)}
+    elif kernel in ("flash_bwd_dkdv", "flash_bwd_fused"):
         rows, stream = 128, 64
         smem = 1024 + 2 * tile(rows) \
-            + _STAGES * (2 * tile(stream) + 2 * stream * 4) \
-            + 8 * (1 + 2 * _STAGES)
+            + stages * (2 * tile(stream) + 2 * stream * 4) \
+            + 8 * (1 + 2 * stages)
+        if kernel == "flash_bwd_fused":   # ds^T tiles, dq tiles
+            smem += 2 * rows * _BLOCK_COLS * 2 + 4 * stream * 64 * 4
         boxes = {"k": box(rows), "v": box(rows), "q": box(stream),
                  "do": box(stream)}
     else:
         raise ValueError(f"no launch plan for kernel {kernel!r}")
-    return FlashPlan(d_pad, rows, stream, (-(-T // rows), H, B), _STAGES,
+    return FlashPlan(d_pad, rows, stream, (-(-T // rows), H, B), stages,
                      smem, boxes)
+
+
+# The launch plan of the general family G1-G3 (csrc/flash_general.cu).
+_GEN_ROWS = 16           # rows a block owns (q: G1, G3; keys: G2)
+_GEN_TILE = 32           # rows of the other side staged per step
+_GEN_THREADS = 128
+_GEN_KERNELS = ("flash_fwd_general", "flash_bwd_dkdv_general",
+                "flash_bwd_dq_general")
+
+
+class GeneralPlan(NamedTuple):
+    ld: int              # f32 row stride of a staged tile: D rounded up
+    #                      to odd, so that 32 lanes on 32 rows hit 32 banks
+    grid: Tuple[int, int, int]   # (row blocks, H, B)
+    threads: int
+    smem_bytes: int
+
+
+def general_plan(kernel: str, B: int, H: int, T: int, D: int) -> GeneralPlan:
+    """Launch geometry of G1 (``"flash_fwd_general"``), G2
+    (``"flash_bwd_dkdv_general"``) or G3 (``"flash_bwd_dq_general"``): one
+    block of 4 warps per 16 rows of one head (query rows for G1 and G3,
+    key rows for G2), the other side staged 32 rows at a time as f32.
+    Shared memory: G1 the 16 q rows and a k and a v tile; G3 also the 16
+    dO rows and the v tile; G2 the 16 k and v rows, a q and a dO tile and
+    their 32 lse and delta values."""
+    if kernel not in _GEN_KERNELS:
+        raise ValueError(f"no general launch plan for kernel {kernel!r}")
+    ld = D | 1
+    if kernel == "flash_fwd_general":
+        smem = (_GEN_ROWS + 2 * _GEN_TILE) * ld * 4
+    else:
+        smem = 2 * (_GEN_ROWS + _GEN_TILE) * ld * 4
+        if kernel == "flash_bwd_dkdv_general":
+            smem += 2 * _GEN_TILE * 4
+    return GeneralPlan(ld, (-(-T // _GEN_ROWS), H, B), _GEN_THREADS, smem)
 
 
 def tma_strides(D: int, st: int, sb: int) -> Tuple[int, int, int]:
@@ -260,79 +359,115 @@ def _check(err: int, name: str) -> None:
                            f"{err}")
 
 
+def _launch(name: str, stem: str, dev, *args) -> None:
+    """Launch kernel ``name`` (entry point ``htt_<name>`` of
+    ``csrc/<stem>.cu``) on the current stream of ``dev``, which the entry
+    point takes last; raise on a CUDA error, count the launch."""
+    fn = getattr(_lib(stem), f"htt_{name}")
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _check(err, name)
+    LAUNCHES[name] += 1
+
+
+def _new(like: torch.Tensor, out, shape):
+    return torch.empty(shape, dtype=like.dtype, device=like.device) \
+        if out is None else out
+
+
+def _inputs(named, num_heads, seq_len):
+    """Geometry, family and the (pointer, strides) arguments of the
+    (B, T, H*D) operands ``named`` (name, tensor; q first)."""
+    q = named[0][1]
+    B, T, C, H, D, lim = _geometry(q, num_heads, seq_len)
+    family = flash_family(q.dtype, D, q.stride(), q.data_ptr())
+    args = [a for n, x in named
+            for a in _view(x, n, (B, T, C), q.device, q.dtype, D)]
+    return (B, T, C, H, D, lim, q.device, family), args
+
+
 def flash_fwd(q, k, v, num_heads: int, *, scale: float, causal: bool,
               seq_len: Optional[int] = None):
-    """Port kernel P1.  q, k, v: (B, T, H*D) bf16 views (they may be column
-    regions of one tensor).  Returns o (B, T, H*D) bf16 and lse (B, H, T)
-    f32."""
-    B, T, C, H, D, lim = _geometry(q, num_heads, seq_len)
-    dev = q.device
-    args = [a for x, n in ((q, "q"), (k, "k"), (v, "v"))
-            for a in _view(x, n, (B, T, C), dev)]
-    plan = flash_plan("flash_fwd", B, H, T, D)
-    fn = _lib("flash_fwd").htt_flash_fwd
+    """Port kernel P1, or G1 for the general family
+    (:func:`flash_family`).  q, k, v: (B, T, H*D) views (they may be
+    column regions of one tensor).  Returns o (B, T, H*D) in q's dtype and
+    lse (B, H, T) f32."""
+    (B, T, C, H, D, lim, dev, family), args = _inputs(
+        (("q", q), ("k", k), ("v", v)), num_heads, seq_len)
     o = torch.empty((B, T, C), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, *_view(o, "o", (B, T, C), dev), lse.data_ptr(),
-                 B, H, T, D, lim, int(bool(causal)), float(scale),
-                 plan.stages, plan.smem_bytes, stream)
-    _check(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    out = [*_view(o, "o", (B, T, C), dev, q.dtype, D), lse.data_ptr()]
+    tail = (B, H, T, D, lim, int(bool(causal)), float(scale))
+    if family == "hopper":
+        plan = flash_plan("flash_fwd", B, H, T, D)
+        _launch("flash_fwd", "flash_fwd", dev, *args, *out, *tail,
+                plan.stages, plan.smem_bytes)
+    else:
+        plan = general_plan("flash_fwd_general", B, H, T, D)
+        _launch("flash_fwd_general", "flash_general", dev,
+                _GEN_DTYPES[q.dtype], *args, *out, *tail, plan.smem_bytes)
     return o, lse
 
 
 def _bwd_inputs(q, k, v, do, lse, delta, num_heads, seq_len):
-    B, T, C, H, D, lim = _geometry(q, num_heads, seq_len)
-    dev = q.device
-    args = [a for x, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do"))
-            for a in _view(x, n, (B, T, C), dev)]
+    geo, args = _inputs((("q", q), ("k", k), ("v", v), ("do", do)),
+                        num_heads, seq_len)
+    B, T, _, H, _, _, dev, _ = geo
     args += [_rows(lse, "lse", (B, H, T), dev),
              _rows(delta, "delta", (B, H, T), dev)]
-    return (B, T, C, H, D, lim, dev), args
+    return geo, args
+
+
+def _general_bwd(name, geo, args, outs, causal, scale, dtype) -> None:
+    """Launch G2 (``"flash_bwd_dkdv_general"``) or G3
+    (``"flash_bwd_dq_general"``)."""
+    B, T, C, H, D, lim, dev, _ = geo
+    plan = general_plan(name, B, H, T, D)
+    _launch(name, "flash_general", dev, _GEN_DTYPES[dtype], *args, *outs,
+            B, H, T, D, lim, int(bool(causal)), float(scale),
+            plan.smem_bytes)
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, num_heads: int, *,
                    scale: float, causal: bool,
                    seq_len: Optional[int] = None, dk=None, dv=None):
-    """Port kernel P2.  Inputs as :func:`flash_fwd` plus dO (B, T, H*D)
-    bf16 and lse, delta (B, H, T) f32.  Writes dk and dv into the given
-    (B, T, H*D) bf16 views, or into new tensors; returns (dk, dv)."""
-    (B, T, C, H, D, lim, dev), args = _bwd_inputs(
-        q, k, v, do, lse, delta, num_heads, seq_len)
+    """Port kernel P2, or G2 for the general family.  Inputs as
+    :func:`flash_fwd` plus dO (B, T, H*D) and lse, delta (B, H, T) f32.
+    Writes dk and dv into the given (B, T, H*D) views, or into new
+    tensors; returns (dk, dv)."""
+    geo, args = _bwd_inputs(q, k, v, do, lse, delta, num_heads, seq_len)
+    B, T, C, H, D, lim, dev, family = geo
+    dk, dv = _new(q, dk, (B, T, C)), _new(q, dv, (B, T, C))
+    outs = [*_view(dk, "dk", (B, T, C), dev, q.dtype, D),
+            *_view(dv, "dv", (B, T, C), dev, q.dtype, D)]
+    if family == "general":
+        _general_bwd("flash_bwd_dkdv_general", geo, args, outs, causal,
+                     scale, q.dtype)
+        return dk, dv
     plan = flash_plan("flash_bwd_dkdv", B, H, T, D)
-    fn = _lib("flash_bwd_dkdv").htt_flash_bwd_dkdv
-    dk = torch.empty((B, T, C), dtype=k.dtype, device=dev) if dk is None \
-        else dk
-    dv = torch.empty((B, T, C), dtype=v.dtype, device=dev) if dv is None \
-        else dv
-    outs = [*_view(dk, "dk", (B, T, C), dev), *_view(dv, "dv", (B, T, C),
-                                                     dev)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, *outs, B, H, T, D, lim, int(bool(causal)),
-                 float(scale), plan.stages, plan.smem_bytes, stream)
-    _check(err, "flash_bwd_dkdv")
-    LAUNCHES["flash_bwd_dkdv"] += 1
+    _launch("flash_bwd_dkdv", "flash_bwd_dkdv", dev, *args, *outs, B, H, T,
+            D, lim, int(bool(causal)), float(scale), plan.stages,
+            plan.smem_bytes)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, num_heads: int, *, scale: float,
                  causal: bool, seq_len: Optional[int] = None, dq=None):
-    """Port kernel P3.  Inputs as :func:`flash_bwd_dkdv`; writes dq into the
-    given (B, T, H*D) bf16 view, or into a new tensor, and returns it."""
-    (B, T, C, H, D, lim, dev), args = _bwd_inputs(
-        q, k, v, do, lse, delta, num_heads, seq_len)
-    fn = _lib("flash_bwd").htt_flash_bwd_dq
-    dq = torch.empty((B, T, C), dtype=q.dtype, device=dev) if dq is None \
-        else dq
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, *_view(dq, "dq", (B, T, C), dev), B, H, T, D, lim,
-                 int(bool(causal)), float(scale), stream)
-    _check(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    """Port kernel P3, or G3 for the general family.  Inputs as
+    :func:`flash_bwd_dkdv`; writes dq into the given (B, T, H*D) view, or
+    into a new tensor, and returns it."""
+    geo, args = _bwd_inputs(q, k, v, do, lse, delta, num_heads, seq_len)
+    B, T, C, H, D, lim, dev, family = geo
+    dq = _new(q, dq, (B, T, C))
+    outs = list(_view(dq, "dq", (B, T, C), dev, q.dtype, D))
+    if family == "general":
+        _general_bwd("flash_bwd_dq_general", geo, args, outs, causal, scale,
+                     q.dtype)
+        return dq
+    plan = flash_plan("flash_bwd_dq", B, H, T, D)
+    _launch("flash_bwd_dq", "flash_bwd_dq", dev, *args, *outs, B, H, T, D,
+            lim, int(bool(causal)), float(scale), plan.stages,
+            plan.smem_bytes)
     return dq
 
 
@@ -340,29 +475,28 @@ def flash_bwd_fused(q, k, v, do, lse, delta, num_heads: int, *,
                     scale: float, causal: bool,
                     seq_len: Optional[int] = None, dq=None, dk=None,
                     dv=None):
-    """Port kernel P6, the one-pass backward.  Inputs as
-    :func:`flash_bwd_dkdv`; writes dq, dk and dv into the given
-    (B, T, H*D) bf16 views, or into new tensors, and returns (dq, dk, dv).
-    dq is summed in an f32 workspace of (B, T, H*D) with atomics, so its
-    last bits vary from run to run."""
-    (B, T, C, H, D, lim, dev), args = _bwd_inputs(
-        q, k, v, do, lse, delta, num_heads, seq_len)
-    fn = _lib("flash_bwd_fused").htt_flash_bwd_fused
-    dq = torch.empty((B, T, C), dtype=q.dtype, device=dev) if dq is None \
-        else dq
-    dk = torch.empty((B, T, C), dtype=k.dtype, device=dev) if dk is None \
-        else dk
-    dv = torch.empty((B, T, C), dtype=v.dtype, device=dev) if dv is None \
-        else dv
-    outs = [a for x, n in ((dq, "dq"), (dk, "dk"), (dv, "dv"))
-            for a in _view(x, n, (B, T, C), dev)]
+    """Port kernel P6, the one-pass backward; inputs as
+    :func:`flash_bwd_dkdv`.  Writes dq, dk and dv into the given
+    (B, T, H*D) views, or into new tensors, and returns (dq, dk, dv).  dq
+    is summed in an f32 workspace of (B, T, H*D) with atomics, so its last
+    bits vary from run to run.  For the general family, G2 and G3 compute
+    the same function, deterministically."""
+    geo, args = _bwd_inputs(q, k, v, do, lse, delta, num_heads, seq_len)
+    B, T, C, H, D, lim, dev, family = geo
+    dq, dk, dv = (_new(q, x, (B, T, C)) for x in (dq, dk, dv))
+    outs = {n: list(_view(x, n, (B, T, C), dev, q.dtype, D))
+            for n, x in (("dq", dq), ("dk", dk), ("dv", dv))}
+    if family == "general":
+        _general_bwd("flash_bwd_dkdv_general", geo, args,
+                     outs["dk"] + outs["dv"], causal, scale, q.dtype)
+        _general_bwd("flash_bwd_dq_general", geo, args, outs["dq"], causal,
+                     scale, q.dtype)
+        return dq, dk, dv
+    plan = flash_plan("flash_bwd_fused", B, H, T, D)
     work = torch.empty((B, T, C), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, *outs, work.data_ptr(), B, H, T, D, lim,
-                 int(bool(causal)), float(scale), stream)
-    _check(err, "flash_bwd_fused")
-    LAUNCHES["flash_bwd_fused"] += 1
+    _launch("flash_bwd_fused", "flash_bwd_fused", dev, *args, *outs["dq"],
+            *outs["dk"], *outs["dv"], work.data_ptr(), B, H, T, D, lim,
+            int(bool(causal)), float(scale), plan.stages, plan.smem_bytes)
     return dq, dk, dv
 
 

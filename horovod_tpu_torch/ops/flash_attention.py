@@ -7,7 +7,9 @@ Port of ``horovod_tpu/ops/flash_attention.py:1406-1812``: the entry points
 here the autograd Functions ``_FlashQKVProj``, ``_FlashQKV`` and
 ``_FlashPacked``.
 
-Four kernels carry it (``csrc/``, built by :mod:`._cuda`):
+Two families of kernels carry it (``csrc/``, built by :mod:`._cuda`).
+The Hopper kernels (wgmma and TMA, bfloat16 at a head size that is a
+multiple of 16 up to 128):
 
 * ``flash_fwd`` (P1) replaces the three Pallas forward forms
   (``_fwd_kernel``, ``_fwd_kernel_unrollkv``, ``_fwd_kernel_fullunroll``);
@@ -16,6 +18,13 @@ Four kernels carry it (``csrc/``, built by :mod:`._cuda`):
 * ``flash_bwd_dq`` (P3) replaces ``_dq_kernel`` and its head-grouped form;
 * ``flash_bwd_fused`` (P6) replaces the one-pass backwards
   ``_bwd_fused_kernel`` and ``_bwd_kernel_fullunroll``.
+
+The general family G1-G3 (``csrc/flash_general.cu``: f32 arithmetic on
+the CUDA cores) computes what P1, P2 and P3 compute for everything else
+the JAX package runs: float32 and float16 at any head size up to 256,
+bfloat16 at the other head sizes up to 256.  ``_cuda.flash_family`` picks
+the family from the dtype and the head size; each wrapper of :mod:`._cuda`
+obeys it, and the one-pass wrapper runs G2 + G3 for the general family.
 
 Which backward runs is :func:`_bwd_form`'s choice, made at backward time
 with the JAX package's conditions: the split pair P2 + P3, the one-pass
@@ -46,6 +55,7 @@ package's errors.
 from __future__ import annotations
 
 import os
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -234,12 +244,23 @@ class _Cfg(NamedTuple):
 
 def _bwd_group(num_heads: int) -> int:
     """The head group of ``_bwd_pallas_packed`` when
-    ``HOROVOD_TPU_FLASH_BWD_GROUP`` is set (a malformed value means 1).
-    Its automatic group stands down whenever ``HOROVOD_TPU_FLASH_BWD`` is
-    set, so only the knob can shadow the one-pass form."""
+    ``HOROVOD_TPU_FLASH_BWD_GROUP`` is set.  A value that is not an
+    integer >= 1 warns as the JAX package does
+    (``flash_attention.py:1266-1277``) and means 1.  Its automatic group
+    stands down whenever ``HOROVOD_TPU_FLASH_BWD`` is set, so only the
+    knob can shadow the one-pass form."""
+    group_env = os.environ.get("HOROVOD_TPU_FLASH_BWD_GROUP")
+    if group_env is None:
+        return 1
     try:
-        group = int(os.environ.get("HOROVOD_TPU_FLASH_BWD_GROUP", "1"))
+        group = int(group_env)
+        if group < 1:
+            raise ValueError
     except ValueError:
+        warnings.warn(
+            f"HOROVOD_TPU_FLASH_BWD_GROUP={group_env!r} is not a "
+            "positive integer; using the per-head default (1)",
+            RuntimeWarning, stacklevel=2)
         return 1
     return group if group > 1 and num_heads % group == 0 else 1
 

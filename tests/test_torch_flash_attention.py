@@ -16,6 +16,7 @@ product.
 
 import ast
 import inspect
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -443,13 +444,115 @@ def test_fullunroll_knob_sends_cpu_backward_to_fused(monkeypatch):
 
 
 def test_dispatch_has_no_fallback():
-    """No ``try`` around the kernel path: the dispatcher and the kernel
-    wrappers contain no exception handler at all."""
+    """No ``try`` around the kernel path: the dispatcher, the kernel
+    wrappers of both families and the rule that picks the family contain
+    no exception handler at all."""
     for fn in (tfa._dispatch, _cuda.flash_fwd, _cuda.flash_bwd_dkdv,
-               _cuda.flash_bwd_dq, _cuda.flash_bwd_fused, _cuda._lib):
+               _cuda.flash_bwd_dq, _cuda.flash_bwd_fused, _cuda._lib,
+               _cuda.flash_family, _cuda._inputs, _cuda._view,
+               _cuda._launch, _cuda._general_bwd):
         tree = ast.parse(inspect.getsource(fn).strip())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], \
             fn.__name__
+
+
+@pytest.mark.parametrize("dtype,D_", [(torch.float32, 8),
+                                      (torch.float16, 128),
+                                      (torch.bfloat16, 200)])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkdv",
+                                  "flash_bwd_dq", "flash_bwd_fused"])
+def test_general_wrappers_refuse_cpu_tensors(name, dtype, D_):
+    """Inputs of the general family reach the same wrappers, which raise
+    on a CPU tensor before they build anything."""
+    x = torch.zeros((1, 64, H * D_), dtype=dtype)
+    assert _cuda.flash_family(dtype, D_, x.stride(), x.data_ptr()) == \
+        "general"
+    rows = torch.zeros((1, H, 64))
+    args = (x, x, x) if name == "flash_fwd" else (x, x, x, x, rows, rows)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(_cuda, name)(*args, H, scale=1.0, causal=True)
+
+
+@pytest.mark.parametrize("D_,causal,seq_len", [(8, True, None),
+                                               (8, False, 50),
+                                               (200, True, 40)])
+def test_general_head_sizes_match_jax(D_, causal, seq_len):
+    """Head sizes the Hopper kernels do not take (8, 200): the plain
+    versions, which the general family G1-G3 computes on the card, against
+    the JAX kernels in interpret mode, forward and gradients."""
+    rng = _rng(11)
+    Tg = 64
+    q, k, v, g = (_normal(rng, (B, Tg, H, D_)) for _ in range(4))
+    kw = dict(causal=causal, seq_len=seq_len, block_q=32, block_k=32)
+
+    def jfn(q, k, v):
+        return jfa.flash_attention(q, k, v, interpret=True, **kw)
+
+    want_o = jfn(*map(jnp.asarray, (q, k, v)))
+    want = jax.grad(lambda *a: (jfn(*a) * jnp.asarray(g)).sum(),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*ts, **kw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_o),
+                               rtol=0, atol=FWD_ATOL)
+    (out * torch.from_numpy(g)).sum().backward()
+    for t, w_ in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w_),
+                                   **GRAD_TOL)
+
+
+_GROUP_WARNING = ("HOROVOD_TPU_FLASH_BWD_GROUP={!r} is not a positive "
+                  "integer; using the per-head default (1)")
+
+
+def _jax_bwd_warnings(D_):
+    """The warnings the JAX package raises while it traces the backward
+    of ``flash_attention`` at head size ``D_`` (T 128, two heads)."""
+    x = jax.ShapeDtypeStruct((1, 128, H, D_), jnp.float32)
+
+    def loss(q, k, v):
+        return jfa.flash_attention(q, k, v, interpret=True).sum()
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        jax.eval_shape(jax.grad(loss, argnums=(0, 1, 2)), x, x, x)
+    return [str(w.message) for w in seen
+            if issubclass(w.category, RuntimeWarning)]
+
+
+@pytest.mark.parametrize("value", ["x", "0", "-2", "1.5"])
+def test_malformed_bwd_group_warns_like_jax(monkeypatch, value):
+    """A value of ``HOROVOD_TPU_FLASH_BWD_GROUP`` that is not an integer
+    >= 1 warns on the head-packed backward, with the JAX package's text,
+    and the backward runs per head."""
+    monkeypatch.delenv("HOROVOD_TPU_FLASH_BWD", raising=False)
+    monkeypatch.delenv("HOROVOD_TPU_FLASH_PACKED_BWD", raising=False)
+    monkeypatch.setenv("HOROVOD_TPU_FLASH_BWD_GROUP", value)
+    text = _GROUP_WARNING.format(value)
+    with pytest.warns(RuntimeWarning) as seen:
+        form = tfa._bwd_form("pallas", 128, 128, 4, 128, 128, H)
+    assert form == "split"
+    assert [str(w.message) for w in seen] == [text]
+    assert _jax_bwd_warnings(128) == [text]
+
+
+@pytest.mark.parametrize("value,D_,packed", [("2", 128, None),
+                                             ("x", 64, None),
+                                             ("x", 128, "0")])
+def test_bwd_group_is_silent_where_jax_is(monkeypatch, value, D_, packed):
+    """No warning for a well-formed group, off the head-packed route
+    (D % 128 != 0), or with ``HOROVOD_TPU_FLASH_PACKED_BWD=0``, in
+    either package."""
+    monkeypatch.delenv("HOROVOD_TPU_FLASH_BWD", raising=False)
+    monkeypatch.setenv("HOROVOD_TPU_FLASH_BWD_GROUP", value)
+    if packed is None:
+        monkeypatch.delenv("HOROVOD_TPU_FLASH_PACKED_BWD", raising=False)
+    else:
+        monkeypatch.setenv("HOROVOD_TPU_FLASH_PACKED_BWD", packed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tfa._bwd_form("pallas", 128, D_, 4, 128, 128, H)
+    assert _jax_bwd_warnings(D_) == []
 
 
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkdv",
