@@ -79,6 +79,42 @@ the checkout.  Phases, in order; any failure ends the run:
    momentum and parameter within a bf16 step of the step written out.
 13. NCCL ring: two processes, one card each, only with two or more cards;
    otherwise a line says it did not run.
+14. ResNet steps_per_call: a small ResNet (stages [1, 1], 8 filters, bf16)
+   on the card, one call with ``steps_per_call=3`` against three
+   single-step calls on the same batches: the call's loss equals the
+   mean of theirs within 1e-5 relative.
+15. ResNet-50 against the CPU: the full-width model with the last
+   BatchNorm scale of every block drawn from U(0.05, 0.15) (zero at init,
+   which leaves the blocks' convolutions without a gradient), one
+   train-mode forward and backward of 4 random 224 x 224 images with
+   random labels on the card and on the CPU from the same state: in f32
+   (TF32 off) the loss and logits within 1e-4 relative, all gradients
+   together within 1e-2, every gradient and buffer within 5e-2; in bf16
+   the loss and the logits within 2e-2.  The CPU pass on inputs moved by
+   1e-6 prints how far the problem amplifies such a change (the floor the
+   limits sit a few times above).
+16. ResNet-50 (the bench's judged leg, ``bench.py:150-256``):
+   ``ResNet50(num_classes=1000)`` in bf16, batch 128 of 224 x 224 NHWC
+   images from a seeded generator, zero labels, SGD lr 0.01 momentum 0.9
+   through ``make_train_step(sync_aux_state=True)``.  After its first
+   step ``bn_init``'s running mean must equal 0.1 x the f32 batch mean of
+   ``conv_init``'s output computed directly, and its running var 0.9 +
+   0.1 x the biased variance (1e-3 relative).  Then 1 warm-up call and 3
+   timed calls with ``steps_per_call=5``: images/s per GPU, ms per step,
+   MFU by ``bench.py:270-281``'s formula (3 x 4.1e9 x images / 989
+   TFLOP/s; 4.1e9 counts multiply-accumulates), peak memory, clocks.
+   Losses finite and falling, no port kernel launched (the leg runs
+   cuDNN convolutions and PyTorch elementwise ops, as the JAX package
+   runs XLA's), an eval step's logits finite; one profiled step by
+   category (convolution, BatchNorm and elementwise, other).
+17. Hierarchical NCCL: four processes, one card each, on two fake hosts
+   (``HOROVOD_TPU_HOST_FINGERPRINT`` A, A, B, B), only with four or more
+   cards; otherwise a line says it did not run.  The two-tier allreduce
+   of integer-valued f32 equals the flat ``all_reduce`` bit for bit;
+   ``reduce_gradients(compression="int8", mesh=)`` launches P4 and P5,
+   equals the plain codec's snap reduced over the mesh bit for bit and
+   the flat sum of that snap within 1e-2; two small-ResNet steps on
+   ``hierarchical_mesh()`` match the flat steps within 1e-5 relative.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1151,6 +1187,358 @@ def phase_nccl_ring():
     if torch.cuda.device_count() < 2:
         print("nccl ring: not run (one CUDA device; it needs two)")
         return
+    got = _spawn(_nccl_worker, 2)
+    print(f"nccl ring: 2 processes x {RING_N} elements, distributed vs "
+          f"lockstep ring: {got}")
+    _check(got == {0: True, 1: True}, f"nccl ring failed: {got}")
+
+
+# The ResNet-50 leg (bench.py:150-256): batch 128 per GPU, 224 x 224,
+# bf16, SGD lr 0.01 momentum 0.9, sync_aux_state=True, steps_per_call=5.
+RESNET_BATCH, RESNET_SIZE, RESNET_SPC, RESNET_TIMED = 128, 224, 5, 3
+# bench.py:270-281: 4.1e9 is ResNet-50's multiply-accumulates per 224 x
+# 224 image (8.2 GFLOP); the bench's analytic MFU counts 3 x 4.1e9 per
+# image for forward and backward, and so does this script.
+RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9
+TOL_BN_STATS = 1e-3      # bn_init's running statistics, relative
+TOL_SPC = 1e-5           # steps_per_call vs single steps, losses, relative
+# ResNet-50 on the card against the CPU on RESNET_CHECK images, relative
+# Frobenius.  The backward of this problem amplifies small changes: on the
+# CPU alone, inputs moved by 1e-6 moved its f32 gradients by 1.3e-3 taken
+# together and one BatchNorm bias gradient by 9e-3, and its bf16 logits by
+# 3.8e-3 (phase 15 prints this floor in every run; H100 80GB HBM3 host,
+# PERF.md).  So the limits sit a few times above that floor, and far
+# below the O(1) error of a wrong gradient: f32 loss and logits 1e-4, all
+# f32 gradients together 1e-2, every f32 gradient and buffer 5e-2; bf16
+# loss and logits 2e-2 (the bf16 gradients are not held: bf16 rounding
+# alone moves them by ~6e-2).
+RESNET_CHECK = 4
+TOL_RESNET_FWD = 1e-4
+TOL_RESNET_GRADS = 1e-2
+TOL_RESNET_TENSOR = 5e-2
+TOL_RESNET_BF16 = 2e-2
+SMALL_RESNET = dict(stage_sizes=[1, 1], num_filters=8, num_classes=10)
+
+
+def _resnet_loss(model, batch):
+    import torch.nn.functional as F
+    images, labels = batch
+    return F.cross_entropy(model(images), labels)
+
+
+def _resnet_category(name: str) -> str:
+    low = name.lower()
+    if any(t in low for t in ("conv", "fprop", "dgrad", "wgrad", "xmma",
+                              "implicit", "cudnn", "nhwc", "nchw")):
+        return "convolution (cuDNN)"
+    if any(t in low for t in ("elementwise", "vectorized", "unrolled",
+                              "reduce", "copy", "fill", "batch_norm",
+                              "cat")):
+        return "BatchNorm and elementwise"
+    return "other (pooling, head, optimizer)"
+
+
+def phase_resnet_steps_per_call():
+    """A small ResNet on the card: one call with ``steps_per_call=3``
+    against three single-step calls of the same model, same batches."""
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.spmd import make_train_step
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    images = torch.randn(3, 16, 32, 32, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (3, 16), generator=gen, device="cuda")
+    losses = {}
+    for spc in (1, 3):
+        model = ResNet(**SMALL_RESNET, seed=SEED, device="cuda")
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, _resnet_loss, opt,
+                               steps_per_call=spc)
+        if spc == 1:
+            losses[spc] = [step((images[i], labels[i])).item()
+                           for i in range(3)]
+        else:
+            losses[spc] = step((images, labels)).item()
+    want = sum(losses[1]) / 3
+    err = abs(losses[3] - want) / abs(want)
+    print(f"resnet steps_per_call: one call of 3 gives {losses[3]:.6f}, "
+          f"3 single steps {losses[1]} (mean {want:.6f}), {err:.2e} "
+          f"relative")
+    _check(err <= TOL_SPC, f"steps_per_call=3 differs from 3 single steps "
+           f"by {err} > {TOL_SPC}")
+
+
+def _resnet_pass(model, images, labels) -> dict:
+    """One train-mode forward and backward: loss, logits, every
+    parameter's gradient and every buffer after the forward, as f64 on
+    the CPU."""
+    import torch.nn.functional as F
+    logits = model(images)
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    out = {"loss": loss.detach().reshape(1), "logits": logits.detach()}
+    out.update({"grad " + n: p.grad for n, p in model.named_parameters()})
+    out.update({"buffer " + n: b for n, b in model.named_buffers()})
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+def phase_resnet_cpu():
+    """ResNet-50 at full width on the card against the same model and
+    inputs on the CPU, in f32 (TF32 off) and in the leg's bf16, on
+    ``RESNET_CHECK`` images of 224 x 224 with random labels.  The last
+    BatchNorm scale of every block, zero at init, is drawn from U(0.05,
+    0.15): every block's convolutions then get a gradient while the
+    residual branches stay small.  (With every scale drawn from U(0.5,
+    1.5) the backward is chaotic: a 1e-6 change of the inputs moved
+    gradients by 3e-2, so no two devices can agree on them.)  The CPU
+    pass is repeated on inputs moved by 1e-6 relative, to print how far
+    the problem itself amplifies a change that small.  In f32 the loss
+    and the logits within ``TOL_RESNET_FWD``, all gradients together
+    within ``TOL_RESNET_GRADS``, every gradient and buffer within
+    ``TOL_RESNET_TENSOR``; in bf16 the loss and the logits within
+    ``TOL_RESNET_BF16``."""
+    from horovod_tpu_torch.models import ResNet50
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 on the card
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 5)
+    images = torch.randn(RESNET_CHECK, RESNET_SIZE, RESNET_SIZE, 3,
+                         generator=gen)
+    moved = images * (1 + 1e-6 * torch.randn(images.shape, generator=gen))
+    labels = torch.randint(0, 1000, (RESNET_CHECK,), generator=gen)
+    state = None
+    errs, floor, cpu_s = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = {}
+        for device, x in (("cpu", images), ("cpu moved", moved),
+                          ("cuda", images)):
+            model = ResNet50(num_classes=1000, dtype=dtype, seed=SEED,
+                             device=device.split()[0])
+            if state is None:
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        if n.endswith("BatchNorm_2.scale"):
+                            p.uniform_(0.05, 0.15, generator=gen)
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            t0 = time.perf_counter()
+            got[device] = _resnet_pass(model, x.to(device.split()[0]),
+                                       labels.to(device.split()[0]))
+            if device == "cpu":
+                cpu_s[dtype] = time.perf_counter() - t0
+            del model
+        errs[dtype] = _resnet_errs(got["cuda"], got["cpu"])
+        floor[dtype] = _resnet_errs(got["cpu moved"], got["cpu"])
+    f32, bf16 = errs[torch.float32], errs[torch.bfloat16]
+    worst = max(f32, key=f32.get)
+    for dtype, e in errs.items():
+        w = max(e, key=e.get)
+        fl = floor[dtype]
+        print(f"resnet50 card vs CPU, {str(dtype)[6:]} ({RESNET_CHECK} "
+              f"images, {len(e) - 1} tensors): loss {e['loss']:.2e}, "
+              f"logits {e['logits']:.2e}, all gradients "
+              f"{e['all gradients']:.2e}, worst {w} {e[w]:.2e}; CPU vs "
+              f"CPU on inputs moved by 1e-6: logits {fl['logits']:.2e}, "
+              f"all gradients {fl['all gradients']:.2e}, worst "
+              f"{max(fl.values()):.2e}")
+    print(f"resnet50 card vs CPU: one CPU pass {cpu_s[torch.float32]:.1f} "
+          f"s; held: f32 loss and logits within {TOL_RESNET_FWD}, all "
+          f"gradients within {TOL_RESNET_GRADS}, every tensor within "
+          f"{TOL_RESNET_TENSOR}; bf16 loss and logits within "
+          f"{TOL_RESNET_BF16}")
+    for key, tol in (("loss", TOL_RESNET_FWD), ("logits", TOL_RESNET_FWD),
+                     ("all gradients", TOL_RESNET_GRADS),
+                     (worst, TOL_RESNET_TENSOR)):
+        _check(f32[key] <= tol,
+               f"resnet50: f32 card vs CPU, {key} {f32[key]} > {tol}")
+    for key in ("loss", "logits"):
+        _check(bf16[key] <= TOL_RESNET_BF16,
+               f"resnet50: bf16 card vs CPU, {key} {bf16[key]} > "
+               f"{TOL_RESNET_BF16}")
+
+
+def _resnet_errs(got: dict, want: dict) -> dict:
+    """Relative Frobenius error of every tensor of ``_resnet_pass``, and
+    of all the gradients together."""
+    errs = {k: _rel_fro(got[k], want[k]) for k in want}
+    grads = [k for k in want if k.startswith("grad ")]
+    errs["all gradients"] = _rel_fro(
+        torch.cat([got[k].reshape(-1) for k in grads]),
+        torch.cat([want[k].reshape(-1) for k in grads]))
+    return errs
+
+
+def phase_resnet():
+    """The ResNet-50 leg at full width: the first step's BatchNorm
+    statistics against a direct computation, 1 warm-up call and 3 timed
+    calls of 5 steps, an eval step, one profiled step."""
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.spmd import make_eval_step, make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    model = ResNet50(num_classes=1000, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    images = torch.randn(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3,
+                         generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.zeros(RESNET_BATCH, dtype=torch.long, device="cuda")
+    # The bench stacks one batch steps_per_call times (bench.py:232-234).
+    stacked = (images.expand(RESNET_SPC, *images.shape),
+               labels.expand(RESNET_SPC, *labels.shape))
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    one = make_train_step(model, _resnet_loss, opt, sync_aux_state=True)
+    call = make_train_step(model, _resnet_loss, opt, sync_aux_state=True,
+                           steps_per_call=RESNET_SPC)
+    with torch.no_grad():
+        y = model.conv_init(images.permute(0, 3, 1, 2)).float()
+        want_mean = 0.1 * y.mean(dim=(0, 2, 3))
+        want_var = 0.9 + 0.1 * y.var(dim=(0, 2, 3), unbiased=False)
+        del y
+    _cuda.reset_launches()
+    first = one((images, labels)).item()
+    bn = model.bn_init
+    errs = (_rel_fro(bn.mean, want_mean), _rel_fro(bn.var, want_var))
+    print(f"resnet50: first step loss {first:.4f}; bn_init running mean "
+          f"and var against 0.1 x the batch's (and 0.9 + 0.1 x): "
+          f"{errs[0]:.2e}, {errs[1]:.2e} relative")
+    _check(max(errs) <= TOL_BN_STATS,
+           f"resnet50: bn_init statistics {errs} > {TOL_BN_STATS}")
+    losses, times = [first], []
+    for i in range(1 + RESNET_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = call(stacked)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(_cuda.LAUNCHES)
+    call_s = statistics.median(times[1:])
+    step_s = call_s / RESNET_SPC
+    images_s = RESNET_BATCH / step_s
+    mfu = RESNET_FLOPS_PER_IMAGE * images_s / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"resnet50: batch {RESNET_BATCH} x {RESNET_SIZE}^2 bf16, "
+          f"steps_per_call {RESNET_SPC}, losses (first step, then the mean "
+          f"of each call) " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"resnet50: {images_s:.1f} images/s per GPU, {step_s * 1e3:.2f} ms "
+          f"per step (median of {RESNET_TIMED} calls; calls "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms, the first "
+          f"a warm-up), MFU {mfu:.4f} (3 x 4.1e9 per image at 989 "
+          f"TFLOP/s), peak memory {peak_gb:.2f} GiB, port kernels "
+          f"launched {sum(launches.values())}")
+    print(f"resnet50: after the timed calls, SM clock, power, "
+          f"temperature: {_clocks()}")
+    _check(all(math.isfinite(x) for x in losses), "resnet50: non-finite loss")
+    _check(losses[-1] < losses[0],
+           f"resnet50: loss did not fall: {losses[0]} -> {losses[-1]}")
+    # The leg runs no Pallas kernel in the JAX package either.
+    _check(not any(launches.values()),
+           f"resnet50: port kernels launched: {launches}")
+    logits = make_eval_step(model, lambda m, b: m(b))(images)
+    _check(tuple(logits.shape) == (RESNET_BATCH, 1000)
+           and bool(torch.isfinite(logits).all()),
+           f"resnet50: eval logits {tuple(logits.shape)} not finite")
+    print(f"resnet50: eval step on the running statistics: logits "
+          f"{tuple(logits.shape)}, finite, mean {logits.mean().item():.4f}")
+    _profile_step(one, (images, labels), _resnet_category)
+    return {"images_s": images_s, "step_s": step_s, "mfu": mfu,
+            "peak_gb": peak_gb}
+
+
+HIER_HOSTS = ("A", "A", "B", "B")
+# int8 on the mesh against the flat sum of the same snapped leaves: the
+# two-tier path sums the bf16 wire in another order than the flat
+# all_reduce of f32, a few bf16 roundings (2^-8) apart.
+TOL_HIER_INT8 = 1e-2
+
+
+def _hier_worker(rank: int, port: int, results) -> None:
+    try:
+        os.environ.update({
+            "HOROVOD_TPU_SIZE": "4", "HOROVOD_TPU_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_SIZE": "1",
+            "HOROVOD_TPU_HOST_FINGERPRINT": HIER_HOSTS[rank]})
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models import ResNet
+        from horovod_tpu_torch.ops import _cuda, injit
+        from horovod_tpu_torch.parallel.hierarchical import (
+            hierarchical_allreduce)
+        from horovod_tpu_torch.spmd import make_train_step, reduce_gradients
+        hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+        mesh = hvd.hierarchical_mesh()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + rank)
+        x = torch.randint(-1000, 1000, (RING_N + 3,), generator=gen,
+                          device="cuda").float()
+        same = _bits_equal(hierarchical_allreduce(x, mesh=mesh),
+                           injit.allreduce(x, average=False))
+        # int8 on the two-tier path: eligible leaves snapped through P4/P5,
+        # reduced in bf16 over the mesh, against the plain snap.
+        grads = [torch.randn(1024, 1024, generator=gen, device="cuda"),
+                 torch.randn(301, generator=gen, device="cuda")]
+        _cuda.reset_launches()
+        got = reduce_gradients(grads, compression="int8", mesh=mesh)
+        torch.cuda.synchronize()
+        codec = {k: _cuda.LAUNCHES[k]
+                 for k in ("int8_quantize", "int8_dequantize")}
+        wire = [_snap_plain(grads[0]).to(torch.bfloat16),
+                grads[1].to(torch.float32)]
+        int8_same = all(_bits_equal(g, hierarchical_allreduce(
+            w, average=True, mesh=mesh).to(g.dtype))
+            for g, w in zip(got, wire))
+        flat = [injit.allreduce(w.float(), average=True) for w in wire]
+        int8_err = max(_rel_fro(g, f) for g, f in zip(got, flat))
+        images = torch.randn(2, 8, 32, 32, 3, generator=gen, device="cuda")
+        labels = torch.randint(0, 10, (2, 8), generator=gen, device="cuda")
+        losses = {}
+        for key, m in (("mesh", mesh), ("flat", None)):
+            model = ResNet(**SMALL_RESNET, seed=SEED, device="cuda")
+            opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            step = make_train_step(model, _resnet_loss, opt, mesh=m)
+            losses[key] = [step((images[i], labels[i])).item()
+                           for i in range(2)]
+        torch.cuda.synchronize()
+        hvd.shutdown()
+        results.put((rank, {"grid": mesh.grid, "same": same,
+                            "int8_same": int8_same, "int8_err": int8_err,
+                            "codec": codec, "losses": losses}))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def phase_hierarchical_nccl():
+    """Four processes, one card each, on two fake hosts (A, A, B, B):
+    the two-tier allreduce of integer-valued f32 against the flat
+    all_reduce, bit for bit; ``reduce_gradients(compression="int8",
+    mesh=)`` against the plain snap reduced over the mesh (bit for bit)
+    and over the flat group; and two small-ResNet steps on the mesh
+    against the flat step."""
+    if torch.cuda.device_count() < 4:
+        print("hierarchical nccl: not run (it needs four CUDA devices, "
+              f"this machine has {torch.cuda.device_count()})")
+        return
+    got = _spawn(_hier_worker, 4)
+    print(f"hierarchical nccl: 4 processes on hosts {HIER_HOSTS}: {got}")
+    _check(all(isinstance(got.get(r), dict) for r in range(4)),
+           f"hierarchical nccl failed: {got}")
+    for r in range(4):
+        out = got[r]
+        _check(out["grid"] == ((0, 1), (2, 3)), f"rank {r}: {out['grid']}")
+        _check(out["same"], f"rank {r}: two-tier allreduce differs from "
+               f"the flat one")
+        _check(out["int8_same"] and min(out["codec"].values()) > 0,
+               f"rank {r}: int8 on the mesh differs from the plain snap's "
+               f"two-tier reduce, or P4/P5 did not launch: {out['codec']}")
+        _check(out["int8_err"] <= TOL_HIER_INT8,
+               f"rank {r}: int8 on the mesh vs the flat sum of the plain "
+               f"snap {out['int8_err']} > {TOL_HIER_INT8}")
+        err = max(abs(a - b) / abs(b) for a, b in
+                  zip(out["losses"]["mesh"], out["losses"]["flat"]))
+        _check(err <= TOL_SPC, f"rank {r}: mesh step vs flat {err}")
+
+
+def _spawn(target, n: int) -> dict:
+    """Run ``target(rank, port, results)`` in ``n`` spawned processes;
+    {rank: result}, or an "exit"/"timeout" entry when a worker fails or
+    300 s pass without every result."""
     import queue
     import socket
     import torch.multiprocessing as mp
@@ -1159,8 +1547,8 @@ def phase_nccl_ring():
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=_nccl_worker, args=(r, port, results))
-             for r in range(2)]
+    procs = [ctx.Process(target=target, args=(r, port, results))
+             for r in range(n)]
     for p in procs:
         p.start()
     got = {}
@@ -1184,9 +1572,7 @@ def phase_nccl_ring():
             if p.is_alive():
                 p.kill()
                 p.join()
-    print(f"nccl ring: 2 processes x {RING_N} elements, distributed vs "
-          f"lockstep ring: {got}")
-    _check(got == {0: True, 1: True}, f"nccl ring failed: {got}")
+    return got
 
 
 def _category(name: str) -> str:
@@ -1206,14 +1592,16 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _profile_step(step, tokens) -> None:
+def _profile_step(step, batch, category=None) -> None:
     """One more step under torch.profiler: device time by kernel and
-    category, and the device's busy share of the (profiled) step."""
+    category (``_category`` unless given), and the device's busy share of
+    the (profiled) step."""
     from torch.profiler import ProfilerActivity, profile
+    category = category or _category
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(tokens)
+        step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1229,7 +1617,7 @@ def _profile_step(step, tokens) -> None:
           f"{busy / wall_ms:.3f}")
     cats: dict = {}
     for name, ms, _ in kernels:
-        cats[_category(name)] = cats.get(_category(name), 0.0) + ms
+        cats[category(name)] = cats.get(category(name), 0.0) + ms
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat}: {ms:.2f} ms ({ms / busy:.3f} of kernel time)")
     for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]:
@@ -1292,6 +1680,12 @@ def main() -> None:
     phase_ring()
     int8 = phase_train_int8(DEPTH, plain)
     phase_nccl_ring()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_resnet_steps_per_call()
+    phase_resnet_cpu()
+    phase_resnet()
+    phase_hierarchical_nccl()
     t, e = k["times"], k["errs"]
     flash = {
         "flash_fwd": (t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],

@@ -5,8 +5,9 @@ Port of ``horovod_tpu/basics.py:23-160``: every query raises before
 ``atexit``.  With more than one rank, ``init()`` creates the
 ``torch.distributed`` world group (NCCL on ``cuda``, gloo on ``cpu``) that
 the gradient reduction runs over; on ``cuda`` it also selects the GPU of
-this process's local rank.  The negotiated eager plane and its native
-controller are not ported yet.
+this process's local rank.  ``hierarchical_mesh`` (:175) and
+``get_topology`` (:185) follow the reference.  The negotiated eager plane
+and its native controller are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class _GlobalState:
         self.lock = threading.Lock()
         self.initialized = False
         self.topology: Optional[_topology_mod.Topology] = None
+        self.device: Optional[torch.device] = None
         self.atexit_registered = False
 
 
@@ -69,6 +71,9 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
                              f"{device!r}")
         if kind == "cuda":
             torch.cuda.set_device(topo.local_rank)
+            _state.device = torch.device("cuda", topo.local_rank)
+        else:
+            _state.device = torch.device("cpu")
         if topo.size > 1:
             dist.init_process_group(
                 backend="nccl" if kind == "cuda" else "gloo",
@@ -91,6 +96,7 @@ def shutdown() -> None:
                 dist.destroy_process_group()
         finally:
             _state.topology = None
+            _state.device = None
             _state.initialized = False
 
 
@@ -116,3 +122,22 @@ def rank() -> int:
 def local_rank() -> int:
     """Index of this process among the processes of its host."""
     return _require_init().topology.local_rank
+
+
+def get_topology() -> _topology_mod.Topology:
+    """The resolved job topology snapshot."""
+    return _require_init().topology
+
+
+def hierarchical_mesh(ici_size: Optional[int] = None):
+    """The two-tier ``(dcn, ici)`` layout of the ranks
+    (:class:`horovod_tpu_torch.parallel.mesh.HierarchicalMesh`): ``ici``
+    groups are the ranks of one host (by host fingerprint), ``ici_size``
+    forces a fixed split -- the analogue of the reference's local/cross
+    communicator pair (``operations.cc:1499-1532``).  Every rank must
+    call it.  Pass it to ``make_train_step(..., mesh=)`` or
+    :func:`horovod_tpu_torch.parallel.hierarchical
+    .hierarchical_allreduce`."""
+    from horovod_tpu_torch.parallel import mesh as _mesh_mod
+    return _mesh_mod.build_hierarchical_mesh(_require_init().topology,
+                                             ici_size)

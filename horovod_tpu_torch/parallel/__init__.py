@@ -1,1 +1,2 @@
-"""Parallelism library of the port (so far the oracle attention only)."""
+"""Parallelism library of the port: the oracle attention and the two-tier
+(host-group) reduction."""

@@ -4,14 +4,17 @@ Port of ``horovod_tpu/topology.py`` (``Topology`` :37, ``resolve`` :293),
 for one process per GPU.  The JAX package reads the rank space from the
 same launcher variables (``topology.py:87,318-325``) and otherwise asks the
 JAX runtime for its devices; the port has no such runtime, so without the
-variables the job is one rank.  Host groups and rank subsets are not ported
-yet.
+variables the job is one rank.  ``host_fingerprint`` (:115) and
+``derive_host_groups`` (:159) are the reference's, verbatim: they feed the
+intra-host and cross-host groups of :mod:`.parallel.mesh`.  Rank subsets
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Dict, List, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,3 +62,65 @@ def resolve() -> Topology:
             f"{local_rank}, local_size {local_size})")
     return Topology(size=size, rank=rank, local_rank=local_rank,
                     local_size=local_size)
+
+
+def host_fingerprint(warn_truncation: bool = False) -> str:
+    """Host-unique identity for grouping processes by physical host -- the
+    stand-in for the reference's ``MPI_Comm_split_type(SHARED)``
+    (``operations.cc:1499-1509``).
+
+    Hostname alone is ambiguous both ways: two hosts can collide on a
+    64-byte truncated name, and containers on one host can carry distinct
+    names while sharing the hardware.  The kernel boot id is unique per
+    booted host and shared by every container on it, so when readable it
+    IS the fingerprint.
+
+    ``warn_truncation``: set by callers that compare only the first 64
+    bytes of the name.
+
+    ``HOROVOD_TPU_HOST_FINGERPRINT`` (non-empty) overrides everything --
+    the seam for faking multi-host layouts on one machine, and an escape
+    hatch where boot-id sharing lies about locality (e.g. VMs cloned from
+    one image without re-seeding).
+    """
+    import socket
+    import warnings
+    forced = os.environ.get("HOROVOD_TPU_HOST_FINGERPRINT", "")
+    if forced:
+        return forced
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            boot = f.read().strip()
+    except OSError:
+        boot = ""
+    if boot:
+        return boot
+    name = socket.gethostname()
+    if warn_truncation and len(name.encode()) > 64:
+        warnings.warn(
+            "horovod_tpu: hostname exceeds the 64-byte host-grouping field "
+            "and /proc/sys/kernel/random/boot_id is unreadable; hosts "
+            "sharing this 64-byte name prefix would be grouped as one host "
+            "(wrong local_rank/local_size).", RuntimeWarning, stacklevel=2)
+    return name
+
+
+def derive_host_groups(
+        fingerprints: Sequence[str],
+) -> Tuple[Dict[str, List[int]], List[int]]:
+    """Host grouping + leader election from per-process host fingerprints
+    (index = process index).
+
+    Returns ``(groups, leaders)``: ``groups`` maps each fingerprint to the
+    ascending list of process indices on that host; ``leaders`` is the
+    per-host leader -- the lowest process index of each host -- ordered
+    ascending, which IS the inter-host ring order of the hierarchical
+    allreduce (both sides must elect identically or the data plane
+    deadlocks).
+    """
+    groups: Dict[str, List[int]] = {}
+    for pidx, fp in enumerate(fingerprints):
+        groups.setdefault(fp, []).append(pidx)
+    leaders = [procs[0] for procs in groups.values()]
+    leaders.sort()
+    return groups, leaders

@@ -2,8 +2,10 @@
 
 No JAX counterpart.  The port's modules keep flax's parameter names,
 shapes and layouts (Dense kernels (in, out), the raw (C, 3C) qkv kernel,
-LayerNorm ``scale``/``bias``, Embed ``embedding``), so a flax ``params``
-tree maps onto a ``state_dict`` by joining its keys with dots; nothing is
+LayerNorm and BatchNorm ``scale``/``bias``, Embed ``embedding``, BatchNorm
+``batch_stats`` ``mean``/``var`` as buffers), so a flax tree maps onto a
+``state_dict`` by joining its keys with dots.  One layout differs: a 4-D
+``kernel`` is a convolution's, HWIO in flax and OIHW in the port, and is
 transposed.  Optimizer state trees have the shape of ``params`` and map
 the same way.
 """
@@ -19,7 +21,7 @@ import torch
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a flax ``params`` tree (nested mappings of
     arrays): ``params["block_0"]["attn"]["qkv"]["kernel"]`` becomes
-    ``"block_0.attn.qkv.kernel"``."""
+    ``"block_0.attn.qkv.kernel"``; a 4-D ``kernel`` (HWIO) becomes OIHW."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
@@ -28,7 +30,10 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, name + ".")
             else:
-                out[name] = torch.from_numpy(np.array(value))
+                t = torch.from_numpy(np.array(value))
+                if key == "kernel" and t.dim() == 4:
+                    t = t.permute(3, 2, 0, 1).contiguous()
+                out[name] = t
 
     walk(params, "")
     return out
@@ -38,6 +43,15 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Copy a flax ``params`` tree into ``model`` (strict: every name and
     shape must match)."""
     model.load_state_dict(from_flax(params), strict=True)
+
+
+def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
+    """Copy a flax variables dict -- ``{"params": ..., "batch_stats":
+    ...}`` -- into ``model``'s parameters and buffers (strict: every name
+    and shape must match)."""
+    state = from_flax(variables["params"])
+    state.update(from_flax(variables.get("batch_stats", {})))
+    model.load_state_dict(state, strict=True)
 
 
 def load_optax_sgd_state(optimizer, model: torch.nn.Module, trace: Mapping,
@@ -51,7 +65,8 @@ def load_optax_sgd_state(optimizer, model: torch.nn.Module, trace: Mapping,
     ``ErrorFeedbackState.residual`` tree of the JAX package's
     ``DistributedOptimizer(error_feedback=True)`` (it becomes
     ``state[p]["residual"]``, f32).  Both are trees of arrays shaped like
-    the flax ``params`` of ``model``; every name must match."""
+    the flax ``params`` of ``model``, in flax's layouts (conv leaves are
+    transposed as in :func:`from_flax`); every name must match."""
     params = dict(model.named_parameters())
     for key, tree in (("momentum_buffer", trace), ("residual", residual)):
         if tree is None:

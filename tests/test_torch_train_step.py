@@ -12,10 +12,20 @@
   batch to atol 1e-6.
 * Basics: raise-before-init with the JAX package's message, and the
   topology from the launcher's environment.
+* The ResNet leg (the small f32 ResNet of ``test_torch_resnet.py``, SGD
+  lr 0.01 momentum 0.9): ``sync_aux_state=True`` on 2 gloo ranks against
+  JAX's step on a 2-device mesh with different per-rank batches, 3 steps;
+  ``steps_per_call=3`` against JAX's on one device, 2 calls; an optax
+  state carried across after the first call gives JAX's second call.
+  Losses to rtol 1e-5, parameters and BatchNorm statistics to a relative
+  Frobenius error of 1e-5 per leaf.  ``sync_aux_state=False`` and
+  ``steps_per_call=0`` raise the reference's texts.
 """
 
+import functools
 import os
 import queue
+import re
 import socket
 import traceback
 
@@ -29,17 +39,23 @@ import torch.multiprocessing as tmp
 from jax.sharding import Mesh
 
 import horovod_tpu_torch as hvd
+from _torch_spmd_worker import (LR, MOMENTUM, SMALL, once, resnet_loss,
+                                run_group, small_resnet, sync_aux_worker,
+                                to_batches, train)
 from horovod_tpu import basics as jax_basics
 from horovod_tpu import scheduler as jax_sched
 from horovod_tpu.jax.spmd import make_train_step as jax_make_train_step
 from horovod_tpu.models import TransformerLM as JaxLM
+from horovod_tpu.models.resnet import ResNet as JaxResNet
 from horovod_tpu.ops.losses import fused_softmax_xent as jax_xent
 from horovod_tpu_torch import basics, scheduler, topology, weights
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.models import TransformerLM
 from horovod_tpu_torch.ops import injit
 from horovod_tpu_torch.ops.losses import fused_softmax_xent
-from horovod_tpu_torch.spmd import make_train_step, reduce_gradients
+from horovod_tpu_torch.spmd import (make_eval_step, make_train_step,
+                                    reduce_gradients)
+from test_torch_resnet import rel, resnet_problem
 
 CFG = dict(vocab=512, dim=256, depth=2, num_heads=2, max_len=128,
            attn="flash")
@@ -389,3 +405,244 @@ def test_init_on_cuda_without_a_card_raises():
     with pytest.raises(Exception):
         hvd.init()
     assert not hvd.is_initialized()
+
+
+# --------------------------------------------------------------------------
+# The ResNet leg: sync_aux_state, steps_per_call, eval, carried state.
+
+TOL_LEG = 1e-5
+
+
+def _jax_resnet_loss():
+    jmodel = JaxResNet(**SMALL, dtype=jnp.float32)
+
+    def loss_fn(params, batch_stats, batch):
+        images, labels = batch
+        logits, mut = jmodel.apply(
+            {"params": params, "batch_stats": batch_stats}, images,
+            train=True, mutable=["batch_stats"])
+        loss = optax.softmax_cross_entropy_with_integer_labels(
+            logits, labels).mean()
+        return loss, mut["batch_stats"]
+
+    return loss_fn
+
+
+def _flat_state(params, batch_stats):
+    state = weights.from_flax(jax.tree.map(np.asarray, params))
+    state.update(weights.from_flax(jax.tree.map(np.asarray, batch_stats)))
+    return {k: v.numpy() for k, v in state.items()}
+
+
+def _assert_state(got, want):
+    assert got.keys() == want.keys()
+    for name, value in want.items():
+        assert rel(got[name], value) <= TOL_LEG, name
+
+
+def _jax_sync_aux_run():
+    """JAX's step over a 2-device mesh: 3 steps, each on a new global
+    batch of 8, ``sync_aux_state=True``."""
+    variables, images, labels = resnet_problem(batch=8, steps=3)
+    tx = optax.sgd(LR, momentum=MOMENTUM)
+    mesh = Mesh(np.array(jax.devices()[:2]), ("ranks",))
+    step = jax_make_train_step(_jax_resnet_loss(), tx, mesh,
+                               sync_aux_state=True, donate=False)
+    params, bs = variables["params"], variables["batch_stats"]
+    opt_state = tx.init(params)
+    losses = []
+    for x, y in zip(images, labels):
+        params, bs, opt_state, loss = step(params, bs, opt_state,
+                                           (jnp.asarray(x), jnp.asarray(y)))
+        losses.append(float(loss))
+    return losses, _flat_state(params, bs)
+
+
+@pytest.fixture(scope="module")
+def sync_aux_run(request, tmp_path_factory):
+    def run():
+        variables, images, labels = resnet_problem(batch=8, steps=3)
+        return (run_group(sync_aux_worker, 2, variables, images, labels),
+                _jax_sync_aux_run())
+    return once(request, tmp_path_factory, "sync_aux", run)
+
+
+def test_sync_aux_state_two_ranks_match_jax(sync_aux_run):
+    got, (want_losses, want_state) = sync_aux_run
+    for r in range(2):
+        np.testing.assert_allclose(got[r]["losses"], want_losses,
+                                   rtol=TOL_LEG)
+        _assert_state(got[r]["state"], want_state)
+    for name, value in got[0]["state"].items():
+        np.testing.assert_array_equal(got[1]["state"][name], value)
+
+
+def test_sync_aux_state_false_raises_on_two_ranks(sync_aux_run):
+    got, _ = sync_aux_run
+    for r in range(2):
+        assert got[r]["no_sync_error"] == _reference_no_sync_text(
+            "bn_init.mean")
+        assert got[r]["moved"] == []
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_no_sync_text(leaf):
+    """The JAX package's ``sync_aux_state=False`` error for the small
+    ResNet on one device (traced, not compiled), naming ``leaf``."""
+    variables, images, labels = resnet_problem(batch=2, steps=1, size=8)
+    tx = optax.sgd(LR, momentum=MOMENTUM)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("ranks",))
+    step = jax_make_train_step(_jax_resnet_loss(), tx, mesh,
+                               sync_aux_state=False, donate=False)
+    params, bs = variables["params"], variables["batch_stats"]
+    with pytest.raises(ValueError) as info:
+        step(params, bs, tx.init(params),
+             (jnp.asarray(images[0]), jnp.asarray(labels[0])))
+    return re.sub(r"leaf '.*' varies", f"leaf '{leaf}' varies",
+                  str(info.value))
+
+
+def test_sync_aux_state_false_raises_on_one_rank():
+    variables, images, labels = resnet_problem(batch=2, steps=1, size=8)
+    model = small_resnet(variables)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=LR, momentum=MOMENTUM)
+    step = make_train_step(model, resnet_loss, opt, sync_aux_state=False)
+    with pytest.raises(ValueError) as info:
+        step(to_batches(images, labels)[0])
+    assert str(info.value) == _reference_no_sync_text("bn_init.mean")
+    # Nothing moved: parameters and every buffer (running statistics)
+    # are as they were before the step.
+    for name, t in model.state_dict().items():
+        assert torch.equal(t, before[name]), name
+    assert not opt.state
+    # In eval mode the forward writes no buffer, and the step runs.
+    model.eval()
+    assert torch.isfinite(step(to_batches(images, labels)[0]))
+
+
+def _jax_steps_per_call_run():
+    """JAX's ``steps_per_call=3`` on one device, 2 calls over 6 batches;
+    the state after each call (params, batch_stats, momentum trace)."""
+    variables, images, labels = resnet_problem(batch=4, steps=6)
+    tx = optax.sgd(LR, momentum=MOMENTUM)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("ranks",))
+    step = jax_make_train_step(_jax_resnet_loss(), tx, mesh,
+                               steps_per_call=3, donate=False)
+    params, bs = variables["params"], variables["batch_stats"]
+    opt_state = tx.init(params)
+    losses, states = [], []
+    for c in range(2):
+        calls = slice(3 * c, 3 * c + 3)
+        params, bs, opt_state, loss = step(
+            params, bs, opt_state,
+            (jnp.asarray(images[calls]), jnp.asarray(labels[calls])))
+        losses.append(float(loss))
+        states.append(jax.tree.map(np.asarray, (params, bs,
+                                                opt_state[0].trace)))
+    return (variables, images, labels), losses, states
+
+
+@pytest.fixture(scope="module")
+def spc_run(request, tmp_path_factory):
+    return once(request, tmp_path_factory, "steps_per_call",
+                _jax_steps_per_call_run)
+
+
+def _stacked(images, labels):
+    return (torch.from_numpy(images), torch.from_numpy(labels).long())
+
+
+def test_steps_per_call_matches_jax(spc_run):
+    (variables, images, labels), want_losses, states = spc_run
+    model = small_resnet(variables)
+    opt = torch.optim.SGD(model.parameters(), lr=LR, momentum=MOMENTUM)
+    step = make_train_step(model, resnet_loss, opt, steps_per_call=3)
+    for c in range(2):
+        loss = float(step(_stacked(images[3 * c:3 * c + 3],
+                                   labels[3 * c:3 * c + 3])))
+        np.testing.assert_allclose(loss, want_losses[c], rtol=TOL_LEG)
+        state = {k: v.numpy() for k, v in model.state_dict().items()}
+        _assert_state(state, _flat_state(*states[c][:2]))
+        trace = weights.from_flax(states[c][2])
+        for name, p in model.named_parameters():
+            assert rel(opt.state[p]["momentum_buffer"],
+                       trace[name]) <= TOL_LEG, name
+
+
+def test_carried_optimizer_state_gives_the_next_call(spc_run):
+    """Parameters, statistics and the momentum trace after JAX's first
+    call, carried into a fresh model and optimizer: the port's second
+    call gives JAX's."""
+    (variables, images, labels), want_losses, states = spc_run
+    params, bs, trace = states[0]
+    model = small_resnet({"params": params, "batch_stats": bs})
+    opt = torch.optim.SGD(model.parameters(), lr=LR, momentum=MOMENTUM)
+    weights.load_optax_sgd_state(opt, model, trace)
+    conv = model.BottleneckBlock_0.Conv_1.kernel
+    assert opt.state[conv]["momentum_buffer"].shape == conv.shape
+    step = make_train_step(model, resnet_loss, opt, steps_per_call=3)
+    loss = float(step(_stacked(images[3:], labels[3:])))
+    np.testing.assert_allclose(loss, want_losses[1], rtol=TOL_LEG)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    _assert_state(state, _flat_state(*states[1][:2]))
+
+
+def test_two_calls_of_three_equal_six_single_steps():
+    variables, images, labels = resnet_problem(batch=4, steps=6)
+    single_losses, single = train(small_resnet(variables),
+                                  to_batches(images, labels))
+    model = small_resnet(variables)
+    opt = torch.optim.SGD(model.parameters(), lr=LR, momentum=MOMENTUM)
+    step = make_train_step(model, resnet_loss, opt, steps_per_call=3)
+    losses = [float(step(_stacked(images[3 * c:3 * c + 3],
+                                  labels[3 * c:3 * c + 3])))
+              for c in range(2)]
+    np.testing.assert_allclose(losses, [np.mean(single_losses[:3]),
+                                        np.mean(single_losses[3:])],
+                               rtol=1e-6)
+    for name, value in model.state_dict().items():
+        np.testing.assert_array_equal(value.numpy(), single[name],
+                                      err_msg=name)
+
+
+def test_steps_per_call_below_one_raises_the_reference_text():
+    mesh = Mesh(np.array(jax.devices()[:1]), ("ranks",))
+    with pytest.raises(ValueError) as want:
+        jax_make_train_step(_jax_resnet_loss(), optax.sgd(0.1), mesh,
+                            steps_per_call=0)
+    model = torch.nn.Linear(2, 1)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    with pytest.raises(ValueError) as got:
+        make_train_step(model, lambda m, b: m(b).sum(), opt,
+                        steps_per_call=0)
+    assert str(got.value) == str(want.value)
+    step = make_train_step(model, lambda m, b: m(b).sum(), opt,
+                           steps_per_call=3)
+    with pytest.raises(ValueError, match="leading axis"):
+        step(torch.ones(2, 4, 2))
+
+
+def test_eval_step_uses_running_statistics_and_restores_the_mode():
+    variables, images, labels = resnet_problem(batch=4, steps=1)
+    model = small_resnet(variables)
+    x = torch.from_numpy(images[0])
+    model.eval()
+    with torch.no_grad():
+        want = model(x)
+    model.train()
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    got = make_eval_step(model, lambda m, b: {"logits": m(b)})(x)
+    torch.testing.assert_close(got["logits"], want, rtol=0, atol=0)
+    assert model.training and not got["logits"].requires_grad
+    for name, b in model.named_buffers():
+        assert torch.equal(b, stats[name]), name
+
+
+def test_eval_step_averages_over_two_ranks(sync_aux_run):
+    got, _ = sync_aux_run
+    local = [got[r]["eval_local"] for r in range(2)]
+    for r in range(2):
+        np.testing.assert_allclose(got[r]["eval"], np.mean(local),
+                                   rtol=1e-6)
+        assert got[r]["shard_rows"] == [4 * r + i for i in range(4)]
