@@ -9,7 +9,8 @@ the checkout.  Phases, in order; any failure ends the run:
 
 1. Device: the card's name and power limit, and the build of the port's
    CUDA kernels from ``horovod_tpu_torch/csrc`` (timed), with ptxas'
-   registers and spills for each kernel of the ``kernels`` line.
+   registers and spills for each kernel of the ``kernels`` line and for
+   each of the 15 instantiations of G1 and G2 (none may spill).
 2. Kernels: each Hopper flash kernel (forward P1, dk/dv P2, dq P3) at the
    training shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read
    from one (B, T, 3C) projection) and on four small cases (non-causal
@@ -27,10 +28,15 @@ the checkout.  Phases, in order; any failure ends the run:
    ``scaled_dot_product_attention`` backward.
 4. General family: G1-G3 (``flash_general.cu``, the inputs P1-P3 do not
    take) against the plain versions in f32 at the training shape and on
-   the small cases, at D 8, 12 and 200, in fp16 at D 64 and in bf16 at
-   D 8, with TF32 off so that the f32 reference is full f32; timed at the
-   training shape in f32 beside the plain versions and f32
-   ``scaled_dot_product_attention``.  D 257 must raise.
+   the small cases, at D 1, 8, 12, 13, 129 (two dk/dv column halves),
+   200 and 256, T 1 and seq_len 1, in fp16 at D 12 and 64 and in bf16 at
+   D 8, 13 and 256 (each staging copy width: 16 bytes, 4, one element),
+   with TF32 off so that the f32 reference is full f32; G1 and G2
+   launched twice on the training shape must give the same bits; timed
+   at the training shape in f32 beside the plain versions, both bounds
+   (FFMA, and the three TF32 products G1 and G2 run) and f32
+   ``scaled_dot_product_attention``, whose kernels are named from the
+   profiler.  D 257 must raise.
 5. f32 models: the reference's own checks
    (``tests/test_flash_attention.py``): ``TransformerLM(dim=256,
    num_heads=2, attn="flash", dtype=float32)`` (D 128 through
@@ -137,6 +143,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL_O = 2e-2                 # bf16 output max abs error
 TOL_LSE = 1e-3               # f32 lse max abs error
@@ -164,16 +171,18 @@ TOL_ONE_PASS = 1e-4
 GENERAL = ("flash_fwd_general", "flash_bwd_dkdv_general",
            "flash_bwd_dq_general")
 # The general family in f32 against the plain versions in f32 with TF32
-# off: the same products summed in another order, a few 1e-7 relative
-# (2.5e-7 measured on an H100 80GB HBM3 at 700 W, PERF.md); 1e-5 leaves
-# room.  lse reaches ~10, so 1e-4 absolute is the same margin.
+# off: G1 and G2 split each f32 operand into two TF32 halves (three
+# products a term, the lo.lo term dropped), G3 sums in FFMA in another
+# order; 1.8e-6 (G2) and 1.6e-7 (G3) relative measured on an H100 80GB
+# HBM3 at 700 W (PERF.md), so 1e-5 leaves room.  lse reaches ~10, so
+# 1e-4 absolute is the same margin.
 TOL_F32 = 1e-5
 TOL_F32_LSE = 1e-4
 # f32 models against attn="full": the reference's own tolerance
 # (tests/test_flash_attention.py:274-300, rtol = atol = 1e-4).
 TOL_MODEL = 1e-4
 # The ptxas entry of each kernel of the kernels line (the instantiation
-# the training shape runs: D 128, or f32 for the general family).
+# the training shape runs: D 128, or f32 at D 128 for the general family).
 PTXAS_NAMES = {
     "flash_fwd": "flash_fwd_kernelILi128E",
     "flash_bwd_dkdv": "flash_bwd_dkdv_kernelILi128E",
@@ -181,8 +190,8 @@ PTXAS_NAMES = {
     "flash_bwd_fused": "flash_bwd_fused_kernelILi128E",
     "int8_quantize": "int8_quantize_kernel",
     "int8_dequantize": "int8_dequantize_kernel",
-    "flash_fwd_general": "flash_fwd_general_kernelIfE",
-    "flash_bwd_dkdv_general": "flash_bwd_dkdv_general_kernelIfE",
+    "flash_fwd_general": "flash_fwd_general_kernelIfLi16EE",
+    "flash_bwd_dkdv_general": "flash_bwd_dkdv_general_kernelIfLi16EE",
     "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfE",
 }
 
@@ -285,6 +294,31 @@ def phase_device():
         _check(name in usage, f"no ptxas entry for {name}")
         print(f"  {name}: {usage[name]['registers']} registers, "
               f"{usage[name]['spill_bytes']} bytes spilled")
+    # Every instantiation of G1 and G2 that general_plan can pick: element
+    # type and the columns of o (G1) or dk and dv (G2) a warp holds; none
+    # may spill.
+    types = {"f": "f32", "6__half": "fp16", "13__nv_bfloat16": "bf16"}
+    found = 0
+    for i, line in enumerate(lines):
+        m = re.search(r"(flash_fwd_general|flash_bwd_dkdv_general)_kernelI"
+                      r"(f|6__half|13__nv_bfloat16)Li(\d+)E",
+                      line)
+        if "Compiling entry function" not in line or not m:
+            continue
+        text = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", text)
+        _check(spill is not None, f"no spill line for {m.group(0)}")
+        spilled = int(spill.group(1)) + int(spill.group(2))
+        print(f"  {m.group(1)} {types[m.group(2)]} {8 * int(m.group(3))} "
+              f"columns: "
+              f"{regs.group(1) if regs else '?'} registers, {spilled} bytes "
+              f"spilled")
+        _check(spilled == 0, f"{m.group(0)} spills")
+        found += 1
+    _check(found == 15, f"{found} G1/G2 instantiations in ptxas' log, "
+           f"expected 15")
     return usage
 
 
@@ -522,16 +556,37 @@ def phase_fused_kernel(k):
     t.update(times)
 
 
-def _run_general(c, label, timing=False):
+def _device_kernels(fn) -> list:
+    """The device kernels ``fn()`` launches, by name, with their device
+    ms, longest first (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda k: -k[1])
+
+
+def _run_general(c, label, timing=False, one_key=False):
     """G1-G3 against the plain versions on one case (the wrappers must
     route it to the general family); with ``timing``, also time kernels,
-    plain versions and f32 ``scaled_dot_product_attention``."""
+    plain versions and f32 ``scaled_dot_product_attention``, and name the
+    kernels that ran the latter.  ``one_key``: every row sees at most one
+    key (T 1, or seq_len 1), so the softmax has no gradient and the exact
+    dq and dk are 0; both versions' dq and dk are rounding noise, held to
+    the same tolerance relative to dv's norm, the gradient scale of the
+    case, instead of their own."""
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.ops import flash_attention as fa
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
     kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
     _check(_cuda.flash_family(q.dtype, c["D"], q.stride(), q.data_ptr())
            == "general", f"{label}: not routed to the general family")
+    copy = _cuda.general_plan(
+        "flash_bwd_dkdv_general", c["B"], H, c["T"], c["D"], q.dtype,
+        [(x.stride(), x.data_ptr()) for x in (q, k, v, do)]).copy_bytes
     _cuda.reset_launches()
     o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
     o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, H, **kw)
@@ -548,9 +603,15 @@ def _run_general(c, label, timing=False):
             "dv": _rel_fro(dv, ref[2]), "o_abs": _max_abs(o, o_ref),
             "grad_abs": max(_max_abs(g, r) for g, r in zip((dq, dk, dv),
                                                             ref))}
-    print(f"  {label}: rel fro o {errs['o']:.3e} dq {errs['dq']:.3e} dk "
-          f"{errs['dk']:.3e} dv {errs['dv']:.3e}, lse max abs "
-          f"{errs['lse']:.3e}")
+    if one_key:
+        norm = max(torch.linalg.vector_norm(ref[2].float()).item(), 1e-30)
+        for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1])):
+            errs[name] = torch.linalg.vector_norm(
+                got.float() - want.float()).item() / norm
+    print(f"  {label} ({copy}-byte copies): rel fro o {errs['o']:.3e} dq "
+          f"{errs['dq']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e}, lse "
+          f"max abs {errs['lse']:.3e}"
+          + (" (dq, dk against dv's norm)" if one_key else ""))
     f32 = c["dtype"] == torch.float32
     tol, tol_lse = (TOL_F32, TOL_F32_LSE) if f32 else (TOL_GRAD, TOL_LSE)
     for name in ("o", "dq", "dk", "dv"):
@@ -564,9 +625,9 @@ def _run_general(c, label, timing=False):
     slow = dict(runs=3, warmup=1, reps=2)
     times = {
         "flash_fwd_general": _median_ms(lambda: _cuda.flash_fwd(
-            q, k, v, H, **kw), **slow),
+            q, k, v, H, **kw), runs=10, reps=5),
         "flash_bwd_dkdv_general": _median_ms(lambda: _cuda.flash_bwd_dkdv(
-            q, k, v, do, lse, delta, H, **kw), **slow),
+            q, k, v, do, lse, delta, H, **kw), runs=10, reps=5),
         "flash_bwd_dq_general": _median_ms(lambda: _cuda.flash_bwd_dq(
             q, k, v, do, lse, delta, H, **kw), **slow),
         "fwd_plain": _median_ms(lambda: fa._flash_fwd_plain(
@@ -590,14 +651,43 @@ def _run_general(c, label, timing=False):
     out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=c["causal"])
     times["sdpa_bwd"] = _median_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), dos, retain_graph=True), **slow)
+    times["sdpa_fwd_kernels"] = _device_kernels(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                               is_causal=c["causal"]))
+    times["sdpa_bwd_kernels"] = _device_kernels(
+        lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                    retain_graph=True))
     del out, qs, ks, vs, dos
     return errs, times
 
 
+def _check_general_deterministic(c) -> None:
+    """G1 and G2 launched twice on the same inputs give the same bits (no
+    atomics, a fixed order of every sum)."""
+    from horovod_tpu_torch.ops import _cuda
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
+    from horovod_tpu_torch.ops import flash_attention as fa
+    o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
+    o2, lse2 = _cuda.flash_fwd(q, k, v, H, **kw)
+    delta = fa._delta(do, o, H)
+    dk, dv = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    dk2, dv2 = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    torch.cuda.synchronize()
+    same = {"o": _bits_equal(o, o2), "lse": _bits_equal(lse, lse2),
+            "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2)}
+    print("  main f32: G1 and G2 launched twice: " + ", ".join(
+        f"{n} {'bit-identical' if ok else 'DIFFERENT'}"
+        for n, ok in same.items()))
+    _check(all(same.values()), f"G1/G2 are not deterministic: {same}")
+
+
 def phase_general():
     """G1-G3 against the plain versions: f32 at the training shape, on
-    the small cases and at head sizes P1-P3 do not take, fp16, bf16 at
-    D 8; D 257 raises.  Returns the training shape's numbers."""
+    the small cases, at head sizes P1-P3 do not take and at the edges of
+    G1/G2's tiles (D 1, 129 and 256, T 1, seq_len 1, each copy width),
+    fp16, bf16; G1 and G2 deterministic; D 257 raises.  Returns the
+    training shape's numbers."""
     from horovod_tpu_torch.ops import _cuda
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 reference
     torch.backends.cudnn.allow_tf32 = False
@@ -614,13 +704,23 @@ def phase_general():
             (2, 3, 256, 12, True, 200, f32, "D=12 seq_len=200"),
             (2, 2, 256, 200, True, None, f32, "D=200"),
             (2, 2, 256, 64, True, 230, f16, "fp16 D=64 seq_len=230"),
-            (2, 4, 256, 8, True, None, bf16, "bf16 D=8")):
+            (2, 4, 256, 8, True, None, bf16, "bf16 D=8"),
+            (2, 3, 100, 1, True, None, f32, "D=1"),
+            (2, 2, 200, 129, True, None, f32, "D=129 (two dk/dv halves)"),
+            (2, 2, 256, 256, True, 250, f32, "D=256 seq_len=250"),
+            (2, 2, 192, 256, False, None, bf16, "bf16 D=256 non-causal"),
+            (2, 3, 150, 13, False, None, f32, "D=13 non-causal"),
+            (2, 3, 150, 12, True, None, f16, "fp16 D=12"),
+            (2, 3, 150, 13, True, None, bf16, "bf16 D=13")):
         _run_general(_case(B, H, T, D, causal, sl, gen, dt), label)
-    errs, times = _run_general(
-        _case(BATCH, HEADS, SEQ, DIM // HEADS, True, None, gen, f32),
-        "main f32 B=8 H=16 T=2048 D=128 causal", timing=True)
-    for name in GENERAL:
-        print(f"  main f32: {name} {times[name]:.3f} ms")
+    for B, H, T, D, sl, label in ((2, 3, 1, 64, None, "T=1"),
+                                  (2, 3, 200, 64, 1, "seq_len=1")):
+        _run_general(_case(B, H, T, D, True, sl, gen, f32), label,
+                     one_key=True)
+    main = _case(BATCH, HEADS, SEQ, DIM // HEADS, True, None, gen, f32)
+    errs, times = _run_general(main, "main f32 B=8 H=16 T=2048 D=128 causal",
+                               timing=True)
+    _check_general_deterministic(main)
     wide = torch.zeros((1, 64, 2 * 257), device="cuda")
     try:
         _cuda.flash_fwd(wide, wide, wide, 2, scale=1.0, causal=True)
@@ -637,7 +737,26 @@ def phase_general():
             "flash_bwd_dkdv_general": (8 * D * pairs,
                                        6 * tensor + 2 * rows),
             "flash_bwd_dq_general": (6 * D * pairs, 5 * tensor + 2 * rows)}
-    return {"errs": errs, "times": times, "work": work}
+    # G1 and G2 run three TF32 products a term on the tensor cores, G3 one
+    # FFMA: each one's own bound, and the FFMA bound of the same sums.
+    bounds = {}
+    for name, (flops, _) in work.items():
+        ffma = flops / PEAK_F32_FLOPS * 1e3
+        tf32 = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        bounds[name] = {"ffma": ffma, "tf32x3": tf32,
+                        "own": ffma if name == "flash_bwd_dq_general"
+                        else tf32}
+    for name in GENERAL:
+        b = bounds[name]
+        print(f"  main f32: {name} {times[name]:.3f} ms; bounds: FFMA at 67 "
+              f"TFLOP/s {b['ffma']:.3f} ms, three TF32 products at 495 "
+              f"TFLOP/s {b['tf32x3']:.3f} ms")
+    for key in ("fwd", "bwd"):
+        top = times[f"sdpa_{key}_kernels"]
+        print(f"  main f32: scaled_dot_product_attention {key} "
+              f"{times['sdpa_' + key]:.3f} ms ran "
+              + "; ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in top[:3]))
+    return {"errs": errs, "times": times, "work": work, "bounds": bounds}
 
 
 def phase_models_f32():
@@ -1730,10 +1849,13 @@ def main() -> None:
             ("flash_bwd_dq_general", "horovod_tpu/ops/flash_attention.py:730",
              "dq_plain", ge["grad_abs"], gt["sdpa_bwd"], SDPA_BWD + ", f32")):
         flops, nbytes = general["work"][name]
-        rows.append(_kernel_row(
+        bound = general["bounds"][name]
+        peak = PEAK_F32_FLOPS if name == "flash_bwd_dq_general" \
+            else PEAK_TF32_FLOPS / 3     # three TF32 products a term
+        rows.append(dict(_kernel_row(
             name, rep, SOURCES["general"], f32_launches[name], err, gt[name],
             gt[plain_key], flops, nbytes, lib, call, usage[name],
-            peak_flops=PEAK_F32_FLOPS))
+            peak_flops=peak), bound_ffma_ms=bound["ffma"]))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

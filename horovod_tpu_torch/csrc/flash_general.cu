@@ -1,53 +1,103 @@
 // Flash attention for the inputs that the Hopper kernels do not take: the
 // general family G1 (forward), G2 (dk, dv) and G3 (dq), for f32, fp16 and
-// bf16 at any head size 1 <= D <= 256, on the CUDA cores.
+// bf16 at any head size 1 <= D <= 256.
 //
 // Replaces: the same Pallas kernels as P1, P2 and P3
-// (horovod_tpu/ops/flash_attention.py:_fwd_kernel, _fwd_kernel_unrollkv,
-// _fwd_kernel_fullunroll; _dkdv_kernel, _dkdv_kernel_grouped; _dq_kernel,
-// _dq_kernel_grouped), for what the JAX package runs there and P1-P3
-// refuse: f32 (the reference's own f32 tests and models), fp16, and head
-// sizes that are not a multiple of 16 in [16, 128] (dim 32 with 4 heads is
-// D 8).  ops/_cuda.py:flash_family picks the family from the dtype and D.
+// (horovod_tpu/ops/flash_attention.py): G1 _fwd_kernel,
+// _fwd_kernel_unrollkv and _fwd_kernel_fullunroll; G2 _dkdv_kernel and
+// _dkdv_kernel_grouped; G3 _dq_kernel and _dq_kernel_grouped, for what the
+// JAX package runs there and P1-P3 refuse: f32 (the reference's own f32
+// tests and models), fp16, and head sizes that are not a multiple of 16 in
+// [16, 128] (dim 32 with 4 heads is D 8).  ops/_cuda.py:flash_family picks
+// the family from the dtype and D.
 //
-// What bounds it: every product runs in f32 FFMA on the CUDA cores (no
-// tensor cores, so no TF32 rounding of f32 inputs): at the training shape
-// in f32 (B 8, H 16, T 2048, D 128, causal) the forward's two products
-// are ~137 GFLOP, ~2.0 ms at the card's 67 TFLOP/s FP32 rate, and memory
-// is far from the bound.  This first version is simple rather than fast:
-// it also spends shared-memory loads and shuffles on every product.
+// G1 and G2 run their products on the tensor cores, as mma.sync.m16n8k8
+// with TF32 operands taken from registers.  f32 operands keep f32
+// accuracy by the "3xTF32" split of CUTLASS's OpMultiplyAddFastF32:
+// x = hi + lo with hi = x rounded to TF32 (to nearest, ties away, as
+// cvt.rna) and lo = x - hi rounded the same way, and a.b = hi.lo + lo.hi +
+// hi.hi, the small products first, into one accumulator (lo.lo, ~2^-22
+// relative, is dropped).  fp16 and bf16 values, and p and ds once rounded
+// to them, are exact in TF32 and take one product.  What bounds them: at
+// the training shape in f32 (B 8, H 16, T 2048, D 128, causal) G1's two
+// products are ~137 GFLOP and G2's four ~275 GFLOP, 0.83 and 1.67 ms as
+// three TF32 products at the card's 495 TFLOP/s (mma.sync itself peaks
+// near 305 TFLOP/s on an H100, flash_ablation.py), against 2.05 and 4.10
+// ms for the same sums in FFMA at 67 TFLOP/s.  Around each product the
+// operands' way into registers costs as much again: fragments are read
+// from shared memory (by ldmatrix where the layout allows, else by scalar
+// loads) and, in f32, every value is split by a few integer and float
+// instructions, by every warp that uses it.
 //
-// The design, one for all three: a block of 4 warps owns 16 rows of one
-// head (query rows for G1 and G3, key rows for G2), 4 per warp, and loops
-// over the other side in tiles of 32 rows staged in shared memory as f32
-// (rows past T read as 0; row stride D rounded up to odd, so that the 32
-// lanes reading 32 different rows hit 32 banks).  In each tile lane j
-// takes row j of the tile and forms its scores against the warp's 4 rows
-// (s = q.k and, in the backward, dp = dO.v); softmax sums and maxima are
-// warp reductions; then the lanes split the D columns (lane + 32 i) and
-// add p.v, ds.k or p.dO and ds.q, taking the 32 factors of the tile by
-// shuffles.  Sums run in a fixed order and without atomics: every result
-// is deterministic, G3 included.
+// The design of G1 and G2: a block of 4 warps owns 64 rows of one head
+// (query rows for G1, the heaviest first; key rows for G2, the lowest
+// first), one m16 row tile per warp, staged once in shared memory; the
+// other side streams through one buffer per operand, 32 rows at a time
+// (G1: k and v; G2: q with its lse and delta, and dO), each refilled by
+// cp.async while the product that does not read it runs.  That leaves G1
+// at 68.6 KB in f32 at D 128 (1 KiB of it slack, see product_rows), three
+// blocks an SM (G2 holds dk and dv in registers, two).  Tiles hold the raw elements and are converted as
+// fragments load; rows at or past T and columns from D up to D8 (D
+// rounded up to 8) are zero-filled, so they add nothing to the products.
+// The copy width is 16 bytes where every row start of every operand is
+// 16-byte aligned, else 4 where it is 4-byte aligned, else one element by
+// plain loads (odd D in fp16/bf16): a rule on the input that
+// ops/_cuda.py:general_plan applies and the entry points check.  A tile's
+// row stride is 16 bytes times an odd number, so that the 32 lanes of
+// each fragment load hit distinct banks.  The accumulator of s = q.k^T
+// (G1) or s^T = k.q^T and dp^T = v.dO^T (G2) is the A operand of the next
+// product as it lies: the C fragment holds columns (2t, 2t + 1) of a
+// quad's row where A wants (t, t + 4), and since that sum runs over the
+// keys (G1) or queries (G2), whose order inside one 8-wide step is free,
+// the B fragment of v (G1), dO and q (G2) is read at rows 2t and 2t + 1.
+// Row maxima and sums of the online softmax go across the 4 lanes of a
+// quad.  The tensor cores truncate as they accumulate, so o, dk and dv are
+// not summed there across tiles: each tile's contribution is, from 0, and
+// is then added in f32 (product_rows).  G2's dk and dv (2 x 16 x D8 f32 a
+// warp) do not fit in registers beyond D8 = 128: there the grid takes two
+// column halves of dk and dv, each of which recomputes s^T and dp^T (1.5x
+// the products, only at those sizes).  Warps skip the tiles that causal
+// and seq_len mask entirely for them, and mask element by element only on
+// tiles that cross the diagonal or an edge.
 //
-// Numerics follow the plain versions (ops/flash_attention.py), cast
-// points included: s = (q.k) * scale; the forward is an online softmax
-// that starts at _NEG_BIG and rounds p to the input dtype before p.v, with
-// o = acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)); the backward
-// forms p = exp(s - lse) (masked entries 0), ds = p (dp - delta) scale,
-// and rounds p and ds to the input dtype before dv += p^T dO,
-// dk += ds^T q and dq += ds k.  exp and log are the accurate expf/logf.
+// G3 is still the first, simple version on the CUDA cores: a block of 4
+// warps owns 16 query rows, 4 per warp, and loops over 32-row k and v tiles
+// staged as f32 (row stride D rounded up to odd); lane j forms row j's
+// scores against the warp's 4 rows, then the lanes split the D columns and
+// add ds.k, taking the 32 factors of the tile by shuffles.  Every FFMA
+// waits on a shared load or a shuffle: ~1/8 of the FP32 rate.
+//
+// Every sum runs in a fixed order without atomics: every result is
+// deterministic.  Numerics follow the plain versions
+// (ops/flash_attention.py), cast points included: s = (q.k) * scale; the
+// forward is an online softmax that starts at _NEG_BIG and rounds p to the
+// input dtype before p.v, with o = acc / max(l, 1e-30) and
+// lse = m + log(max(l, 1e-30)); the backward forms p = exp(s - lse)
+// (masked entries 0), ds = p (dp - delta) scale, and rounds p and ds to the
+// input dtype before dv += p^T dO, dk += ds^T q and dq += ds k.  exp and
+// log are the accurate expf/logf.
 
 #include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
 namespace htt {
 
-constexpr int kGenRows = 16;    // rows a block owns, 4 per warp
-constexpr int kGenTile = 32;    // rows of the other side per tile
 constexpr int kGenThreads = 128;
 constexpr int kGenMaxD = 256;
+// G3.
+constexpr int kGenRows = 16;    // rows a block owns, 4 per warp
+constexpr int kGenTile = 32;    // rows of the other side per tile
 constexpr int kGenCols = kGenMaxD / 32;  // columns a lane holds, at most
+// G1 and G2.
+constexpr int kTcRows = 64;     // rows a block owns, 16 per warp
+constexpr int kTcKeys = 32;     // k and v rows of a G1 tile
+constexpr int kTcQueries = 32;  // q and dO rows of a G2 tile
+constexpr int kSumSets = 2;     // accumulators a sum over D is dealt into
+constexpr int kTileGroup = 4;   // 8-column tiles of acc summed together
+constexpr int kTcSlack = 1024;  // bytes past G1/G2's tiles (product_rows)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
@@ -72,19 +122,6 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<E>(x));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename E>
 struct GenView {
   const E* ptr;  // head h of batch b at ptr + b * sb + h * D
@@ -105,18 +142,602 @@ struct GenParams {
   const float* delta;    // (B, H, T)
   int H, T, D, lim, causal;
   float scale;
+  int vec;               // G1, G2: bytes per staging copy (16, 4 or E's)
 };
 
-// Shared-memory row stride of a staged tile: D rounded up to odd.
+// G3: shared-memory row stride of a staged f32 tile, D rounded up to odd.
 __host__ __device__ inline int gen_ld(int D) { return D | 1; }
 
-// Dynamic shared memory of G1 (kernel 0), G2 (1) or G3 (2) at head size D.
-inline int gen_smem_bytes(int kernel, int D) {
-  const int ld = gen_ld(D);
-  if (kernel == 0) return (kGenRows + 2 * kGenTile) * ld * 4;
-  return 2 * (kGenRows + kGenTile) * ld * 4 +
-         (kernel == 1 ? 2 * kGenTile * 4 : 0);
+// G1, G2: the head size rounded up to a multiple of 8 (the k of m16n8k8).
+__host__ __device__ inline int gen_d8(int D) { return (D + 7) & ~7; }
+
+// G1, G2: row stride, in elements of es bytes, of a staged tile: at least
+// D8, and 16 bytes times an odd number.  The fragment loads read a (row g,
+// column t) pattern (A, and B of q.k^T) or a (row 2t, column g) one (B of
+// p.v); with rows 16 x odd bytes apart, each reaches 32 distinct banks in
+// f32 and 16 distinct words on distinct banks in fp16/bf16 (two lanes a
+// word), and rows stay 16-byte aligned for cp.async.
+__host__ __device__ inline int gen_tc_ld(int D, int es) {
+  const int d8 = gen_d8(D);
+  return (d8 * es) % 32 == 16 ? d8 : d8 + 16 / es;
 }
+
+// G2: column halves of dk/dv (two beyond D8 = 128), and the columns of
+// the first.
+__host__ __device__ inline int gen_halves(int D) {
+  return gen_d8(D) > 128 ? 2 : 1;
+}
+__host__ __device__ inline int gen_half_cols(int D) {
+  const int d8 = gen_d8(D);
+  return gen_halves(D) == 2 ? ((d8 / 2 + 7) & ~7) : d8;
+}
+
+// Dynamic shared memory of G1 (kernel 0), G2 (1) or G3 (2) at head size D
+// and element size es.  G1: the 64 q rows, a k and a v tile.  G2: the 64
+// k and v rows, a q and a dO tile and the q tile's lse and delta.  Both
+// then kTcSlack bytes.  G3: 16 q and dO rows, a k and a v tile, in f32.
+inline int gen_smem_bytes(int kernel, int D, int es) {
+  if (kernel == 0)
+    return (kTcRows + 2 * kTcKeys) * gen_tc_ld(D, es) * es + kTcSlack;
+  if (kernel == 1)
+    return (2 * kTcRows + 2 * kTcQueries) * gen_tc_ld(D, es) * es +
+           2 * kTcQueries * 4 + kTcSlack;
+  return 2 * (kGenRows + kGenTile) * gen_ld(D) * 4;
+}
+
+// ---------------------------------------------------------------------------
+// G1 and G2: staging by cp.async, fragments, the split TF32 product.
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+template <typename E, int kBytes>
+__device__ __forceinline__ void stage_async(E* s, int ld, const E* g,
+                                            long long st, int row0, int n,
+                                            int T_, int D, int d8) {
+  // The copy width divides every row's D elements (general_plan's rule),
+  // so a chunk is whole or, past T or D, zero.
+  constexpr int kPer = kBytes / static_cast<int>(sizeof(E));
+  const int per_row = d8 / kPer;
+  if (kGenThreads % per_row == 0) {
+    // per_row divides kGenThreads, so it is a power of two.  Each thread
+    // keeps one column and steps kGenThreads / per_row rows: a compare, a
+    // select and the copy a chunk.
+    const int shift = __ffs(per_row) - 1;
+    const int dr = kGenThreads >> shift;
+    const int c = (threadIdx.x & (per_row - 1)) * kPer;
+    int r = threadIdx.x >> shift;
+    const bool col_in = c < D;
+    const E* src = g + (long long)(row0 + r) * st + c;
+    E* dst = s + r * ld + c;
+    for (; r < n; r += dr, src += dr * st, dst += dr * ld) {
+      const bool in = col_in && row0 + r < T_;
+      cp_async<kBytes>(dst, in ? src : g, in ? kBytes : 0);
+    }
+    return;
+  }
+  // Chunk i = threadIdx.x + kGenThreads j is row r, column c: one division
+  // for the first, then steps of kGenThreads chunks.
+  int r = threadIdx.x / per_row, c = (threadIdx.x - r * per_row) * kPer;
+  const int dr = kGenThreads / per_row;
+  const int dc = (kGenThreads - dr * per_row) * kPer;
+  for (; r < n;) {
+    const bool in = row0 + r < T_ && c < D;
+    cp_async<kBytes>(s + r * ld + c,
+                     in ? g + (long long)(row0 + r) * st + c : g,
+                     in ? kBytes : 0);
+    r += dr;
+    c += dc;
+    if (c >= d8) {
+      c -= d8;
+      ++r;
+    }
+  }
+}
+
+// Rows row0..row0+n-1, columns 0..d8-1 of one head (at g, row stride st)
+// into a shared tile of row stride ld; rows at or past T and columns at or
+// past D read as 0.  vec is the copy width in bytes: 16 or 4 by cp.async
+// (the caller commits and waits), else one element by plain loads.
+template <typename E>
+__device__ __forceinline__ void stage_tile(E* s, int ld, const E* g,
+                                           long long st, int row0, int n,
+                                           int T_, int D, int d8, int vec) {
+  if (vec == 16) {
+    stage_async<E, 16>(s, ld, g, st, row0, n, T_, D, d8);
+  } else if (vec == 4) {
+    stage_async<E, 4>(s, ld, g, st, row0, n, T_, D, d8);
+  } else {
+    for (int i = threadIdx.x; i < n * d8; i += kGenThreads) {
+      const int r = i / d8, c = i - r * d8;
+      s[r * ld + c] = row0 + r < T_ && c < D
+                          ? g[(long long)(row0 + r) * st + c]
+                          : from_f32<E>(0.f);
+    }
+  }
+}
+
+// n f32 values of a (B, H, T) row from row0 into shared memory; rows at
+// or past T read as 0.
+__device__ __forceinline__ void stage_vals(float* s, const float* g,
+                                           int row0, int n, int T_) {
+  for (int i = threadIdx.x; i < n; i += kGenThreads) {
+    const bool in = row0 + i < T_;
+    cp_async<4>(s + i, in ? g + row0 + i : g, in ? 4 : 0);
+  }
+}
+
+// x rounded to TF32 (to nearest, ties away from zero, as cvt.rna), as
+// bits: half a TF32 ulp added to the magnitude, the 13 low bits dropped.
+// Two integer instructions for a finite x; cvt.rna.tf32.f32 compiles to
+// three on sm_90, which also keep infinities and NaNs.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as a TF32 operand: for f32, hi = rna(x) and lo = rna(x - hi); fp16 and
+// bf16 values (and p, ds rounded to them) are exact in TF32 and need no lo.
+template <typename E>
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  if constexpr (std::is_same<E, float>::value) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b: three TF32 products for f32 (small ones first), one otherwise.
+template <typename E>
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  if constexpr (std::is_same<E, float>::value) {
+    mma_tf32(c, ah, bl);
+    mma_tf32(c, al, bh);
+  }
+  mma_tf32(c, ah, bh);
+}
+
+// Four 8 x 8 matrices of 16-bit values, that is 8 x 4 of 32-bit ones, from
+// shared memory in one instruction: lane l gives the address of row l % 8
+// of matrix l / 8 and receives, of each matrix, the 32-bit value at row
+// l / 4, column l % 4: the (g, t) of an m16n8k8 TF32 fragment.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The A fragment at s (row 0, column 0 of a 16 x 8 block): rows g, g + 8,
+// columns t, t + 4; in f32 by one ldmatrix.
+template <typename E>
+__device__ __forceinline__ void frag_a(unsigned (&hi)[4], unsigned (&lo)[4],
+                                       const E* s, int ld, int g, int t) {
+  if constexpr (std::is_same<E, float>::value) {
+    const int lane = threadIdx.x & 31, m = lane >> 3;
+    unsigned x[4];
+    ldsm_x4(x, s + ((m & 1) * 8 + (lane & 7)) * ld + (m >> 1) * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split<E>(__uint_as_float(x[i]), hi[i], lo[i]);
+  } else {
+    split<E>(to_f32(s[g * ld + t]), hi[0], lo[0]);
+    split<E>(to_f32(s[(g + 8) * ld + t]), hi[1], lo[1]);
+    split<E>(to_f32(s[g * ld + t + 4]), hi[2], lo[2]);
+    split<E>(to_f32(s[(g + 8) * ld + t + 4]), hi[3], lo[3]);
+  }
+}
+
+// The B fragments of a product with a tile's transpose (B[k][n] = s[n][k])
+// for two n-tiles, rows 0-7 and 8-15 of s: row g, columns t and t + 4; in
+// f32 by one ldmatrix.
+template <typename E>
+__device__ __forceinline__ void frag_bt2(unsigned (&hi)[2][2],
+                                         unsigned (&lo)[2][2], const E* s,
+                                         int ld, int g, int t) {
+  if constexpr (std::is_same<E, float>::value) {
+    const int lane = threadIdx.x & 31, m = lane >> 3;
+    unsigned x[4];
+    ldsm_x4(x, s + ((m >> 1) * 8 + (lane & 7)) * ld + (m & 1) * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split<E>(__uint_as_float(x[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
+  } else {
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      split<E>(to_f32(s[(8 * n + g) * ld + t]), hi[n][0], lo[n][0]);
+      split<E>(to_f32(s[(8 * n + g) * ld + t + 4]), hi[n][1], lo[n][1]);
+    }
+  }
+}
+
+// The B fragment of a product with the tile itself (B[k][n] = s[k'][n]),
+// its 8 rows in the free order that lets a C fragment feed A as it lies:
+// k = t is row 2t, k = t + 4 is row 2t + 1; column g.
+template <typename E>
+__device__ __forceinline__ void frag_b(unsigned (&hi)[2], unsigned (&lo)[2],
+                                       const E* s, int ld, int g, int t) {
+  split<E>(to_f32(s[2 * t * ld + g]), hi[0], lo[0]);
+  split<E>(to_f32(s[(2 * t + 1) * ld + g]), hi[1], lo[1]);
+}
+
+// A C fragment (rows g, g + 8; columns 2t, 2t + 1) as the A operand of the
+// next product, columns in the order of frag_b.
+template <typename E>
+__device__ __forceinline__ void frag_c_as_a(unsigned (&hi)[4],
+                                            unsigned (&lo)[4],
+                                            const float (&c)[4]) {
+  split<E>(c[0], hi[0], lo[0]);
+  split<E>(c[2], hi[1], lo[1]);
+  split<E>(c[1], hi[2], lo[2]);
+  split<E>(c[3], hi[3], lo[3]);
+}
+
+// Columns 2t, 2t + 1 of the 8-column tiles of an accumulator (rows r0 + g
+// and r0 + g + 8, first column c0), divided by div[0] (row g) and div[1]
+// (row g + 8), into a (B, T, H*D) view at g_out; rows at or past T and
+// columns at or past `cols` (absolute, from c0) are dropped.
+template <typename E, int NT>
+__device__ __forceinline__ void store_frags(E* g_out, long long st, int r0,
+                                            int c0, int n_tiles, int T_,
+                                            int D, const float (&acc)[NT][4],
+                                            float div0, float div1, int g,
+                                            int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= n_tiles) break;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = r0 + g + (c >> 1) * 8;
+      const int col = c0 + 8 * nt + 2 * t + (c & 1);
+      if (row < T_ && col < D)
+        g_out[(long long)row * st + col] =
+            from_f32<E>(acc[nt][c] / (c >> 1 ? div1 : div0));
+    }
+  }
+}
+
+// acc[nb] = the 16 rows of a (row stride ld) times the 8 rows 8 nb ..
+// 8 nb + 7 of b, transposed, over nk steps of 8 columns: s = q.k^T, s^T =
+// k.q^T or dp^T = v.dO^T.  In f32 the steps are dealt round kSumSets
+// accumulators, added at the end, so that more chains of dependent
+// products are in flight (three products a step) and each runs a shorter
+// sum; fp16 and bf16 (one product a step) keep one, which saves the
+// registers G2 needs there.
+template <typename E, int NB>
+__device__ __forceinline__ void product_t(float (&acc)[NB][4], const E* a,
+                                          const E* b, int ld, int nk, int g,
+                                          int t) {
+  static_assert(NB % 2 == 0, "B fragments load two n-tiles at a time");
+  constexpr int kSets = std::is_same<E, float>::value ? kSumSets : 1;
+  float part[kSets][NB][4] = {};
+  int kk = 0;
+  for (; kk + kSets <= nk; kk += kSets) {
+#pragma unroll
+    for (int u = 0; u < kSets; ++u) {
+      unsigned ah[4], al[4];
+      frag_a<E>(ah, al, a + 8 * (kk + u), ld, g, t);
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        unsigned bh[2][2], bl[2][2];
+        frag_bt2<E>(bh, bl, b + 8 * nb * ld + 8 * (kk + u), ld, g, t);
+        mma3<E>(part[u][nb], ah, al, bh[0], bl[0]);
+        mma3<E>(part[u][nb + 1], ah, al, bh[1], bl[1]);
+      }
+    }
+  }
+  for (; kk < nk; ++kk) {
+    unsigned ah[4], al[4];
+    frag_a<E>(ah, al, a + 8 * kk, ld, g, t);
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2) {
+      unsigned bh[2][2], bl[2][2];
+      frag_bt2<E>(bh, bl, b + 8 * nb * ld + 8 * kk, ld, g, t);
+      mma3<E>(part[0][nb], ah, al, bh[0], bl[0]);
+      mma3<E>(part[0][nb + 1], ah, al, bh[1], bl[1]);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float x = part[0][nb][c];
+#pragma unroll
+      for (int u = 1; u < kSets; ++u) x += part[u][nb][c];
+      acc[nb][c] = x;
+    }
+}
+
+// acc = acc x (f0 on row g, f1 on row g + 8) + a.tile, for the 8-column
+// tiles nt < n_tiles of acc, with a: K / 8 C fragments (16 rows x 8 of the
+// K rows of the shared tile each), used as A operands in the order of
+// frag_b: o += p.v, dv += p^T dO, dk += ds^T q.  kTileGroup tiles of acc
+// at a time take their sums over the K rows on the tensor cores from 0,
+// then one f32 FMA each: the tensor cores truncate as they accumulate, so
+// a long sum kept in their accumulator drifts toward 0 by about an ulp a
+// product (beyond chip_smoke.py's 1e-5 over T 2048 in f32), while f32
+// rounds to nearest.  A group that passes n_tiles computes tiles beyond
+// it, which are never stored, from whatever lies past the tile's columns
+// (kTcSlack bytes after the last tile keep those reads in bounds): a
+// clamp of the tile index would cost address arithmetic on every load.
+template <typename E, int NT, int K>
+__device__ __forceinline__ void product_rows(float (&acc)[NT][4],
+                                             const float (&a)[K / 8][4],
+                                             const E* tile, int ld,
+                                             int n_tiles, float f0, float f1,
+                                             int g, int t) {
+  static_assert(NT % kTileGroup == 0, "groups of tiles must divide NT");
+  unsigned ah[K / 8][4], al[K / 8][4];
+#pragma unroll
+  for (int ks = 0; ks < K / 8; ++ks) frag_c_as_a<E>(ah[ks], al[ks], a[ks]);
+#pragma unroll
+  for (int n0 = 0; n0 < NT; n0 += kTileGroup) {
+    if (n0 >= n_tiles) break;
+    float part[kTileGroup][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < K / 8; ++ks)
+#pragma unroll
+      for (int i = 0; i < kTileGroup; ++i) {
+        unsigned bh[2], bl[2];
+        frag_b<E>(bh, bl, tile + 8 * ks * ld + 8 * (n0 + i), ld, g, t);
+        mma3<E>(part[i], ah[ks], al[ks], bh, bl);
+      }
+#pragma unroll
+    for (int i = 0; i < kTileGroup; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[n0 + i][c] = fmaf(acc[n0 + i][c], c >> 1 ? f1 : f0, part[i][c]);
+  }
+}
+
+// G1: o and lse for 64 query rows.  NT: 8-column tiles of o a warp holds,
+// at least D8 / 8.
+template <typename E, int NT>
+__global__ void __launch_bounds__(kGenThreads, NT <= 16 ? 3 : 1)
+    flash_fwd_general_kernel(const GenParams<E> p) {
+  extern __shared__ uint4 gsm_tc[];
+  const int D = p.D, d8 = gen_d8(D), nk = d8 / 8;
+  const int ld = gen_tc_ld(D, sizeof(E));
+  E* sQ = reinterpret_cast<E*>(gsm_tc);
+  E* sK = sQ + kTcRows * ld;
+  E* sV = sK + kTcKeys * ld;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * warp;  // the warp's first query row
+  const long long hD = (long long)h * D;
+  const E* gk = p.k.ptr + b * p.k.sb + hD;
+  const E* gv = p.v.ptr + b * p.v.sb + hD;
+  int n_kv = q0 < p.lim ? (p.lim + kTcKeys - 1) / kTcKeys : 0;
+  if (p.causal) n_kv = min(n_kv, (q0 + kTcRows - 1) / kTcKeys + 1);
+  // One buffer each for k and v: the next k loads while p.v runs, the
+  // next v while q.k^T and the softmax run (two barriers a tile).
+  if (n_kv > 0) {
+    stage_tile(sQ, ld, p.q.ptr + b * p.q.sb + hD, p.q.st, q0, kTcRows, p.T,
+               D, d8, p.vec);
+    stage_tile(sK, ld, gk, p.k.st, 0, kTcKeys, p.T, D, d8, p.vec);
+    cp_async_commit();
+    stage_tile(sV, ld, gv, p.v.st, 0, kTcKeys, p.T, D, d8, p.vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+  }
+  __syncthreads();  // q and k tile 0 are in shared memory
+
+  float o[NT][4], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[nt][c] = 0.f;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTcKeys;
+    const bool busy = wrow < p.lim && !(p.causal && k0 > wrow + 15);
+    float s[kTcKeys / 8][4], alpha[2];
+    if (busy) {
+      // s = q.k^T: 16 rows x the tile's keys, n-tile nt = keys 8 nt ..
+      // 8 nt + 7.
+      product_t<E, kTcKeys / 8>(s, sQ + 16 * warp * ld, sK, ld, nk, g, t);
+      // Online softmax over rows g (r 0) and g + 8 (r 1) of the warp.
+      const float kNegInf = __int_as_float(0xff800000);
+      const bool edge = (p.causal && k0 + kTcKeys - 1 > wrow) ||
+                        k0 + kTcKeys > p.lim || wrow + 16 > p.lim;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = s[nt][c] * p.scale;
+          if (edge && !visible(wrow + g + (c >> 1) * 8,
+                               k0 + 8 * nt + 2 * t + (c & 1), p.causal,
+                               p.lim))
+            x = kNegInf;
+          s[nt][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float e = expf(s[nt][c] - m[c >> 1]);  // 0 where masked
+          sum[c >> 1] += e;
+          s[nt][c] = round_to<E>(e);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with k tile j; v tile j is in
+    //                   shared memory
+    if (j + 1 < n_kv)
+      stage_tile(sK, ld, gk, p.k.st, k0 + kTcKeys, kTcKeys, p.T, D, d8,
+                 p.vec);
+    cp_async_commit();
+    if (busy)  // o = o alpha + p.v.
+      product_rows<E, NT, kTcKeys>(o, s, sV, ld, nk, alpha[0], alpha[1], g,
+                                   t);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with v tile j; k tile j + 1 is
+    //                   in shared memory
+    if (j + 1 < n_kv)
+      stage_tile(sV, ld, gv, p.v.st, k0 + kTcKeys, kTcKeys, p.T, D, d8,
+                 p.vec);
+    cp_async_commit();
+  }
+
+  const float la = fmaxf(l[0], 1e-30f), lb = fmaxf(l[1], 1e-30f);
+  store_frags<E, NT>(p.o.ptr + b * p.o.sb + hD, p.o.st, wrow, 0, nk, p.T, D,
+                     o, la, lb, g, t);
+  if (t == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.T;
+    if (wrow + g < p.T) lse[wrow + g] = m[0] + logf(la);
+    if (wrow + g + 8 < p.T) lse[wrow + g + 8] = m[1] + logf(lb);
+  }
+}
+
+// G2: dk and dv for 64 key rows, columns of one half (all of them at
+// D8 <= 128).  NT: 8-column tiles of dk and dv a warp holds, at least the
+// half's.
+template <typename E, int NT>
+__global__ void __launch_bounds__(kGenThreads)
+    flash_bwd_dkdv_general_kernel(const GenParams<E> p) {
+  constexpr int BQ = kTcQueries;
+  extern __shared__ uint4 gsm_tc[];
+  const int D = p.D, d8 = gen_d8(D), nk = d8 / 8;
+  const int ld = gen_tc_ld(D, sizeof(E));
+  E* sK = reinterpret_cast<E*>(gsm_tc);
+  E* sV = sK + kTcRows * ld;
+  E* sQ = sV + kTcRows * ld;
+  E* sO = sQ + BQ * ld;
+  float* sL = reinterpret_cast<float*>(sO + BQ * ld);  // lse of the q tile
+  float* sD = sL + BQ;                                   // delta
+  const int halves = gen_halves(D);
+  const int kb = blockIdx.x / halves, half = blockIdx.x - kb * halves;
+  const int c0 = half * gen_half_cols(D);  // the half's first column
+  const int n_ct = (half ? d8 - c0 : gen_half_cols(D)) / 8;
+  const int k0 = kb * kTcRows;  // low keys have the most work: first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wkey = k0 + 16 * warp;  // the warp's first key row
+  const long long hD = (long long)h * D;
+  const long long bh = (long long)b * p.H + h;
+  const E* gq = p.q.ptr + b * p.q.sb + hD;
+  const E* go = p.dout.ptr + b * p.dout.sb + hD;
+  const int i_begin = p.causal ? k0 / BQ : 0;
+  const int i_end = k0 < p.lim ? (p.lim + BQ - 1) / BQ : 0;
+  auto stage_q = [&](int it) {  // q, lse and delta of q tile it
+    stage_tile(sQ, ld, gq, p.q.st, it * BQ, BQ, p.T, D, d8, p.vec);
+    stage_vals(sL, p.lse + bh * p.T, it * BQ, BQ, p.T);
+    stage_vals(sD, p.delta + bh * p.T, it * BQ, BQ, p.T);
+  };
+  // One buffer each for q and dO: the next q loads while dv += p^T dO
+  // runs, the next dO while s^T = k.q^T runs (three barriers a tile).
+  if (i_begin < i_end) {
+    stage_tile(sK, ld, p.k.ptr + b * p.k.sb + hD, p.k.st, k0, kTcRows, p.T,
+               D, d8, p.vec);
+    stage_tile(sV, ld, p.v.ptr + b * p.v.sb + hD, p.v.st, k0, kTcRows, p.T,
+               D, d8, p.vec);
+    stage_q(i_begin);
+    cp_async_commit();
+    stage_tile(sO, ld, go, p.dout.st, i_begin * BQ, BQ, p.T, D, d8, p.vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+  }
+  __syncthreads();  // k, v and q tile i_begin are in shared memory
+
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[nt][c] = dv[nt][c] = 0.f;
+  for (int it = i_begin; it < i_end; ++it) {
+    const int q0 = it * BQ;
+    const bool busy = wkey < p.lim && !(p.causal && q0 + BQ - 1 < wkey);
+    // s^T = k.q^T and dp^T = v.dO^T: 16 keys x BQ queries.
+    float st[BQ / 8][4], dp[BQ / 8][4];
+    if (busy) product_t<E, BQ / 8>(st, sK + 16 * warp * ld, sQ, ld, nk, g, t);
+    cp_async_wait<0>();
+    __syncthreads();  // dO tile it is in shared memory
+    if (busy) {
+      product_t<E, BQ / 8>(dp, sV + 16 * warp * ld, sO, ld, nk, g, t);
+      // p = exp(s scale - lse) (0 where masked), ds = p (dp - delta)
+      // scale, both rounded to E; st and dp now hold them.
+      const bool edge = (p.causal && q0 < wkey + 15) || q0 + BQ > p.lim ||
+                        wkey + 16 > p.lim;
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int ql = 8 * nt + 2 * t + (c & 1);
+          const bool vis = !edge || visible(q0 + ql, wkey + g + (c >> 1) * 8,
+                                            p.causal, p.lim);
+          const float pe = vis ? expf(st[nt][c] * p.scale - sL[ql]) : 0.f;
+          st[nt][c] = round_to<E>(pe);
+          dp[nt][c] = round_to<E>(pe * (dp[nt][c] - sD[ql]) * p.scale);
+        }
+      // dk += ds^T q over the half's columns.
+      product_rows<E, NT, BQ>(dk, dp, sQ + c0, ld, n_ct, 1.f, 1.f, g, t);
+    }
+    __syncthreads();  // every warp is done with q tile it, lse and delta
+    if (it + 1 < i_end) stage_q(it + 1);
+    cp_async_commit();
+    if (busy)  // dv += p^T dO over the half's columns.
+      product_rows<E, NT, BQ>(dv, st, sO + c0, ld, n_ct, 1.f, 1.f, g, t);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with dO tile it; q tile it + 1
+    //                   is in shared memory
+    if (it + 1 < i_end)
+      stage_tile(sO, ld, go, p.dout.st, q0 + BQ, BQ, p.T, D, d8, p.vec);
+    cp_async_commit();
+  }
+
+  store_frags<E, NT>(p.dk.ptr + b * p.dk.sb + hD, p.dk.st, wkey, c0, n_ct,
+                     p.T, D, dk, 1.f, 1.f, g, t);
+  store_frags<E, NT>(p.dv.ptr + b * p.dv.sb + hD, p.dv.st, wkey, c0, n_ct,
+                     p.T, D, dv, 1.f, 1.f, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// G3 on the CUDA cores.
 
 // Rows row0..row0+n-1 of one head into shared memory as f32, stride ld;
 // rows at or past T become 0.
@@ -186,70 +807,6 @@ __device__ __forceinline__ void store_rows(const GenOut<E>& out, int b,
   }
 }
 
-// G1: o and lse for 16 query rows.
-template <typename E>
-__global__ void __launch_bounds__(kGenThreads)
-    flash_fwd_general_kernel(const GenParams<E> p) {
-  extern __shared__ float gsm[];
-  const int D = p.D, ld = gen_ld(D);
-  float* sQ = gsm;
-  float* sK = sQ + kGenRows * ld;
-  float* sV = sK + kGenTile * ld;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kGenRows;  // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int row0 = q0 + 4 * warp;
-  const long long hD = (long long)h * D;
-  stage(sQ, ld, p.q.ptr + b * p.q.sb + hD, p.q.st, q0, kGenRows, p.T, D);
-
-  float m[4], l[4], o[4][kGenCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegBig;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kGenCols; ++i) o[r][i] = 0.f;
-  }
-  int n_kv = q0 < p.lim ? (p.lim + kGenTile - 1) / kGenTile : 0;
-  if (p.causal) n_kv = min(n_kv, (q0 + kGenRows - 1) / kGenTile + 1);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kGenTile;
-    __syncthreads();  // every warp is done with the previous tile
-    stage(sK, ld, p.k.ptr + b * p.k.sb + hD, p.k.st, k0, kGenTile, p.T, D);
-    stage(sV, ld, p.v.ptr + b * p.v.sb + hD, p.v.st, k0, kGenTile, p.T, D);
-    __syncthreads();
-    float s[4], pr[4];
-    dot4(s, sQ + 4 * warp * ld, sK + lane * ld, ld, D);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const bool vis = visible(row0 + r, k0 + lane, p.causal, p.lim);
-      const float sv = s[r] * p.scale;
-      const float mx = warp_max(vis ? sv : __int_as_float(0xff800000));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      const float pe = vis ? expf(sv - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(pe);
-      m[r] = m_new;
-      pr[r] = round_to<E>(pe);
-#pragma unroll
-      for (int i = 0; i < kGenCols; ++i) o[r][i] *= alpha;
-    }
-    add_rows(o, pr, sV, ld, D, lane);
-  }
-
-  float lsafe[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) lsafe[r] = fmaxf(l[r], 1e-30f);
-  store_rows(p.o, b, h, row0, p.T, D, o, lsafe, lane);
-  if (lane < 4 && row0 + lane < p.T) {
-    float mr = m[0], lr = lsafe[0];
-#pragma unroll
-    for (int r = 1; r < 4; ++r)
-      if (lane == r) mr = m[r], lr = lsafe[r];
-    p.lse[((long long)b * p.H + h) * p.T + row0 + lane] = mr + logf(lr);
-  }
-}
-
 // G3: dq for 16 query rows.
 template <typename E>
 __global__ void __launch_bounds__(kGenThreads)
@@ -301,83 +858,37 @@ __global__ void __launch_bounds__(kGenThreads)
   store_rows(p.dq, b, h, row0, p.T, D, dq, one, lane);
 }
 
-// G2: dk and dv for 16 key rows.
-template <typename E>
-__global__ void __launch_bounds__(kGenThreads)
-    flash_bwd_dkdv_general_kernel(const GenParams<E> p) {
-  extern __shared__ float gsm[];
-  const int D = p.D, ld = gen_ld(D);
-  float* sK = gsm;
-  float* sV = sK + kGenRows * ld;
-  float* sQ = sV + kGenRows * ld;
-  float* sO = sQ + kGenTile * ld;
-  float* sL = sO + kGenTile * ld;
-  float* sD = sL + kGenTile;
-  const int k0 = blockIdx.x * kGenRows;  // low keys have the most work
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int key0 = k0 + 4 * warp;
-  const long long hD = (long long)h * D;
-  const long long bh = (long long)b * p.H + h;
-  stage(sK, ld, p.k.ptr + b * p.k.sb + hD, p.k.st, k0, kGenRows, p.T, D);
-  stage(sV, ld, p.v.ptr + b * p.v.sb + hD, p.v.st, k0, kGenRows, p.T, D);
-  float dk[4][kGenCols], dv[4][kGenCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < kGenCols; ++i) dk[r][i] = dv[r][i] = 0.f;
-  const int i_begin = p.causal ? k0 / kGenTile : 0;
-  const int i_end = k0 < p.lim ? (p.lim + kGenTile - 1) / kGenTile : 0;
-  for (int it = i_begin; it < i_end; ++it) {
-    const int q0 = it * kGenTile;
-    __syncthreads();
-    stage(sQ, ld, p.q.ptr + b * p.q.sb + hD, p.q.st, q0, kGenTile, p.T, D);
-    stage(sO, ld, p.dout.ptr + b * p.dout.sb + hD, p.dout.st, q0, kGenTile,
-          p.T, D);
-    const int i = threadIdx.x;
-    if (i < kGenTile) {
-      const bool in = q0 + i < p.T;
-      sL[i] = in ? p.lse[bh * p.T + q0 + i] : 0.f;
-      sD[i] = in ? p.delta[bh * p.T + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    float s[4], dp[4], pr[4], ds[4];
-    dot4(s, sK + 4 * warp * ld, sQ + lane * ld, ld, D);
-    dot4(dp, sV + 4 * warp * ld, sO + lane * ld, ld, D);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const bool vis = visible(q0 + lane, key0 + r, p.causal, p.lim);
-      const float pe = vis ? expf(s[r] * p.scale - sL[lane]) : 0.f;
-      pr[r] = round_to<E>(pe);
-      ds[r] = round_to<E>(pe * (dp[r] - sD[lane]) * p.scale);
-    }
-    add_rows(dv, pr, sO, ld, D, lane);
-    add_rows(dk, ds, sQ, ld, D, lane);
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows(p.dk, b, h, key0, p.T, D, dk, one, lane);
-  store_rows(p.dv, b, h, key0, p.T, D, dv, one, lane);
-}
-
 template <typename E>
 cudaError_t launch_general(int kernel, const GenParams<E>& p, int B,
                            int smem, cudaStream_t stream) {
-  void (*fn)(const GenParams<E>) =
-      kernel == 0 ? flash_fwd_general_kernel<E>
-      : kernel == 1 ? flash_bwd_dkdv_general_kernel<E>
-                    : flash_bwd_dq_general_kernel<E>;
+  const int d8 = gen_d8(p.D);
+  void (*fn)(const GenParams<E>);
+  int blocks;
+  if (kernel == 0) {
+    fn = d8 <= 64    ? flash_fwd_general_kernel<E, 8>
+         : d8 <= 128 ? flash_fwd_general_kernel<E, 16>
+                     : flash_fwd_general_kernel<E, 32>;
+    blocks = (p.T + kTcRows - 1) / kTcRows;
+  } else if (kernel == 1) {
+    fn = d8 <= 64 ? flash_bwd_dkdv_general_kernel<E, 8>
+                  : flash_bwd_dkdv_general_kernel<E, 16>;
+    blocks = (p.T + kTcRows - 1) / kTcRows * gen_halves(p.D);
+  } else {
+    fn = flash_bwd_dq_general_kernel<E>;
+    blocks = (p.T + kGenRows - 1) / kGenRows;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + kGenRows - 1) / kGenRows, p.H, B);
-  fn<<<grid, kGenThreads, smem, stream>>>(p);
+  fn<<<dim3(blocks, p.H, B), kGenThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename E>
 GenParams<E> gen_params(const void* const* ptrs, const long long* strides,
                         const void* lse, const void* delta, int H, int T,
-                        int D, int seq_len, int causal, float scale) {
+                        int D, int seq_len, int causal, float scale,
+                        int vec) {
   GenParams<E> p{};
   GenView<E>* in[4] = {&p.q, &p.k, &p.v, &p.dout};
   GenOut<E>* out[4] = {&p.o, &p.dq, &p.dk, &p.dv};
@@ -395,55 +906,76 @@ GenParams<E> gen_params(const void* const* ptrs, const long long* strides,
   p.lim = seq_len;
   p.causal = causal;
   p.scale = scale;
+  p.vec = vec;
   return p;
+}
+
+// Whether G1/G2 may stage every row of the operands they read (q, k, v;
+// and dout for G2) with vec-byte copies: 16 or 4 where the start, both
+// strides and the head's columns keep every row start vec-aligned, the
+// element size always.
+inline bool copies_fit(int kernel, const void* const* ptrs,
+                       const long long* strides, int D, int es, int vec) {
+  if (vec == es) return true;
+  if (vec != 16 && vec != 4) return false;
+  for (int i = 0; i < (kernel == 1 ? 4 : 3); ++i)
+    if (reinterpret_cast<unsigned long long>(ptrs[i]) % vec ||
+        strides[2 * i] * es % vec || strides[2 * i + 1] * es % vec ||
+        static_cast<long long>(D) * es % vec)
+      return false;
+  return true;
 }
 
 // ptrs: q, k, v, dout, o, dq, dk, dv (null where a kernel has none);
 // strides: (batch, row) of each, in the same order, in elements; dtype:
-// 0 f32, 1 fp16, 2 bf16.
+// 0 f32, 1 fp16, 2 bf16; vec and smem_bytes: the plan of
+// ops/_cuda.py:general_plan, checked here (G3 stages by plain loads and
+// ignores vec).
 inline int run_general(int kernel, int dtype, const void* const* ptrs,
                        const long long* strides, const void* lse,
                        const void* delta, int B, int H, int T, int D,
-                       int seq_len, int causal, float scale, int smem_bytes,
-                       void* stream) {
-  if (D < 1 || D > kGenMaxD || smem_bytes != gen_smem_bytes(kernel, D))
+                       int seq_len, int causal, float scale, int vec,
+                       int smem_bytes, void* stream) {
+  const int es = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 || D < 1 || D > kGenMaxD ||
+      smem_bytes != gen_smem_bytes(kernel, D, es) ||
+      (kernel != 2 && !copies_fit(kernel, ptrs, strides, D, es, vec)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return launch_general(kernel, gen_params<float>(
-          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale),
+          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
           B, smem_bytes, s);
     case 1:
       return launch_general(kernel, gen_params<__half>(
-          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale),
-          B, smem_bytes, s);
-    case 2:
-      return launch_general(kernel, gen_params<bf16>(
-          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale),
+          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
           B, smem_bytes, s);
     default:
-      return cudaErrorInvalidValue;
+      return launch_general(kernel, gen_params<bf16>(
+          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
+          B, smem_bytes, s);
   }
 }
 
 }  // namespace htt
 
 // G1.  q, k, v: (B, T, H*D) views of dtype `dtype` (0 f32, 1 fp16, 2 bf16)
-// with unit column stride; o: the same; lse: (B, H, T) f32.  smem_bytes is
-// the plan of horovod_tpu_torch/ops/_cuda.py:general_plan, checked here.
-// Returns the CUDA error code of the launch.
+// with unit column stride; o: the same; lse: (B, H, T) f32.  vec (the
+// staging copy width) and smem_bytes are the plan of
+// horovod_tpu_torch/ops/_cuda.py:general_plan, checked here.  Returns the
+// CUDA error code of the launch.
 extern "C" int htt_flash_fwd_general(
     int dtype, const void* q, long long q_sb, long long q_st, const void* k,
     long long k_sb, long long k_st, const void* v, long long v_sb,
     long long v_st, void* o, long long o_sb, long long o_st, void* lse,
     int B, int H, int T, int D, int seq_len, int causal, float scale,
-    int smem_bytes, void* stream) {
+    int vec, int smem_bytes, void* stream) {
   const void* ptrs[8] = {q, k, v, nullptr, o, nullptr, nullptr, nullptr};
   const long long strides[16] = {q_sb, q_st, k_sb, k_st, v_sb, v_st, 0, 0,
                                  o_sb, o_st, 0, 0, 0, 0, 0, 0};
   return htt::run_general(0, dtype, ptrs, strides, lse, nullptr, B, H, T, D,
-                          seq_len, causal, scale, smem_bytes, stream);
+                          seq_len, causal, scale, vec, smem_bytes, stream);
 }
 
 // G2.  Inputs as G1 plus dout and lse, delta (B, H, T) f32; dk, dv:
@@ -454,14 +986,14 @@ extern "C" int htt_flash_bwd_dkdv_general(
     long long v_st, const void* dout, long long do_sb, long long do_st,
     const void* lse, const void* delta, void* dk, long long dk_sb,
     long long dk_st, void* dv, long long dv_sb, long long dv_st, int B,
-    int H, int T, int D, int seq_len, int causal, float scale,
+    int H, int T, int D, int seq_len, int causal, float scale, int vec,
     int smem_bytes, void* stream) {
   const void* ptrs[8] = {q, k, v, dout, nullptr, nullptr, dk, dv};
   const long long strides[16] = {q_sb, q_st, k_sb, k_st, v_sb, v_st,
                                  do_sb, do_st, 0, 0, 0, 0, dk_sb, dk_st,
                                  dv_sb, dv_st};
   return htt::run_general(1, dtype, ptrs, strides, lse, delta, B, H, T, D,
-                          seq_len, causal, scale, smem_bytes, stream);
+                          seq_len, causal, scale, vec, smem_bytes, stream);
 }
 
 // G3.  Inputs as G2; dq: a (B, T, H*D) view of the same dtype.
@@ -471,11 +1003,11 @@ extern "C" int htt_flash_bwd_dq_general(
     long long v_st, const void* dout, long long do_sb, long long do_st,
     const void* lse, const void* delta, void* dq, long long dq_sb,
     long long dq_st, int B, int H, int T, int D, int seq_len, int causal,
-    float scale, int smem_bytes, void* stream) {
+    float scale, int vec, int smem_bytes, void* stream) {
   const void* ptrs[8] = {q, k, v, dout, nullptr, dq, nullptr, nullptr};
   const long long strides[16] = {q_sb, q_st, k_sb, k_st, v_sb, v_st,
                                  do_sb, do_st, 0, 0, dq_sb, dq_st, 0, 0,
                                  0, 0};
   return htt::run_general(2, dtype, ptrs, strides, lse, delta, B, H, T, D,
-                          seq_len, causal, scale, smem_bytes, stream);
+                          seq_len, causal, scale, vec, smem_bytes, stream);
 }

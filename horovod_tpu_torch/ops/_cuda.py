@@ -48,8 +48,8 @@ _F = ctypes.c_float
 _VIEW = (_P, _I64, _I64)          # pointer, batch stride, row stride
 # B, H, T, D, seq_len, causal, scale, stages, smem bytes, stream
 _PLAN_TAIL = (_I,) * 6 + (_F, _I, _I, _P)
-# B, H, T, D, seq_len, causal, scale, smem bytes, stream
-_GEN_TAIL = (_I,) * 6 + (_F, _I, _P)
+# B, H, T, D, seq_len, causal, scale, copy bytes, smem bytes, stream
+_GEN_TAIL = (_I,) * 6 + (_F, _I, _I, _P)
 _ARGTYPES = {
     "htt_flash_fwd": _VIEW * 4 + (_P,) + _PLAN_TAIL,
     "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _PLAN_TAIL,
@@ -170,8 +170,9 @@ def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
 
     ``"hopper"`` (P1, P2, P3, P6: wgmma and TMA): bfloat16 at a head size
     that is a multiple of 16 in [16, 128], with :func:`kernel_strides_ok`
-    strides.  ``"general"`` (G1-G3, ``csrc/flash_general.cu``, f32 on the
-    CUDA cores): float32 and float16 at any head size up to 256, and
+    strides.  ``"general"`` (G1-G3, ``csrc/flash_general.cu``: G1 and G2
+    on TF32 ``mma.sync``, three products a term for f32; G3 on the CUDA
+    cores): float32 and float16 at any head size up to 256, and
     bfloat16 at the other head sizes up to 256, with a unit column
     stride.  A rule on the input, fixed in advance: anything else raises
     ``ValueError`` naming the limit, and nothing falls back from one
@@ -311,39 +312,101 @@ def flash_plan(kernel: str, B: int, H: int, T: int, D: int) -> FlashPlan:
 
 
 # The launch plan of the general family G1-G3 (csrc/flash_general.cu).
-_GEN_ROWS = 16           # rows a block owns (q: G1, G3; keys: G2)
-_GEN_TILE = 32           # rows of the other side staged per step
 _GEN_THREADS = 128
 _GEN_KERNELS = ("flash_fwd_general", "flash_bwd_dkdv_general",
                 "flash_bwd_dq_general")
+_TC_ROWS = 64            # G1, G2: rows a block owns, 16 per warp
+_TC_KEYS = 32            # G1: k and v rows of a streamed tile
+_TC_QUERIES = 32         # G2: q and dO rows of a streamed tile
+_TC_SLACK = 1024         # G1, G2: bytes past the tiles, which the last
+#                          group of p.v (dk, dv) tiles may read
+_G3_ROWS = 16            # G3: q rows a block owns, 4 per warp
+_G3_TILE = 32            # G3: k and v rows staged per step
 
 
 class GeneralPlan(NamedTuple):
-    ld: int              # f32 row stride of a staged tile: D rounded up
-    #                      to odd, so that 32 lanes on 32 rows hit 32 banks
-    grid: Tuple[int, int, int]   # (row blocks, H, B)
+    rows: int            # rows a block owns (q: G1, G3; keys: G2)
+    tile: int            # rows of the other side per step (k/v: G1, G3;
+    #                      q/dO: G2)
+    d8: int              # G1, G2: D rounded up to 8, the columns staged
+    #                      (zero past D); G3: D
+    ld: int              # row stride of a staged tile, in elements of the
+    #                      input (G1, G2: 16 bytes x odd, see
+    #                      general_row_stride) or f32 words (G3: D | 1)
+    halves: int          # G2: column halves of dk/dv, one block each
+    half_cols: int       # G2: columns of the first half (d8 for one half)
+    copy_bytes: int      # G1, G2: width of each staging copy (16, 4 or
+    #                      the element size); G3: 0, it stages by loads
+    grid: Tuple[int, int, int]   # (row blocks x halves, H, B)
     threads: int
     smem_bytes: int
 
 
-def general_plan(kernel: str, B: int, H: int, T: int, D: int) -> GeneralPlan:
+def general_row_stride(D: int, itemsize: int) -> int:
+    """Row stride, in elements, of a G1/G2 shared tile: at least D rounded
+    up to 8, and 16 bytes times an odd number, so that the 32 lanes of
+    each fragment load reach distinct banks and rows stay 16-byte aligned
+    for ``cp.async``."""
+    d8 = -(-D // 8) * 8
+    return d8 if d8 * itemsize % 32 == 16 else d8 + 16 // itemsize
+
+
+def general_copy_bytes(itemsize: int, D: int, views) -> int:
+    """Width of G1/G2's staging copies for operands ``views`` (element
+    strides (sb, st, 1) and start address of each): 16 bytes where every
+    row start of every head is 16-byte aligned, else 4 where it is 4-byte
+    aligned, else one element.  A rule on the input, fixed in advance."""
+    for width in (16, 4):
+        if all(ptr % width == 0 and sb * itemsize % width == 0
+               and st * itemsize % width == 0 and D * itemsize % width == 0
+               for (sb, st, *_), ptr in views):
+            return width
+    return itemsize
+
+
+def general_plan(kernel: str, B: int, H: int, T: int, D: int,
+                 dtype=torch.float32, views=None) -> GeneralPlan:
     """Launch geometry of G1 (``"flash_fwd_general"``), G2
-    (``"flash_bwd_dkdv_general"``) or G3 (``"flash_bwd_dq_general"``): one
-    block of 4 warps per 16 rows of one head (query rows for G1 and G3,
-    key rows for G2), the other side staged 32 rows at a time as f32.
-    Shared memory: G1 the 16 q rows and a k and a v tile; G3 also the 16
-    dO rows and the v tile; G2 the 16 k and v rows, a q and a dO tile and
-    their 32 lse and delta values."""
+    (``"flash_bwd_dkdv_general"``) or G3 (``"flash_bwd_dq_general"``) for
+    a (B, T, H*D) problem of ``dtype`` whose operands have ``views``
+    ((strides, data_ptr) each; None: contiguous tensors at aligned
+    addresses).
+
+    G1: one block of 4 warps per 64 query rows of one head, k and v
+    streamed 32 rows at a time, one buffer each (the next k loads during
+    p.v, the next v during q.k^T and the softmax); shared memory holds the
+    64 q rows, a k and a v tile.  G2: one block per 64 key rows (and per
+    column half of dk/dv beyond D8 = 128), q and dO streamed 32 rows at a
+    time, one buffer each (the next q loads during dv += p^T dO, the next
+    dO during s^T = k.q^T), with the q tile's lse and delta; shared memory
+    holds the 64 k and v rows, a q and a dO tile.  Both add 1 KiB of
+    slack past the tiles.  G3: one block per 16 query rows, k and v staged
+    32 rows at a time as f32 (row stride D | 1)."""
     if kernel not in _GEN_KERNELS:
         raise ValueError(f"no general launch plan for kernel {kernel!r}")
-    ld = D | 1
+    if kernel == "flash_bwd_dq_general":
+        ld = D | 1
+        return GeneralPlan(_G3_ROWS, _G3_TILE, D, ld, 1, D, 0,
+                           (-(-T // _G3_ROWS), H, B), _GEN_THREADS,
+                           2 * (_G3_ROWS + _G3_TILE) * ld * 4)
+    es = dtype.itemsize
+    if views is None:
+        views = [((T * H * D, H * D, 1), 0)]
+    d8 = -(-D // 8) * 8
+    ld = general_row_stride(D, es)
+    copy = general_copy_bytes(es, D, views)
+    blocks = -(-T // _TC_ROWS)
     if kernel == "flash_fwd_general":
-        smem = (_GEN_ROWS + 2 * _GEN_TILE) * ld * 4
+        tile, halves, half_cols = _TC_KEYS, 1, d8
+        smem = (_TC_ROWS + 2 * tile) * ld * es + _TC_SLACK
     else:
-        smem = 2 * (_GEN_ROWS + _GEN_TILE) * ld * 4
-        if kernel == "flash_bwd_dkdv_general":
-            smem += 2 * _GEN_TILE * 4
-    return GeneralPlan(ld, (-(-T // _GEN_ROWS), H, B), _GEN_THREADS, smem)
+        tile = _TC_QUERIES
+        halves = 2 if d8 > 128 else 1
+        half_cols = -(-(d8 // 2) // 8) * 8 if halves == 2 else d8
+        smem = (2 * _TC_ROWS + 2 * tile) * ld * es + 2 * tile * 4 \
+            + _TC_SLACK
+    return GeneralPlan(_TC_ROWS, tile, d8, ld, halves, half_cols, copy,
+                       (blocks * halves, H, B), _GEN_THREADS, smem)
 
 
 def tma_strides(D: int, st: int, sb: int) -> Tuple[int, int, int]:
@@ -403,9 +466,11 @@ def flash_fwd(q, k, v, num_heads: int, *, scale: float, causal: bool,
         _launch("flash_fwd", "flash_fwd", dev, *args, *out, *tail,
                 plan.stages, plan.smem_bytes)
     else:
-        plan = general_plan("flash_fwd_general", B, H, T, D)
+        plan = general_plan("flash_fwd_general", B, H, T, D, q.dtype,
+                            _strides_and_ptrs(q, k, v))
         _launch("flash_fwd_general", "flash_general", dev,
-                _GEN_DTYPES[q.dtype], *args, *out, *tail, plan.smem_bytes)
+                _GEN_DTYPES[q.dtype], *args, *out, *tail, plan.copy_bytes,
+                plan.smem_bytes)
     return o, lse
 
 
@@ -418,14 +483,19 @@ def _bwd_inputs(q, k, v, do, lse, delta, num_heads, seq_len):
     return geo, args
 
 
-def _general_bwd(name, geo, args, outs, causal, scale, dtype) -> None:
+def _strides_and_ptrs(*xs):
+    return [(x.stride(), x.data_ptr()) for x in xs]
+
+
+def _general_bwd(name, geo, args, outs, causal, scale, ins) -> None:
     """Launch G2 (``"flash_bwd_dkdv_general"``) or G3
-    (``"flash_bwd_dq_general"``)."""
+    (``"flash_bwd_dq_general"``); ``ins``: q, k, v, dO."""
     B, T, C, H, D, lim, dev, _ = geo
-    plan = general_plan(name, B, H, T, D)
-    _launch(name, "flash_general", dev, _GEN_DTYPES[dtype], *args, *outs,
-            B, H, T, D, lim, int(bool(causal)), float(scale),
-            plan.smem_bytes)
+    plan = general_plan(name, B, H, T, D, ins[0].dtype,
+                        _strides_and_ptrs(*ins))
+    _launch(name, "flash_general", dev, _GEN_DTYPES[ins[0].dtype], *args,
+            *outs, B, H, T, D, lim, int(bool(causal)), float(scale),
+            plan.copy_bytes, plan.smem_bytes)
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, num_heads: int, *,
@@ -442,7 +512,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, num_heads: int, *,
             *_view(dv, "dv", (B, T, C), dev, q.dtype, D)]
     if family == "general":
         _general_bwd("flash_bwd_dkdv_general", geo, args, outs, causal,
-                     scale, q.dtype)
+                     scale, (q, k, v, do))
         return dk, dv
     plan = flash_plan("flash_bwd_dkdv", B, H, T, D)
     _launch("flash_bwd_dkdv", "flash_bwd_dkdv", dev, *args, *outs, B, H, T,
@@ -462,7 +532,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_heads: int, *, scale: float,
     outs = list(_view(dq, "dq", (B, T, C), dev, q.dtype, D))
     if family == "general":
         _general_bwd("flash_bwd_dq_general", geo, args, outs, causal, scale,
-                     q.dtype)
+                     (q, k, v, do))
         return dq
     plan = flash_plan("flash_bwd_dq", B, H, T, D)
     _launch("flash_bwd_dq", "flash_bwd_dq", dev, *args, *outs, B, H, T, D,
@@ -488,9 +558,9 @@ def flash_bwd_fused(q, k, v, do, lse, delta, num_heads: int, *,
             for n, x in (("dq", dq), ("dk", dk), ("dv", dv))}
     if family == "general":
         _general_bwd("flash_bwd_dkdv_general", geo, args,
-                     outs["dk"] + outs["dv"], causal, scale, q.dtype)
+                     outs["dk"] + outs["dv"], causal, scale, (q, k, v, do))
         _general_bwd("flash_bwd_dq_general", geo, args, outs["dq"], causal,
-                     scale, q.dtype)
+                     scale, (q, k, v, do))
         return dq, dk, dv
     plan = flash_plan("flash_bwd_fused", B, H, T, D)
     work = torch.empty((B, T, C), dtype=torch.float32, device=dev)

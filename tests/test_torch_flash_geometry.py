@@ -98,27 +98,180 @@ def test_plan_refuses_other_kernels():
         _cuda.general_plan("flash_fwd", 1, 1, 64, 64)
 
 
+GEN_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+
+
+def _general_cells(kernel, plan, T, D):
+    """The (row, column) cells each block of a general kernel writes, as
+    the kernels map blocks: G1 the 64 q rows ``(blocks - 1 - x) * 64 ..``
+    (heaviest first), G2 the 64 key rows ``(x // halves) * 64 ..`` and one
+    column half, G3 the 16 q rows ``(blocks - 1 - x) * 16 ..``."""
+    blocks, _, _ = plan.grid
+    for x in range(blocks):
+        if kernel == "flash_bwd_dkdv_general":
+            kb, half = divmod(x, plan.halves)
+            r0 = kb * plan.rows
+            c0 = half * plan.half_cols
+            c1 = plan.d8 if half else plan.half_cols
+        else:
+            r0 = (blocks - 1 - x) * plan.rows
+            c0, c1 = 0, plan.d8
+        yield x, [(r, c) for r in range(r0, min(r0 + plan.rows, T))
+                  for c in range(c0, c1)]
+
+
 @pytest.mark.parametrize("kernel", GENERAL)
 def test_general_plan_fits_the_card_and_covers_every_row(kernel):
-    """G1-G3: one block of 128 threads per 16 rows of a head; the staged
-    f32 tiles fit in shared memory at every head size up to 256, with an
-    odd row stride (32 lanes reading 32 rows hit 32 banks)."""
+    """G1 and G2: one block of 128 threads per 64 rows of a head (and per
+    column half of dk/dv for G2 beyond D8 = 128), columns padded to D8, a
+    multiple of 8 below D + 8; G3: one block per 16 rows, f32 tiles with
+    an odd row stride.  Every row (and column) is covered exactly once at
+    every head size up to 256 and every length, and shared memory fits."""
     B, H = 2, 3
-    for D in range(1, _cuda.GENERAL_MAX_D + 1):
-        for T in (1, 15, 16, 17, 200, 2048):
-            plan = _cuda.general_plan(kernel, B, H, T, D)
-            blocks, heads, batches = plan.grid
-            assert (heads, batches, plan.threads) == (H, B, 128)
-            assert (blocks - 1) * 16 < T <= blocks * 16
-            assert plan.ld % 2 == 1 and D <= plan.ld <= D + 1
-            assert plan.smem_bytes <= _cuda.SMEM_LIMIT
-    # D 256 in f32: G1 the 16 q rows and a 32-row k and v tile; G2 and G3
-    # 16 + 16 own rows and two 32-row tiles (G2 with 32 lse and delta).
-    want = {"flash_fwd_general": (16 + 64) * 257 * 4,
-            "flash_bwd_dkdv_general": 2 * (16 + 32) * 257 * 4 + 256,
+    tc = kernel != "flash_bwd_dq_general"
+    for dtype in GEN_DTYPES if tc else (torch.float32,):
+        for D in range(1, _cuda.GENERAL_MAX_D + 1):
+            for T in (1, 15, 16, 17, 200, 2048):
+                plan = _cuda.general_plan(kernel, B, H, T, D, dtype)
+                blocks, heads, batches = plan.grid
+                assert (heads, batches, plan.threads) == (H, B, 128)
+                assert plan.smem_bytes <= _cuda.SMEM_LIMIT
+                if tc:
+                    assert plan.rows == 64
+                    assert plan.d8 % 8 == 0 and D <= plan.d8 < D + 8
+                    dkdv = kernel == "flash_bwd_dkdv_general"
+                    assert plan.halves == (2 if dkdv and plan.d8 > 128
+                                           else 1)
+                    if dkdv:   # dk and dv of a half fit in registers
+                        assert plan.half_cols % 8 == 0
+                        assert plan.d8 - plan.half_cols <= plan.half_cols \
+                            <= 128
+                    else:
+                        assert plan.half_cols == plan.d8
+                else:
+                    assert plan.rows == 16 and plan.d8 == D
+                    assert plan.ld % 2 == 1 and D <= plan.ld <= D + 1
+                assert (blocks // plan.halves - 1) * plan.rows < T \
+                    <= blocks // plan.halves * plan.rows
+                if T == 2048 and D % 64:
+                    continue   # the cover check at small T suffices
+                seen = [cell for _, cells in _general_cells(kernel, plan, T,
+                                                            D)
+                        for cell in cells]
+                assert len(seen) == len(set(seen)) == T * plan.d8
+    # D 256: G1 the 64 q rows, a 32-row k and a v tile; G2 the 64 k and v
+    # rows, a 32-row q and a dO tile and the q tile's 32 lse and delta
+    # values; row stride 260 f32 (1040 bytes, 16 x 65); both 1 KiB of
+    # slack, which the last group of p.v (dk, dv) tiles may read into.
+    # G3 (unchanged): 16 + 16 own rows and two 32-row tiles, stride 257.
+    want = {"flash_fwd_general": (64 + 2 * 32) * 260 * 4 + 1024,
+            "flash_bwd_dkdv_general": (2 * 64 + 2 * 32) * 260 * 4
+            + 2 * 32 * 4 + 1024,
             "flash_bwd_dq_general": 2 * (16 + 32) * 257 * 4}
     assert _cuda.general_plan(kernel, 8, 16, 2048, 256).smem_bytes == \
         want[kernel]
+
+
+@pytest.mark.parametrize("kernel,want", [
+    # D 128 in f32: row stride 132 (528 bytes, 16 x 33); G1 three blocks
+    # an SM, G2 two.
+    ("flash_fwd_general", ((64 + 2 * 32) * 132 * 4 + 1024, 32, 1,
+                           (32, 16, 8))),
+    ("flash_bwd_dkdv_general", ((2 * 64 + 2 * 32) * 132 * 4 + 256 + 1024,
+                                32, 1, (32, 16, 8))),
+])
+def test_general_plan_at_the_training_shape(kernel, want):
+    plan = _cuda.general_plan(kernel, 8, 16, 2048, 128)
+    assert (plan.smem_bytes, plan.tile, plan.halves, plan.grid) == want
+    assert (plan.d8, plan.ld, plan.copy_bytes) == (128, 132, 16)
+    blocks = 3 if kernel == "flash_fwd_general" else 2
+    assert blocks * (plan.smem_bytes + 1024) <= 233_472
+
+
+def _banks_conflict_free(offsets, itemsize):
+    """Whether one shared load whose 32 lanes read these element offsets
+    runs in one pass: no two different 4-byte words on one bank."""
+    words = {off * itemsize // 4 for off in offsets}
+    banks = [w % 32 for w in words]
+    return len(banks) == len(set(banks))
+
+
+@pytest.mark.parametrize("D", (1, 8, 12, 13, 64, 80, 100, 128, 129, 200,
+                               256))
+@pytest.mark.parametrize("dtype", GEN_DTYPES)
+def test_general_fragment_loads_hit_distinct_banks(dtype, D):
+    """Every fragment load of G1 and G2, from the plan's row stride: the A
+    fragment (rows g, g + 8 at columns t, t + 4) and the B fragment of a
+    product with a tile's transpose (row g at columns t, t + 4) read q
+    and k (G1) or k, v, q and dO (G2), in f32 as ldmatrix (each 8 x 4
+    block's 8 rows of 16 bytes); the B fragment of a product with the
+    tile (rows 2t, 2t + 1 at column g) reads v (G1) or dO and q (G2).  In
+    f32 the 32 lanes reach 32 distinct banks; in fp16/bf16 two lanes share
+    each word and the 16 words reach 16 banks."""
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for kernel in GENERAL[:2]:
+        plan = _cuda.general_plan(kernel, 2, 2, 256, D, dtype)
+        ld, es = plan.ld, dtype.itemsize
+        assert ld * es % 32 == 16 and ld >= plan.d8
+        for c0 in range(0, plan.d8, 8):
+            loads = [[(g + dr) * ld + c0 + t + dc for g, t in lanes]
+                     for dr in (0, 8) for dc in (0, 4)]
+            loads += [[(2 * t + dr) * ld + c0 + g for g, t in lanes]
+                      for dr in (0, 1)]
+            if es == 4:   # ldmatrix: rows r of 4 words each
+                loads += [[r * ld + c0 + dc + w for r in range(8)
+                           for w in range(4)] for dc in (0, 4)]
+            for offsets in loads:
+                assert _banks_conflict_free(offsets, es), (kernel, c0)
+                if es == 4:
+                    assert len({o % 32 for o in offsets}) == 32
+
+
+def _row_starts(x, D, H):
+    """Byte address of every head's row start in a (B, T, H*D) view."""
+    sb, st, _ = x.stride()
+    es = x.element_size()
+    return {x.data_ptr() + (b * sb + r * st + h * D) * es
+            for b in range(x.shape[0]) for r in range(x.shape[1])
+            for h in range(H)}
+
+
+def _views(dtype, D, H):
+    B, T, C = 2, 5, H * D
+    whole = torch.empty((B, T, C), dtype=dtype)
+    fused = torch.empty((B, T, 3 * C), dtype=dtype)
+    return {"whole": whole,
+            "fused k": fused[..., C:2 * C],
+            "padded row": torch.empty((B, T, C + 1), dtype=dtype)[..., :C],
+            "offset start": torch.empty((B, T, C + 1), dtype=dtype)[..., 1:],
+            "every other row": fused[:, ::2, :C]}
+
+
+@pytest.mark.parametrize("D", (1, 2, 4, 8, 12, 13, 64, 80, 128, 200))
+@pytest.mark.parametrize("dtype", GEN_DTYPES)
+def test_general_copy_width_follows_row_alignment(dtype, D):
+    """G1/G2 stage with 16-byte copies only where every row start of every
+    operand is 16-byte aligned, else 4-byte copies where every row start
+    is 4-byte aligned, else one element at a time; the slowest operand
+    sets the width."""
+    H = 3
+    es = dtype.itemsize
+    views = _views(dtype, D, H)
+    widths = {}
+    for name, x in views.items():
+        starts = _row_starts(x, D, H)
+        want = next((w for w in (16, 4) if all(a % w == 0 for a in starts)),
+                    es)
+        for kernel in GENERAL[:2]:
+            plan = _cuda.general_plan(kernel, 2, H, 5, D, dtype,
+                                      [(x.stride(), x.data_ptr())])
+            assert plan.copy_bytes == want, (name, kernel)
+        widths[name] = want
+    together = _cuda.general_plan(
+        GENERAL[1], 2, H, 5, D, dtype,
+        [(x.stride(), x.data_ptr()) for x in views.values()])
+    assert together.copy_bytes == min(widths.values())
+    assert _cuda.general_plan(GENERAL[2], 2, H, 5, D, dtype).copy_bytes == 0
 
 
 @pytest.mark.parametrize("dtype,D,want", [
@@ -189,16 +342,19 @@ def test_wrapper_errors_are_unchanged(shape, heads, seq_len, match):
 
 
 def test_ablation_edits_apply_to_the_kernels():
-    """``flash_ablation.py`` times P1, P2, P3 and P6 against text edits of
-    their committed sources; each edit must still find its text exactly
-    once."""
+    """``flash_ablation.py`` times P1, P2, P3, P6, G1 and G2 against text
+    edits of their committed sources; each edit must still find its text
+    exactly once."""
     spec = importlib.util.spec_from_file_location(
         "flash_ablation", ROOT / "flash_ablation.py")
     ablation = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ablation)
     assert {v for _, v in ablation.EDITS} == {
-        "no reload", "no softmax", "heads first", "no dq sum", "no dq"}
-    assert {stem for stem, _ in ablation.EDITS} == set(KERNELS)
+        "no reload", "no softmax", "heads first", "no dq sum", "no dq",
+        "one product", "no B split", "cvt.rna split", "always clamp",
+        "sum sets 1"}
+    assert {stem for stem, _ in ablation.EDITS} == set(KERNELS) | {
+        "flash_general"}
     for (stem, variant), edits in ablation.EDITS.items():
         text = (_cuda.CSRC / f"{stem}.cu").read_text()
         for old, new in edits:
