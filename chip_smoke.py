@@ -10,7 +10,7 @@ the checkout.  Phases, in order; any failure ends the run:
 1. Device: the card's name and power limit, and the build of the port's
    CUDA kernels from ``horovod_tpu_torch/csrc`` (timed), with ptxas'
    registers and spills for each kernel of the ``kernels`` line and for
-   each of the 15 instantiations of G1 and G2 (none may spill).
+   each of the 24 instantiations of G1-G3 (none may spill).
 2. Kernels: each Hopper flash kernel (forward P1, dk/dv P2, dq P3) at the
    training shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read
    from one (B, T, 3C) projection) and on four small cases (non-causal
@@ -31,12 +31,12 @@ the checkout.  Phases, in order; any failure ends the run:
    the small cases, at D 1, 8, 12, 13, 129 (two dk/dv column halves),
    200 and 256, T 1 and seq_len 1, in fp16 at D 12 and 64 and in bf16 at
    D 8, 13 and 256 (each staging copy width: 16 bytes, 4, one element),
-   with TF32 off so that the f32 reference is full f32; G1 and G2
-   launched twice on the training shape must give the same bits; timed
-   at the training shape in f32 beside the plain versions, both bounds
-   (FFMA, and the three TF32 products G1 and G2 run) and f32
+   with TF32 off so that the f32 reference is full f32; G1-G3 launched
+   twice on the training shape must give the same bits; timed at the
+   training shape in f32 beside the plain versions, both bounds (FFMA,
+   and the three TF32 products G1-G3 run) and f32
    ``scaled_dot_product_attention``, whose kernels are named from the
-   profiler.  D 257 must raise.
+   profiler (G2 + G3 beside its backward).  D 257 must raise.
 5. f32 models: the reference's own checks
    (``tests/test_flash_attention.py``): ``TransformerLM(dim=256,
    num_heads=2, attn="flash", dtype=float32)`` (D 128 through
@@ -171,11 +171,11 @@ TOL_ONE_PASS = 1e-4
 GENERAL = ("flash_fwd_general", "flash_bwd_dkdv_general",
            "flash_bwd_dq_general")
 # The general family in f32 against the plain versions in f32 with TF32
-# off: G1 and G2 split each f32 operand into two TF32 halves (three
-# products a term, the lo.lo term dropped), G3 sums in FFMA in another
-# order; 1.8e-6 (G2) and 1.6e-7 (G3) relative measured on an H100 80GB
-# HBM3 at 700 W (PERF.md), so 1e-5 leaves room.  lse reaches ~10, so
-# 1e-4 absolute is the same margin.
+# off: G1-G3 split each f32 operand into two TF32 halves (three products
+# a term, the lo.lo term dropped); at the training shape 1.8e-6 (G2's dk)
+# and 1.5e-6 (G3's dq) relative, at most 2.7e-6 over the phase's f32
+# cases, measured on an H100 80GB HBM3 at 700 W (PERF.md), so 1e-5 leaves
+# room.  lse reaches ~10, so 1e-4 absolute is the same margin.
 TOL_F32 = 1e-5
 TOL_F32_LSE = 1e-4
 # f32 models against attn="full": the reference's own tolerance
@@ -192,7 +192,7 @@ PTXAS_NAMES = {
     "int8_dequantize": "int8_dequantize_kernel",
     "flash_fwd_general": "flash_fwd_general_kernelIfLi16EE",
     "flash_bwd_dkdv_general": "flash_bwd_dkdv_general_kernelIfLi16EE",
-    "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfE",
+    "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfLi16EE",
 }
 
 
@@ -294,13 +294,14 @@ def phase_device():
         _check(name in usage, f"no ptxas entry for {name}")
         print(f"  {name}: {usage[name]['registers']} registers, "
               f"{usage[name]['spill_bytes']} bytes spilled")
-    # Every instantiation of G1 and G2 that general_plan can pick: element
-    # type and the columns of o (G1) or dk and dv (G2) a warp holds; none
-    # may spill.
+    # Every instantiation of G1-G3 that general_plan can pick: element
+    # type and the columns of o (G1), dk and dv (G2) or dq (G3) a warp
+    # holds; none may spill.
     types = {"f": "f32", "6__half": "fp16", "13__nv_bfloat16": "bf16"}
     found = 0
     for i, line in enumerate(lines):
-        m = re.search(r"(flash_fwd_general|flash_bwd_dkdv_general)_kernelI"
+        m = re.search(r"(flash_fwd_general|flash_bwd_dkdv_general|"
+                      r"flash_bwd_dq_general)_kernelI"
                       r"(f|6__half|13__nv_bfloat16)Li(\d+)E",
                       line)
         if "Compiling entry function" not in line or not m:
@@ -317,8 +318,8 @@ def phase_device():
               f"spilled")
         _check(spilled == 0, f"{m.group(0)} spills")
         found += 1
-    _check(found == 15, f"{found} G1/G2 instantiations in ptxas' log, "
-           f"expected 15")
+    _check(found == 24, f"{found} G1-G3 instantiations in ptxas' log, "
+           f"expected 24")
     return usage
 
 
@@ -629,7 +630,7 @@ def _run_general(c, label, timing=False, one_key=False):
         "flash_bwd_dkdv_general": _median_ms(lambda: _cuda.flash_bwd_dkdv(
             q, k, v, do, lse, delta, H, **kw), runs=10, reps=5),
         "flash_bwd_dq_general": _median_ms(lambda: _cuda.flash_bwd_dq(
-            q, k, v, do, lse, delta, H, **kw), **slow),
+            q, k, v, do, lse, delta, H, **kw), runs=10, reps=5),
         "fwd_plain": _median_ms(lambda: fa._flash_fwd_plain(
             q, k, v, H, **kw), runs=3, warmup=1, reps=1),
         "dkdv_plain": _median_ms(lambda: fa._flash_bwd_dkdv_plain(
@@ -662,8 +663,8 @@ def _run_general(c, label, timing=False, one_key=False):
 
 
 def _check_general_deterministic(c) -> None:
-    """G1 and G2 launched twice on the same inputs give the same bits (no
-    atomics, a fixed order of every sum)."""
+    """G1, G2 and G3 launched twice on the same inputs give the same bits
+    (no atomics, a fixed order of every sum)."""
     from horovod_tpu_torch.ops import _cuda
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
     kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
@@ -673,20 +674,23 @@ def _check_general_deterministic(c) -> None:
     delta = fa._delta(do, o, H)
     dk, dv = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
     dk2, dv2 = _cuda.flash_bwd_dkdv(q, k, v, do, lse, delta, H, **kw)
+    dq = _cuda.flash_bwd_dq(q, k, v, do, lse, delta, H, **kw)
+    dq2 = _cuda.flash_bwd_dq(q, k, v, do, lse, delta, H, **kw)
     torch.cuda.synchronize()
     same = {"o": _bits_equal(o, o2), "lse": _bits_equal(lse, lse2),
-            "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2)}
-    print("  main f32: G1 and G2 launched twice: " + ", ".join(
+            "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2),
+            "dq": _bits_equal(dq, dq2)}
+    print("  main f32: G1-G3 launched twice: " + ", ".join(
         f"{n} {'bit-identical' if ok else 'DIFFERENT'}"
         for n, ok in same.items()))
-    _check(all(same.values()), f"G1/G2 are not deterministic: {same}")
+    _check(all(same.values()), f"G1-G3 are not deterministic: {same}")
 
 
 def phase_general():
     """G1-G3 against the plain versions: f32 at the training shape, on
     the small cases, at head sizes P1-P3 do not take and at the edges of
-    G1/G2's tiles (D 1, 129 and 256, T 1, seq_len 1, each copy width),
-    fp16, bf16; G1 and G2 deterministic; D 257 raises.  Returns the
+    the tiles (D 1, 129 and 256, T 1, seq_len 1, each copy width), fp16,
+    bf16; G1-G3 deterministic; D 257 raises.  Returns the
     training shape's numbers."""
     from horovod_tpu_torch.ops import _cuda
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 reference
@@ -737,15 +741,11 @@ def phase_general():
             "flash_bwd_dkdv_general": (8 * D * pairs,
                                        6 * tensor + 2 * rows),
             "flash_bwd_dq_general": (6 * D * pairs, 5 * tensor + 2 * rows)}
-    # G1 and G2 run three TF32 products a term on the tensor cores, G3 one
-    # FFMA: each one's own bound, and the FFMA bound of the same sums.
-    bounds = {}
-    for name, (flops, _) in work.items():
-        ffma = flops / PEAK_F32_FLOPS * 1e3
-        tf32 = 3 * flops / PEAK_TF32_FLOPS * 1e3
-        bounds[name] = {"ffma": ffma, "tf32x3": tf32,
-                        "own": ffma if name == "flash_bwd_dq_general"
-                        else tf32}
+    # G1-G3 run three TF32 products a term on the tensor cores: that
+    # bound, beside the FFMA bound of the same sums.
+    bounds = {name: {"ffma": flops / PEAK_F32_FLOPS * 1e3,
+                     "tf32x3": 3 * flops / PEAK_TF32_FLOPS * 1e3}
+              for name, (flops, _) in work.items()}
     for name in GENERAL:
         b = bounds[name]
         print(f"  main f32: {name} {times[name]:.3f} ms; bounds: FFMA at 67 "
@@ -756,6 +756,10 @@ def phase_general():
         print(f"  main f32: scaled_dot_product_attention {key} "
               f"{times['sdpa_' + key]:.3f} ms ran "
               + "; ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in top[:3]))
+    pair = times["flash_bwd_dkdv_general"] + times["flash_bwd_dq_general"]
+    print(f"  main f32: G2 + G3 {pair:.3f} ms, "
+          f"{pair / times['sdpa_bwd']:.3f}x the scaled_dot_product_attention "
+          f"backward ({times['sdpa_bwd']:.3f} ms, dq, dk and dv)")
     return {"errs": errs, "times": times, "work": work, "bounds": bounds}
 
 
@@ -1849,13 +1853,11 @@ def main() -> None:
             ("flash_bwd_dq_general", "horovod_tpu/ops/flash_attention.py:730",
              "dq_plain", ge["grad_abs"], gt["sdpa_bwd"], SDPA_BWD + ", f32")):
         flops, nbytes = general["work"][name]
-        bound = general["bounds"][name]
-        peak = PEAK_F32_FLOPS if name == "flash_bwd_dq_general" \
-            else PEAK_TF32_FLOPS / 3     # three TF32 products a term
         rows.append(dict(_kernel_row(
             name, rep, SOURCES["general"], f32_launches[name], err, gt[name],
             gt[plain_key], flops, nbytes, lib, call, usage[name],
-            peak_flops=peak), bound_ffma_ms=bound["ffma"]))
+            peak_flops=PEAK_TF32_FLOPS / 3),   # three TF32 products a term
+            bound_ffma_ms=general["bounds"][name]["ffma"]))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

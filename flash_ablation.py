@@ -1,6 +1,6 @@
 """What bounds the Hopper flash kernels P1, P2, P3 and P6, and the general
-family's G1 and G2, on the card: each one timed against variants of
-itself, and the rate of the tensor-core instruction G1 and G2 issue.
+family's G1, G2 and G3, on the card: each one timed against variants of
+itself, and the rate of the tensor-core instruction G1-G3 issue.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -11,7 +11,7 @@ The variants are text edits of the committed sources
 ``flash_bwd_dq.cu``, ``flash_bwd_fused.cu`` and ``flash_general.cu``),
 built with the port's ``nvcc`` flags into ``build/flash_ablation/`` and
 timed at the training shape of ``chip_smoke.py`` (B 8, H 16, T 2048, D
-128, causal; bf16 for P1-P6, f32 for G1 and G2).  Their outputs are
+128, causal; bf16 for P1-P6, f32 for G1-G3).  Their outputs are
 wrong by design; only their times count.
 
 - ``no reload``: once the ring is full the producer stops loading the
@@ -26,25 +26,25 @@ wrong by design; only their times count.
 - ``heads first``: the grid issues the heaviest tile of every head before
   the next tile of any head (tile index in grid z), so that a head's
   streamed tiles leave L2 between its blocks.
-- ``one product`` (G1, G2): f32 takes only hi.hi, as fp16 does: the
+- ``one product`` (G1-G3): f32 takes only hi.hi, as fp16 does: the
   cost of the split's two other products.
-- ``sum sets 1`` (G1, G2): the sums over D run in one accumulator a
+- ``sum sets 1`` (G1-G3): the sums over D run in one accumulator a
   product instead of two.
-- ``always clamp`` (G1, G2): the tile index of every B fragment of p.v
-  (dk, dv) is clamped to the head's last 8-column tile, instead of the
-  last group reading past it into the slack.
-- ``no B split`` (G1, G2): the B fragments (k and v for G1; q and dO for
-  G2) go to the tensor cores unsplit, as both halves: the cost of every
-  warp splitting the tiles it shares with the block's other warps.
-- ``cvt.rna split`` (G1, G2): hi and lo rounded by ``cvt.rna.tf32.f32``
-  instead of the integer add and mask.
-- ``no reload`` (G1, G2): the streamed tiles (k and v for G1, q and dO
-  for G2) are loaded once and never refilled.
+- ``always clamp`` (G1-G3): the tile index of every B fragment of p.v
+  (dk, dv; ds.k) is clamped to the head's last 8-column tile, instead of
+  the last group reading past it into the slack.
+- ``no B split`` (G1-G3): the B fragments (k and v for G1 and G3; q and
+  dO for G2) go to the tensor cores unsplit, as both halves: the cost of
+  every warp splitting the tiles it shares with the block's other warps.
+- ``cvt.rna split`` (G1-G3): hi rounded by ``cvt.rna.tf32.f32`` instead
+  of the integer add and mask.
+- ``no reload`` (G1-G3): the streamed tiles (k and v for G1 and G3, q
+  and dO for G2) are loaded once and never refilled.
 
 ``mma rate``: a kernel that issues only ``mma.sync.m16n8k8`` TF32
 products (8 independent accumulators a warp, 4 warps a block, 8 blocks
 an SM, 2000 rounds) and one that issues ``m16n8k16`` fp16 ones: the
-rate G1 and G2 can reach at most with this instruction.
+rate G1-G3 can reach at most with this instruction.
 
 Times are CUDA events around 10 launches, median of 20 such batches
 (``chip_smoke._median_ms``), every variant timed twice, in turns.  It
@@ -165,7 +165,11 @@ EDITS = {
         ("    if (it + 1 < i_end) stage_q(it + 1);",
          "    if (false) stage_q(it + 1);"),
         ("    if (it + 1 < i_end)\n      stage_tile(sO,",
-         "    if (false)\n      stage_tile(sO,")],
+         "    if (false)\n      stage_tile(sO,"),
+        ("    if (more)\n      stage_tile(sV,",
+         "    if (false)\n      stage_tile(sV,"),
+        ("    if (more)\n      stage_tile(sK,",
+         "    if (false)\n      stage_tile(sK,")],
 }
 
 # Only mma.sync products, 8 independent accumulators a warp: the rate of
@@ -327,6 +331,8 @@ def main() -> None:
     general = {
         "flash_fwd_general": lambda: _cuda.flash_fwd(gq, gk, gv, H, **kw),
         "flash_bwd_dkdv_general": lambda: _cuda.flash_bwd_dkdv(
+            gq, gk, gv, gdo, glse, gdelta, H, **kw),
+        "flash_bwd_dq_general": lambda: _cuda.flash_bwd_dq(
             gq, gk, gv, gdo, glse, gdelta, H, **kw)}
     calls = {
         "flash_fwd": lambda: _cuda.flash_fwd(q, k, v, H, **kw),

@@ -11,32 +11,34 @@
 // [16, 128] (dim 32 with 4 heads is D 8).  ops/_cuda.py:flash_family picks
 // the family from the dtype and D.
 //
-// G1 and G2 run their products on the tensor cores, as mma.sync.m16n8k8
+// G1-G3 run their products on the tensor cores, as mma.sync.m16n8k8
 // with TF32 operands taken from registers.  f32 operands keep f32
 // accuracy by the "3xTF32" split of CUTLASS's OpMultiplyAddFastF32:
 // x = hi + lo with hi = x rounded to TF32 (to nearest, ties away, as
-// cvt.rna) and lo = x - hi rounded the same way, and a.b = hi.lo + lo.hi +
-// hi.hi, the small products first, into one accumulator (lo.lo, ~2^-22
-// relative, is dropped).  fp16 and bf16 values, and p and ds once rounded
-// to them, are exact in TF32 and take one product.  What bounds them: at
+// cvt.rna) and lo = x - hi, which the tensor cores truncate to TF32, and
+// a.b = hi.lo + lo.hi + hi.hi, the small products first, into one
+// accumulator (lo.lo, ~2^-22 relative, is dropped).  fp16 and bf16
+// values, and p and ds once rounded to them, are exact in TF32 and take
+// one product.  What bounds them: at
 // the training shape in f32 (B 8, H 16, T 2048, D 128, causal) G1's two
-// products are ~137 GFLOP and G2's four ~275 GFLOP, 0.83 and 1.67 ms as
-// three TF32 products at the card's 495 TFLOP/s (mma.sync itself peaks
-// near 305 TFLOP/s on an H100, flash_ablation.py), against 2.05 and 4.10
-// ms for the same sums in FFMA at 67 TFLOP/s.  Around each product the
-// operands' way into registers costs as much again: fragments are read
-// from shared memory (by ldmatrix where the layout allows, else by scalar
-// loads) and, in f32, every value is split by a few integer and float
-// instructions, by every warp that uses it.
+// products are ~137 GFLOP, G2's four ~275 and G3's three ~206: 0.83, 1.67
+// and 1.25 ms as three TF32 products at the card's 495 TFLOP/s (mma.sync
+// itself peaks near 305 TFLOP/s on an H100, flash_ablation.py), against
+// 2.05, 4.10 and 3.08 ms for the same sums in FFMA at 67 TFLOP/s.  Around
+// each product the operands' way into registers costs as much again:
+// fragments are read from shared memory (by ldmatrix where the layout
+// allows, else by scalar loads) and, in f32, every value is split by a few
+// integer and float instructions, by every warp that uses it.
 //
-// The design of G1 and G2: a block of 4 warps owns 64 rows of one head
-// (query rows for G1, the heaviest first; key rows for G2, the lowest
-// first), one m16 row tile per warp, staged once in shared memory; the
+// The design: a block of 4 warps owns 64 rows of one head (query rows for
+// G1 and G3, the heaviest first; key rows for G2, the lowest first), one
+// m16 row tile per warp, staged once in shared memory (G3: q and dO); the
 // other side streams through one buffer per operand, 32 rows at a time
-// (G1: k and v; G2: q with its lse and delta, and dO), each refilled by
-// cp.async while the product that does not read it runs.  That leaves G1
+// (G1 and G3: k and v; G2: q with its lse and delta, and dO), each refilled
+// by cp.async while the products that do not read it run.  That leaves G1
 // at 68.6 KB in f32 at D 128 (1 KiB of it slack, see product_rows), three
-// blocks an SM (G2 holds dk and dv in registers, two).  Tiles hold the raw elements and are converted as
+// blocks an SM, and G2 and G3 at two (G2 holds dk and dv in registers, G3
+// stages 128 own rows).  Tiles hold the raw elements and are converted as
 // fragments load; rows at or past T and columns from D up to D8 (D
 // rounded up to 8) are zero-filled, so they add nothing to the products.
 // The copy width is 16 bytes where every row start of every operand is
@@ -45,27 +47,22 @@
 // ops/_cuda.py:general_plan applies and the entry points check.  A tile's
 // row stride is 16 bytes times an odd number, so that the 32 lanes of
 // each fragment load hit distinct banks.  The accumulator of s = q.k^T
-// (G1) or s^T = k.q^T and dp^T = v.dO^T (G2) is the A operand of the next
-// product as it lies: the C fragment holds columns (2t, 2t + 1) of a
-// quad's row where A wants (t, t + 4), and since that sum runs over the
-// keys (G1) or queries (G2), whose order inside one 8-wide step is free,
-// the B fragment of v (G1), dO and q (G2) is read at rows 2t and 2t + 1.
-// Row maxima and sums of the online softmax go across the 4 lanes of a
-// quad.  The tensor cores truncate as they accumulate, so o, dk and dv are
-// not summed there across tiles: each tile's contribution is, from 0, and
-// is then added in f32 (product_rows).  G2's dk and dv (2 x 16 x D8 f32 a
-// warp) do not fit in registers beyond D8 = 128: there the grid takes two
-// column halves of dk and dv, each of which recomputes s^T and dp^T (1.5x
-// the products, only at those sizes).  Warps skip the tiles that causal
-// and seq_len mask entirely for them, and mask element by element only on
-// tiles that cross the diagonal or an edge.
-//
-// G3 is still the first, simple version on the CUDA cores: a block of 4
-// warps owns 16 query rows, 4 per warp, and loops over 32-row k and v tiles
-// staged as f32 (row stride D rounded up to odd); lane j forms row j's
-// scores against the warp's 4 rows, then the lanes split the D columns and
-// add ds.k, taking the 32 factors of the tile by shuffles.  Every FFMA
-// waits on a shared load or a shuffle: ~1/8 of the FP32 rate.
+// (G1), ds (G3) or s^T = k.q^T and dp^T = v.dO^T (G2) is the A operand of
+// the next product as it lies: the C fragment holds columns (2t, 2t + 1)
+// of a quad's row where A wants (t, t + 4), and since that sum runs over
+// the keys (G1, G3) or queries (G2), whose order inside one 8-wide step is
+// free, the B fragment of v (G1), k (G3), dO and q (G2) is read at rows 2t
+// and 2t + 1.  Row maxima and sums of the online softmax go across the 4
+// lanes of a quad; G3 keeps lse and delta of its rows g and g + 8 in
+// registers.  The tensor cores truncate as they accumulate, so o, dk, dv
+// and dq are not summed there across tiles: each tile's contribution is,
+// from 0, and is then added in f32 (product_rows).  G2's dk and dv (2 x 16
+// x D8 f32 a warp) do not fit in registers beyond D8 = 128: there the grid
+// takes two column halves of dk and dv, each of which recomputes s^T and
+// dp^T (1.5x the products, only at those sizes); G3's dq (16 x D8 f32 a
+// warp) fits up to D8 = 256, as G1's o does.  Warps skip the tiles that
+// causal and seq_len mask entirely for them, and mask element by element
+// only on tiles that cross the diagonal or an edge.
 //
 // Every sum runs in a fixed order without atomics: every result is
 // deterministic.  Numerics follow the plain versions
@@ -87,17 +84,12 @@ namespace htt {
 
 constexpr int kGenThreads = 128;
 constexpr int kGenMaxD = 256;
-// G3.
-constexpr int kGenRows = 16;    // rows a block owns, 4 per warp
-constexpr int kGenTile = 32;    // rows of the other side per tile
-constexpr int kGenCols = kGenMaxD / 32;  // columns a lane holds, at most
-// G1 and G2.
 constexpr int kTcRows = 64;     // rows a block owns, 16 per warp
-constexpr int kTcKeys = 32;     // k and v rows of a G1 tile
+constexpr int kTcKeys = 32;     // k and v rows of a G1 or G3 tile
 constexpr int kTcQueries = 32;  // q and dO rows of a G2 tile
 constexpr int kSumSets = 2;     // accumulators a sum over D is dealt into
-constexpr int kTileGroup = 4;   // 8-column tiles of acc summed together
-constexpr int kTcSlack = 1024;  // bytes past G1/G2's tiles (product_rows)
+constexpr int kTileGroup = 8;   // 8-column tiles of acc summed together
+constexpr int kTcSlack = 1024;  // bytes past the tiles (product_rows)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
@@ -142,19 +134,16 @@ struct GenParams {
   const float* delta;    // (B, H, T)
   int H, T, D, lim, causal;
   float scale;
-  int vec;               // G1, G2: bytes per staging copy (16, 4 or E's)
+  int vec;               // bytes per staging copy (16, 4 or E's)
 };
 
-// G3: shared-memory row stride of a staged f32 tile, D rounded up to odd.
-__host__ __device__ inline int gen_ld(int D) { return D | 1; }
-
-// G1, G2: the head size rounded up to a multiple of 8 (the k of m16n8k8).
+// The head size rounded up to a multiple of 8 (the k of m16n8k8).
 __host__ __device__ inline int gen_d8(int D) { return (D + 7) & ~7; }
 
-// G1, G2: row stride, in elements of es bytes, of a staged tile: at least
-// D8, and 16 bytes times an odd number.  The fragment loads read a (row g,
-// column t) pattern (A, and B of q.k^T) or a (row 2t, column g) one (B of
-// p.v); with rows 16 x odd bytes apart, each reaches 32 distinct banks in
+// Row stride, in elements of es bytes, of a staged tile: at least D8, and
+// 16 bytes times an odd number.  The fragment loads read a (row g, column
+// t) pattern (A, and B of q.k^T) or a (row 2t, column g) one (B of p.v or
+// ds.k); with rows 16 x odd bytes apart, each reaches 32 distinct banks in
 // f32 and 16 distinct words on distinct banks in fp16/bf16 (two lanes a
 // word), and rows stay 16-byte aligned for cp.async.
 __host__ __device__ inline int gen_tc_ld(int D, int es) {
@@ -174,19 +163,19 @@ __host__ __device__ inline int gen_half_cols(int D) {
 
 // Dynamic shared memory of G1 (kernel 0), G2 (1) or G3 (2) at head size D
 // and element size es.  G1: the 64 q rows, a k and a v tile.  G2: the 64
-// k and v rows, a q and a dO tile and the q tile's lse and delta.  Both
-// then kTcSlack bytes.  G3: 16 q and dO rows, a k and a v tile, in f32.
+// k and v rows, a q and a dO tile and the q tile's lse and delta.  G3: the
+// 64 q and dO rows, a k and a v tile.  Each then kTcSlack bytes.
 inline int gen_smem_bytes(int kernel, int D, int es) {
-  if (kernel == 0)
-    return (kTcRows + 2 * kTcKeys) * gen_tc_ld(D, es) * es + kTcSlack;
+  const int row = gen_tc_ld(D, es) * es;
+  if (kernel == 0) return (kTcRows + 2 * kTcKeys) * row + kTcSlack;
   if (kernel == 1)
-    return (2 * kTcRows + 2 * kTcQueries) * gen_tc_ld(D, es) * es +
-           2 * kTcQueries * 4 + kTcSlack;
-  return 2 * (kGenRows + kGenTile) * gen_ld(D) * 4;
+    return (2 * kTcRows + 2 * kTcQueries) * row + 2 * kTcQueries * 4 +
+           kTcSlack;
+  return (2 * kTcRows + 2 * kTcKeys) * row + kTcSlack;
 }
 
 // ---------------------------------------------------------------------------
-// G1 and G2: staging by cp.async, fragments, the split TF32 product.
+// Staging by cp.async, fragments, the split TF32 product.
 
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
@@ -295,13 +284,19 @@ __device__ __forceinline__ unsigned tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x as a TF32 operand: for f32, hi = rna(x) and lo = rna(x - hi); fp16 and
-// bf16 values (and p, ds rounded to them) are exact in TF32 and need no lo.
+// x as a TF32 operand: for f32, hi = rna(x) and lo = x - hi, exact in f32.
+// The tensor cores read a TF32 operand's top 19 bits and ignore the 13 low
+// ones, so lo enters the products rounded toward zero, as the small part
+// of CUTLASS's 3xTF32 does: an error of ~2^-21 relative to x where
+// rounding lo to nearest gives ~2^-22, the size of the lo.lo term dropped
+// anyway (chip_smoke.py's f32 errors agree to three digits either way),
+// for two instructions fewer a split.  fp16 and bf16 values (and p, ds
+// rounded to them) are exact in TF32 and need no lo.
 template <typename E>
 __device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
   if constexpr (std::is_same<E, float>::value) {
     hi = tf32_rna(x);
-    lo = tf32_rna(x - __uint_as_float(hi));
+    lo = __float_as_uint(x - __uint_as_float(hi));
   } else {
     hi = __float_as_uint(x);
     lo = 0u;
@@ -430,12 +425,12 @@ __device__ __forceinline__ void store_frags(E* g_out, long long st, int r0,
 }
 
 // acc[nb] = the 16 rows of a (row stride ld) times the 8 rows 8 nb ..
-// 8 nb + 7 of b, transposed, over nk steps of 8 columns: s = q.k^T, s^T =
-// k.q^T or dp^T = v.dO^T.  In f32 the steps are dealt round kSumSets
-// accumulators, added at the end, so that more chains of dependent
-// products are in flight (three products a step) and each runs a shorter
-// sum; fp16 and bf16 (one product a step) keep one, which saves the
-// registers G2 needs there.
+// 8 nb + 7 of b, transposed, over nk steps of 8 columns: s = q.k^T (G1,
+// G3), dp = dO.v^T (G3), s^T = k.q^T or dp^T = v.dO^T (G2).  In f32 the
+// steps are dealt round kSumSets accumulators, added at the end, so that
+// more chains of dependent products are in flight (three products a step)
+// and each runs a shorter sum; fp16 and bf16 (one product a step) keep
+// one, which saves the registers G2 needs there.
 template <typename E, int NB>
 __device__ __forceinline__ void product_t(float (&acc)[NB][4], const E* a,
                                           const E* b, int ld, int nk, int g,
@@ -483,9 +478,9 @@ __device__ __forceinline__ void product_t(float (&acc)[NB][4], const E* a,
 // acc = acc x (f0 on row g, f1 on row g + 8) + a.tile, for the 8-column
 // tiles nt < n_tiles of acc, with a: K / 8 C fragments (16 rows x 8 of the
 // K rows of the shared tile each), used as A operands in the order of
-// frag_b: o += p.v, dv += p^T dO, dk += ds^T q.  kTileGroup tiles of acc
-// at a time take their sums over the K rows on the tensor cores from 0,
-// then one f32 FMA each: the tensor cores truncate as they accumulate, so
+// frag_b: o += p.v, dv += p^T dO, dk += ds^T q, dq += ds.k.  kTileGroup
+// tiles of acc at a time take their sums over the K rows on the tensor
+// cores from 0, then one f32 FMA each: the tensor cores truncate as they accumulate, so
 // a long sum kept in their accumulator drifts toward 0 by about an ulp a
 // product (beyond chip_smoke.py's 1e-5 over T 2048 in f32), while f32
 // rounds to nearest.  A group that passes n_tiles computes tiles beyond
@@ -736,126 +731,110 @@ __global__ void __launch_bounds__(kGenThreads)
                      p.T, D, dv, 1.f, 1.f, g, t);
 }
 
-// ---------------------------------------------------------------------------
-// G3 on the CUDA cores.
-
-// Rows row0..row0+n-1 of one head into shared memory as f32, stride ld;
-// rows at or past T become 0.
-template <typename E>
-__device__ __forceinline__ void stage(float* s, int ld, const E* g,
-                                      long long st, int row0, int n, int T_,
-                                      int D) {
-  for (int i = threadIdx.x; i < n * D; i += kGenThreads) {
-    const int r = i / D, col = i - r * D;
-    s[r * ld + col] =
-        row0 + r < T_ ? to_f32(g[(long long)(row0 + r) * st + col]) : 0.f;
-  }
-}
-
-// Row `row` of a staged tile dotted with each of the 4 rows at `own`.
-__device__ __forceinline__ void dot4(float (&acc)[4], const float* own,
-                                     const float* row, int ld, int D) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float x = row[d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[r] = fmaf(own[r * ld + d], x, acc[r]);
-  }
-}
-
-// acc[r][i] += sum over the tile's rows j of f[r] of lane j times
-// tile[j][lane + 32 i].
-__device__ __forceinline__ void add_rows(float (&acc)[4][kGenCols],
-                                         const float (&f)[4],
-                                         const float* tile, int ld, int D,
-                                         int lane) {
-  for (int j = 0; j < kGenTile; ++j) {
-    float fj[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) fj[r] = __shfl_sync(0xffffffffu, f[r], j);
-#pragma unroll
-    for (int i = 0; i < kGenCols; ++i) {
-      const int col = lane + 32 * i;
-      if (col < D) {
-        const float x = tile[j * ld + col];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[r][i] = fmaf(fj[r], x, acc[r][i]);
-      }
-    }
-  }
-}
-
-// The 4 rows of a warp as E, columns lane + 32 i; rows at or past T are
-// dropped.
-template <typename E>
-__device__ __forceinline__ void store_rows(const GenOut<E>& out, int b,
-                                           int h, int row0, int T_, int D,
-                                           const float (&acc)[4][kGenCols],
-                                           const float (&div)[4], int lane) {
-  E* g = out.ptr + b * out.sb + (long long)h * D;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if (row0 + r >= T_) continue;
-#pragma unroll
-    for (int i = 0; i < kGenCols; ++i) {
-      const int col = lane + 32 * i;
-      if (col < D)
-        g[(long long)(row0 + r) * out.st + col] =
-            from_f32<E>(acc[r][i] / div[r]);
-    }
-  }
-}
-
-// G3: dq for 16 query rows.
-template <typename E>
-__global__ void __launch_bounds__(kGenThreads)
+// G3: dq for 64 query rows.  NT: 8-column tiles of dq a warp holds, at
+// least D8 / 8.  Two blocks an SM below NT 32: shared memory holds no
+// more in f32 at D 128, and ptxas may then give a thread up to 255
+// registers; one at NT 32, as G1.
+template <typename E, int NT>
+__global__ void __launch_bounds__(kGenThreads, NT <= 16 ? 2 : 1)
     flash_bwd_dq_general_kernel(const GenParams<E> p) {
-  extern __shared__ float gsm[];
-  const int D = p.D, ld = gen_ld(D);
-  float* sQ = gsm;
-  float* sO = sQ + kGenRows * ld;
-  float* sK = sO + kGenRows * ld;
-  float* sV = sK + kGenTile * ld;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kGenRows;
+  extern __shared__ uint4 gsm_tc[];
+  const int D = p.D, d8 = gen_d8(D), nk = d8 / 8;
+  const int ld = gen_tc_ld(D, sizeof(E));
+  E* sQ = reinterpret_cast<E*>(gsm_tc);
+  E* sO = sQ + kTcRows * ld;
+  E* sV = sO + kTcRows * ld;
+  E* sK = sV + kTcKeys * ld;  // last: ds.k reads into the slack past it
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int row0 = q0 + 4 * warp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = q0 + 16 * warp;  // the warp's first query row
   const long long hD = (long long)h * D;
   const long long bh = (long long)b * p.H + h;
-  stage(sQ, ld, p.q.ptr + b * p.q.sb + hD, p.q.st, q0, kGenRows, p.T, D);
-  stage(sO, ld, p.dout.ptr + b * p.dout.sb + hD, p.dout.st, q0, kGenRows,
-        p.T, D);
-  float lse[4], delta[4], dq[4][kGenCols];
+  const E* gk = p.k.ptr + b * p.k.sb + hD;
+  const E* gv = p.v.ptr + b * p.v.sb + hD;
+  int n_kv = q0 < p.lim ? (p.lim + kTcKeys - 1) / kTcKeys : 0;
+  if (p.causal) n_kv = min(n_kv, (q0 + kTcRows - 1) / kTcKeys + 1);
+  // lse and delta of rows g (r 0) and g + 8 (r 1); rows at or past T read
+  // as 0 (the mask hides them).
+  float lse[2], delta[2];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const bool in = row0 + r < p.T;
-    lse[r] = in ? p.lse[bh * p.T + row0 + r] : 0.f;
-    delta[r] = in ? p.delta[bh * p.T + row0 + r] : 0.f;
-#pragma unroll
-    for (int i = 0; i < kGenCols; ++i) dq[r][i] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    lse[r] = row < p.T ? p.lse[bh * p.T + row] : 0.f;
+    delta[r] = row < p.T ? p.delta[bh * p.T + row] : 0.f;
   }
-  int n_kv = q0 < p.lim ? (p.lim + kGenTile - 1) / kGenTile : 0;
-  if (p.causal) n_kv = min(n_kv, (q0 + kGenRows - 1) / kGenTile + 1);
+  // One buffer each for k and v: the next v loads while q.k^T, ds and ds.k
+  // run, the next k while dO.v^T runs (two barriers a tile).
+  if (n_kv > 0) {
+    stage_tile(sO, ld, p.dout.ptr + b * p.dout.sb + hD, p.dout.st, q0,
+               kTcRows, p.T, D, d8, p.vec);
+    stage_tile(sV, ld, gv, p.v.st, 0, kTcKeys, p.T, D, d8, p.vec);
+    cp_async_commit();
+    stage_tile(sQ, ld, p.q.ptr + b * p.q.sb + hD, p.q.st, q0, kTcRows, p.T,
+               D, d8, p.vec);
+    stage_tile(sK, ld, gk, p.k.st, 0, kTcKeys, p.T, D, d8, p.vec);
+    cp_async_commit();
+    cp_async_wait<1>();
+  }
+  __syncthreads();  // dO and v tile 0 are in shared memory
+
+  float dq[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[nt][c] = 0.f;
   for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kGenTile;
-    __syncthreads();
-    stage(sK, ld, p.k.ptr + b * p.k.sb + hD, p.k.st, k0, kGenTile, p.T, D);
-    stage(sV, ld, p.v.ptr + b * p.v.sb + hD, p.v.st, k0, kGenTile, p.T, D);
-    __syncthreads();
-    float s[4], dp[4], ds[4];
-    dot4(s, sQ + 4 * warp * ld, sK + lane * ld, ld, D);
-    dot4(dp, sO + 4 * warp * ld, sV + lane * ld, ld, D);
+    const int k0 = j * kTcKeys;
+    const bool busy = wrow < p.lim && !(p.causal && k0 > wrow + 15);
+    const bool more = j + 1 < n_kv;
+    // dp = dO.v^T, then ds: 16 rows x the tile's keys, n-tile nt = keys
+    // 8 nt .. 8 nt + 7.
+    float dp[kTcKeys / 8][4];
+    if (busy)
+      product_t<E, kTcKeys / 8>(dp, sO + 16 * warp * ld, sV, ld, nk, g, t);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with v tile j; q and k tile j
+    //                   are in shared memory
+    if (more)
+      stage_tile(sV, ld, gv, p.v.st, k0 + kTcKeys, kTcKeys, p.T, D, d8,
+                 p.vec);
+    cp_async_commit();
+    if (busy) {
+      float s[kTcKeys / 8][4];
+      product_t<E, kTcKeys / 8>(s, sQ + 16 * warp * ld, sK, ld, nk, g, t);
+      // p = exp(s scale - lse) (0 where masked), ds = p (dp - delta)
+      // scale rounded to E.
+      const bool edge = (p.causal && k0 + kTcKeys - 1 > wrow) ||
+                        k0 + kTcKeys > p.lim || wrow + 16 > p.lim;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const bool vis = visible(row0 + r, k0 + lane, p.causal, p.lim);
-      const float pe = vis ? expf(s[r] * p.scale - lse[r]) : 0.f;
-      ds[r] = round_to<E>(pe * (dp[r] - delta[r]) * p.scale);
+      for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool vis =
+              !edge || visible(wrow + g + (c >> 1) * 8,
+                               k0 + 8 * nt + 2 * t + (c & 1), p.causal,
+                               p.lim);
+          const float pe =
+              vis ? expf(s[nt][c] * p.scale - lse[c >> 1]) : 0.f;
+          dp[nt][c] =
+              round_to<E>(pe * (dp[nt][c] - delta[c >> 1]) * p.scale);
+        }
+      // dq += ds.k.
+      product_rows<E, NT, kTcKeys>(dq, dp, sK, ld, nk, 1.f, 1.f, g, t);
     }
-    add_rows(dq, ds, sK, ld, D, lane);
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with k tile j; v tile j + 1 is
+    //                   in shared memory
+    if (more)
+      stage_tile(sK, ld, gk, p.k.st, k0 + kTcKeys, kTcKeys, p.T, D, d8,
+                 p.vec);
+    cp_async_commit();
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows(p.dq, b, h, row0, p.T, D, dq, one, lane);
+
+  store_frags<E, NT>(p.dq.ptr + b * p.dq.sb + hD, p.dq.st, wrow, 0, nk, p.T,
+                     D, dq, 1.f, 1.f, g, t);
 }
 
 template <typename E>
@@ -874,8 +853,10 @@ cudaError_t launch_general(int kernel, const GenParams<E>& p, int B,
                   : flash_bwd_dkdv_general_kernel<E, 16>;
     blocks = (p.T + kTcRows - 1) / kTcRows * gen_halves(p.D);
   } else {
-    fn = flash_bwd_dq_general_kernel<E>;
-    blocks = (p.T + kGenRows - 1) / kGenRows;
+    fn = d8 <= 64    ? flash_bwd_dq_general_kernel<E, 8>
+         : d8 <= 128 ? flash_bwd_dq_general_kernel<E, 16>
+                     : flash_bwd_dq_general_kernel<E, 32>;
+    blocks = (p.T + kTcRows - 1) / kTcRows;
   }
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -910,15 +891,15 @@ GenParams<E> gen_params(const void* const* ptrs, const long long* strides,
   return p;
 }
 
-// Whether G1/G2 may stage every row of the operands they read (q, k, v;
-// and dout for G2) with vec-byte copies: 16 or 4 where the start, both
-// strides and the head's columns keep every row start vec-aligned, the
-// element size always.
+// Whether a kernel may stage every row of the operands it reads (q, k, v;
+// and dout for G2 and G3) with vec-byte copies: 16 or 4 where the start,
+// both strides and the head's columns keep every row start vec-aligned,
+// the element size always.
 inline bool copies_fit(int kernel, const void* const* ptrs,
                        const long long* strides, int D, int es, int vec) {
   if (vec == es) return true;
   if (vec != 16 && vec != 4) return false;
-  for (int i = 0; i < (kernel == 1 ? 4 : 3); ++i)
+  for (int i = 0; i < (kernel == 0 ? 3 : 4); ++i)
     if (reinterpret_cast<unsigned long long>(ptrs[i]) % vec ||
         strides[2 * i] * es % vec || strides[2 * i + 1] * es % vec ||
         static_cast<long long>(D) * es % vec)
@@ -929,8 +910,7 @@ inline bool copies_fit(int kernel, const void* const* ptrs,
 // ptrs: q, k, v, dout, o, dq, dk, dv (null where a kernel has none);
 // strides: (batch, row) of each, in the same order, in elements; dtype:
 // 0 f32, 1 fp16, 2 bf16; vec and smem_bytes: the plan of
-// ops/_cuda.py:general_plan, checked here (G3 stages by plain loads and
-// ignores vec).
+// ops/_cuda.py:general_plan, checked here.
 inline int run_general(int kernel, int dtype, const void* const* ptrs,
                        const long long* strides, const void* lse,
                        const void* delta, int B, int H, int T, int D,
@@ -939,7 +919,7 @@ inline int run_general(int kernel, int dtype, const void* const* ptrs,
   const int es = dtype == 0 ? 4 : 2;
   if (dtype < 0 || dtype > 2 || D < 1 || D > kGenMaxD ||
       smem_bytes != gen_smem_bytes(kernel, D, es) ||
-      (kernel != 2 && !copies_fit(kernel, ptrs, strides, D, es, vec)))
+      !copies_fit(kernel, ptrs, strides, D, es, vec))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -170,13 +170,12 @@ def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
 
     ``"hopper"`` (P1, P2, P3, P6: wgmma and TMA): bfloat16 at a head size
     that is a multiple of 16 in [16, 128], with :func:`kernel_strides_ok`
-    strides.  ``"general"`` (G1-G3, ``csrc/flash_general.cu``: G1 and G2
-    on TF32 ``mma.sync``, three products a term for f32; G3 on the CUDA
-    cores): float32 and float16 at any head size up to 256, and
-    bfloat16 at the other head sizes up to 256, with a unit column
-    stride.  A rule on the input, fixed in advance: anything else raises
-    ``ValueError`` naming the limit, and nothing falls back from one
-    family to the other."""
+    strides.  ``"general"`` (G1-G3, ``csrc/flash_general.cu``: TF32
+    ``mma.sync``, three products a term for f32): float32 and float16 at
+    any head size up to 256, and bfloat16 at the other head sizes up to
+    256, with a unit column stride.  A rule on the input, fixed in
+    advance: anything else raises ``ValueError`` naming the limit, and
+    nothing falls back from one family to the other."""
     if dtype not in _GEN_DTYPES:
         raise ValueError(f"the flash kernels take float32, float16 or "
                          f"bfloat16, got {dtype}")
@@ -315,35 +314,32 @@ def flash_plan(kernel: str, B: int, H: int, T: int, D: int) -> FlashPlan:
 _GEN_THREADS = 128
 _GEN_KERNELS = ("flash_fwd_general", "flash_bwd_dkdv_general",
                 "flash_bwd_dq_general")
-_TC_ROWS = 64            # G1, G2: rows a block owns, 16 per warp
-_TC_KEYS = 32            # G1: k and v rows of a streamed tile
+_TC_ROWS = 64            # rows a block owns, 16 per warp
+_TC_KEYS = 32            # G1, G3: k and v rows of a streamed tile
 _TC_QUERIES = 32         # G2: q and dO rows of a streamed tile
-_TC_SLACK = 1024         # G1, G2: bytes past the tiles, which the last
-#                          group of p.v (dk, dv) tiles may read
-_G3_ROWS = 16            # G3: q rows a block owns, 4 per warp
-_G3_TILE = 32            # G3: k and v rows staged per step
+_TC_SLACK = 1024         # bytes past the tiles, which the last group of
+#                          p.v (dk, dv; ds.k) tiles may read
 
 
 class GeneralPlan(NamedTuple):
     rows: int            # rows a block owns (q: G1, G3; keys: G2)
     tile: int            # rows of the other side per step (k/v: G1, G3;
     #                      q/dO: G2)
-    d8: int              # G1, G2: D rounded up to 8, the columns staged
-    #                      (zero past D); G3: D
+    d8: int              # D rounded up to 8, the columns staged (zero
+    #                      past D)
     ld: int              # row stride of a staged tile, in elements of the
-    #                      input (G1, G2: 16 bytes x odd, see
-    #                      general_row_stride) or f32 words (G3: D | 1)
+    #                      input: 16 bytes x odd, see general_row_stride
     halves: int          # G2: column halves of dk/dv, one block each
     half_cols: int       # G2: columns of the first half (d8 for one half)
-    copy_bytes: int      # G1, G2: width of each staging copy (16, 4 or
-    #                      the element size); G3: 0, it stages by loads
+    copy_bytes: int      # width of each staging copy (16, 4 or the
+    #                      element size)
     grid: Tuple[int, int, int]   # (row blocks x halves, H, B)
     threads: int
     smem_bytes: int
 
 
 def general_row_stride(D: int, itemsize: int) -> int:
-    """Row stride, in elements, of a G1/G2 shared tile: at least D rounded
+    """Row stride, in elements, of a G1-G3 shared tile: at least D rounded
     up to 8, and 16 bytes times an odd number, so that the 32 lanes of
     each fragment load reach distinct banks and rows stay 16-byte aligned
     for ``cp.async``."""
@@ -352,7 +348,7 @@ def general_row_stride(D: int, itemsize: int) -> int:
 
 
 def general_copy_bytes(itemsize: int, D: int, views) -> int:
-    """Width of G1/G2's staging copies for operands ``views`` (element
+    """Width of G1-G3's staging copies for operands ``views`` (element
     strides (sb, st, 1) and start address of each): 16 bytes where every
     row start of every head is 16-byte aligned, else 4 where it is 4-byte
     aligned, else one element.  A rule on the input, fixed in advance."""
@@ -379,16 +375,12 @@ def general_plan(kernel: str, B: int, H: int, T: int, D: int,
     column half of dk/dv beyond D8 = 128), q and dO streamed 32 rows at a
     time, one buffer each (the next q loads during dv += p^T dO, the next
     dO during s^T = k.q^T), with the q tile's lse and delta; shared memory
-    holds the 64 k and v rows, a q and a dO tile.  Both add 1 KiB of
-    slack past the tiles.  G3: one block per 16 query rows, k and v staged
-    32 rows at a time as f32 (row stride D | 1)."""
+    holds the 64 k and v rows, a q and a dO tile.  G3: G1's grid, with k
+    and v streamed as in G1 (the next v loads during q.k^T, ds and ds.k,
+    the next k during dO.v^T); shared memory holds the 64 q and dO rows, a
+    k and a v tile.  Each adds 1 KiB of slack past the tiles."""
     if kernel not in _GEN_KERNELS:
         raise ValueError(f"no general launch plan for kernel {kernel!r}")
-    if kernel == "flash_bwd_dq_general":
-        ld = D | 1
-        return GeneralPlan(_G3_ROWS, _G3_TILE, D, ld, 1, D, 0,
-                           (-(-T // _G3_ROWS), H, B), _GEN_THREADS,
-                           2 * (_G3_ROWS + _G3_TILE) * ld * 4)
     es = dtype.itemsize
     if views is None:
         views = [((T * H * D, H * D, 1), 0)]
@@ -396,15 +388,16 @@ def general_plan(kernel: str, B: int, H: int, T: int, D: int,
     ld = general_row_stride(D, es)
     copy = general_copy_bytes(es, D, views)
     blocks = -(-T // _TC_ROWS)
-    if kernel == "flash_fwd_general":
-        tile, halves, half_cols = _TC_KEYS, 1, d8
-        smem = (_TC_ROWS + 2 * tile) * ld * es + _TC_SLACK
-    else:
+    if kernel == "flash_bwd_dkdv_general":
         tile = _TC_QUERIES
         halves = 2 if d8 > 128 else 1
         half_cols = -(-(d8 // 2) // 8) * 8 if halves == 2 else d8
         smem = (2 * _TC_ROWS + 2 * tile) * ld * es + 2 * tile * 4 \
             + _TC_SLACK
+    else:   # G1 stages its q rows, G3 its q and dO rows
+        tile, halves, half_cols = _TC_KEYS, 1, d8
+        own = _TC_ROWS if kernel == "flash_fwd_general" else 2 * _TC_ROWS
+        smem = (own + 2 * tile) * ld * es + _TC_SLACK
     return GeneralPlan(_TC_ROWS, tile, d8, ld, halves, half_cols, copy,
                        (blocks * halves, H, B), _GEN_THREADS, smem)
 

@@ -19,8 +19,8 @@ multiple of 16 up to 128):
 * ``flash_bwd_fused`` (P6) replaces the one-pass backwards
   ``_bwd_fused_kernel`` and ``_bwd_kernel_fullunroll``.
 
-The general family G1-G3 (``csrc/flash_general.cu``: f32 arithmetic on
-the CUDA cores) computes what P1, P2 and P3 compute for everything else
+The general family G1-G3 (``csrc/flash_general.cu``: TF32 ``mma.sync``,
+three products a term for float32) computes what P1, P2 and P3 compute for everything else
 the JAX package runs: float32 and float16 at any head size up to 256,
 bfloat16 at the other head sizes up to 256.  ``_cuda.flash_family`` picks
 the family from the dtype and the head size; each wrapper of :mod:`._cuda`

@@ -15,6 +15,7 @@ card's limits at every length.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -105,7 +106,7 @@ def _general_cells(kernel, plan, T, D):
     """The (row, column) cells each block of a general kernel writes, as
     the kernels map blocks: G1 the 64 q rows ``(blocks - 1 - x) * 64 ..``
     (heaviest first), G2 the 64 key rows ``(x // halves) * 64 ..`` and one
-    column half, G3 the 16 q rows ``(blocks - 1 - x) * 16 ..``."""
+    column half, G3 the same q rows as G1."""
     blocks, _, _ = plan.grid
     for x in range(blocks):
         if kernel == "flash_bwd_dkdv_general":
@@ -122,35 +123,29 @@ def _general_cells(kernel, plan, T, D):
 
 @pytest.mark.parametrize("kernel", GENERAL)
 def test_general_plan_fits_the_card_and_covers_every_row(kernel):
-    """G1 and G2: one block of 128 threads per 64 rows of a head (and per
+    """G1-G3: one block of 128 threads per 64 rows of a head (and per
     column half of dk/dv for G2 beyond D8 = 128), columns padded to D8, a
-    multiple of 8 below D + 8; G3: one block per 16 rows, f32 tiles with
-    an odd row stride.  Every row (and column) is covered exactly once at
-    every head size up to 256 and every length, and shared memory fits."""
+    multiple of 8 below D + 8, in every dtype.  Every row (and column) is
+    covered exactly once at every head size up to 256 and every length,
+    and shared memory fits."""
     B, H = 2, 3
-    tc = kernel != "flash_bwd_dq_general"
-    for dtype in GEN_DTYPES if tc else (torch.float32,):
+    for dtype in GEN_DTYPES:
         for D in range(1, _cuda.GENERAL_MAX_D + 1):
             for T in (1, 15, 16, 17, 200, 2048):
                 plan = _cuda.general_plan(kernel, B, H, T, D, dtype)
                 blocks, heads, batches = plan.grid
                 assert (heads, batches, plan.threads) == (H, B, 128)
                 assert plan.smem_bytes <= _cuda.SMEM_LIMIT
-                if tc:
-                    assert plan.rows == 64
-                    assert plan.d8 % 8 == 0 and D <= plan.d8 < D + 8
-                    dkdv = kernel == "flash_bwd_dkdv_general"
-                    assert plan.halves == (2 if dkdv and plan.d8 > 128
-                                           else 1)
-                    if dkdv:   # dk and dv of a half fit in registers
-                        assert plan.half_cols % 8 == 0
-                        assert plan.d8 - plan.half_cols <= plan.half_cols \
-                            <= 128
-                    else:
-                        assert plan.half_cols == plan.d8
+                assert plan.rows == 64
+                assert plan.d8 % 8 == 0 and D <= plan.d8 < D + 8
+                dkdv = kernel == "flash_bwd_dkdv_general"
+                assert plan.halves == (2 if dkdv and plan.d8 > 128 else 1)
+                if dkdv:   # dk and dv of a half fit in registers
+                    assert plan.half_cols % 8 == 0
+                    assert plan.d8 - plan.half_cols <= plan.half_cols \
+                        <= 128
                 else:
-                    assert plan.rows == 16 and plan.d8 == D
-                    assert plan.ld % 2 == 1 and D <= plan.ld <= D + 1
+                    assert plan.half_cols == plan.d8
                 assert (blocks // plan.halves - 1) * plan.rows < T \
                     <= blocks // plan.halves * plan.rows
                 if T == 2048 and D % 64:
@@ -161,24 +156,26 @@ def test_general_plan_fits_the_card_and_covers_every_row(kernel):
                 assert len(seen) == len(set(seen)) == T * plan.d8
     # D 256: G1 the 64 q rows, a 32-row k and a v tile; G2 the 64 k and v
     # rows, a 32-row q and a dO tile and the q tile's 32 lse and delta
-    # values; row stride 260 f32 (1040 bytes, 16 x 65); both 1 KiB of
-    # slack, which the last group of p.v (dk, dv) tiles may read into.
-    # G3 (unchanged): 16 + 16 own rows and two 32-row tiles, stride 257.
+    # values; G3 the 64 q and dO rows, a 32-row k and a v tile; row stride
+    # 260 f32 (1040 bytes, 16 x 65); each 1 KiB of slack, which the last
+    # group of p.v (dk, dv; ds.k) tiles may read into.
     want = {"flash_fwd_general": (64 + 2 * 32) * 260 * 4 + 1024,
             "flash_bwd_dkdv_general": (2 * 64 + 2 * 32) * 260 * 4
             + 2 * 32 * 4 + 1024,
-            "flash_bwd_dq_general": 2 * (16 + 32) * 257 * 4}
+            "flash_bwd_dq_general": (2 * 64 + 2 * 32) * 260 * 4 + 1024}
     assert _cuda.general_plan(kernel, 8, 16, 2048, 256).smem_bytes == \
         want[kernel]
 
 
 @pytest.mark.parametrize("kernel,want", [
     # D 128 in f32: row stride 132 (528 bytes, 16 x 33); G1 three blocks
-    # an SM, G2 two.
+    # an SM, G2 and G3 two.
     ("flash_fwd_general", ((64 + 2 * 32) * 132 * 4 + 1024, 32, 1,
                            (32, 16, 8))),
     ("flash_bwd_dkdv_general", ((2 * 64 + 2 * 32) * 132 * 4 + 256 + 1024,
                                 32, 1, (32, 16, 8))),
+    ("flash_bwd_dq_general", ((2 * 64 + 2 * 32) * 132 * 4 + 1024, 32, 1,
+                              (32, 16, 8))),
 ])
 def test_general_plan_at_the_training_shape(kernel, want):
     plan = _cuda.general_plan(kernel, 8, 16, 2048, 128)
@@ -200,16 +197,17 @@ def _banks_conflict_free(offsets, itemsize):
                                256))
 @pytest.mark.parametrize("dtype", GEN_DTYPES)
 def test_general_fragment_loads_hit_distinct_banks(dtype, D):
-    """Every fragment load of G1 and G2, from the plan's row stride: the A
+    """Every fragment load of G1-G3, from the plan's row stride: the A
     fragment (rows g, g + 8 at columns t, t + 4) and the B fragment of a
     product with a tile's transpose (row g at columns t, t + 4) read q
-    and k (G1) or k, v, q and dO (G2), in f32 as ldmatrix (each 8 x 4
-    block's 8 rows of 16 bytes); the B fragment of a product with the
-    tile (rows 2t, 2t + 1 at column g) reads v (G1) or dO and q (G2).  In
-    f32 the 32 lanes reach 32 distinct banks; in fp16/bf16 two lanes share
-    each word and the 16 words reach 16 banks."""
+    and k (G1), k, v, q and dO (G2) or q, dO, k and v (G3: A of q.k^T and
+    dO.v^T, B of both), in f32 as ldmatrix (each 8 x 4 block's 8 rows of
+    16 bytes); the B fragment of a product with the tile (rows 2t, 2t + 1
+    at column g) reads v (G1), dO and q (G2) or k (G3, ds.k).  In f32 the
+    32 lanes reach 32 distinct banks; in fp16/bf16 two lanes share each
+    word and the 16 words reach 16 banks."""
     lanes = [(lane >> 2, lane & 3) for lane in range(32)]
-    for kernel in GENERAL[:2]:
+    for kernel in GENERAL:
         plan = _cuda.general_plan(kernel, 2, 2, 256, D, dtype)
         ld, es = plan.ld, dtype.itemsize
         assert ld * es % 32 == 16 and ld >= plan.d8
@@ -225,6 +223,46 @@ def test_general_fragment_loads_hit_distinct_banks(dtype, D):
                 assert _banks_conflict_free(offsets, es), (kernel, c0)
                 if es == 4:
                     assert len({o % 32 for o in offsets}) == 32
+
+
+def _csrc_constant(name):
+    """An ``int`` constant of ``csrc/flash_general.cu``."""
+    text = (_cuda.CSRC / "flash_general.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert m, name
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("kernel", GENERAL)
+def test_general_row_products_read_inside_shared_memory(kernel):
+    """``product_rows`` (o += p.v in G1, dk += ds^T q and dv += p^T dO in
+    G2, dq += ds.k in G3) takes the 8-column tiles of its shared tile in
+    groups of ``kTileGroup`` and lets the last group read past the
+    tile's columns instead of clamping; those reads, rows 0-31 at columns
+    up to the group's end, must stay inside the block's shared memory (the
+    tile that is read is the last one, or is followed by lse and delta,
+    and then ``kTcSlack`` bytes)."""
+    group = _csrc_constant("kTileGroup")
+    assert _csrc_constant("kTcSlack") == _cuda._TC_SLACK
+    for dtype in GEN_DTYPES:
+        es = dtype.itemsize
+        for D in range(1, _cuda.GENERAL_MAX_D + 1):
+            plan = _cuda.general_plan(kernel, 1, 1, 64, D, dtype)
+            ld = plan.ld
+            if kernel == "flash_bwd_dkdv_general":
+                # dv reads the dO tile, the last, at each half's columns.
+                start = (2 * 64 + 32) * ld
+                halves = [(h * plan.half_cols,
+                           (plan.d8 - plan.half_cols if h else
+                            plan.half_cols) // 8)
+                          for h in range(plan.halves)]
+            else:   # G1 reads its v tile, G3 its k tile: the last
+                own = 64 if kernel == "flash_fwd_general" else 128
+                start, halves = (own + 32) * ld, [(0, plan.d8 // 8)]
+            for c0, n_tiles in halves:
+                last = (n_tiles - 1) // group * group
+                end = start + c0 + 31 * ld + 8 * (last + group)
+                assert end * es <= plan.smem_bytes, (dtype, D, c0)
 
 
 def _row_starts(x, D, H):
@@ -250,7 +288,7 @@ def _views(dtype, D, H):
 @pytest.mark.parametrize("D", (1, 2, 4, 8, 12, 13, 64, 80, 128, 200))
 @pytest.mark.parametrize("dtype", GEN_DTYPES)
 def test_general_copy_width_follows_row_alignment(dtype, D):
-    """G1/G2 stage with 16-byte copies only where every row start of every
+    """G1-G3 stage with 16-byte copies only where every row start of every
     operand is 16-byte aligned, else 4-byte copies where every row start
     is 4-byte aligned, else one element at a time; the slowest operand
     sets the width."""
@@ -262,16 +300,16 @@ def test_general_copy_width_follows_row_alignment(dtype, D):
         starts = _row_starts(x, D, H)
         want = next((w for w in (16, 4) if all(a % w == 0 for a in starts)),
                     es)
-        for kernel in GENERAL[:2]:
+        for kernel in GENERAL:
             plan = _cuda.general_plan(kernel, 2, H, 5, D, dtype,
                                       [(x.stride(), x.data_ptr())])
             assert plan.copy_bytes == want, (name, kernel)
         widths[name] = want
-    together = _cuda.general_plan(
-        GENERAL[1], 2, H, 5, D, dtype,
-        [(x.stride(), x.data_ptr()) for x in views.values()])
-    assert together.copy_bytes == min(widths.values())
-    assert _cuda.general_plan(GENERAL[2], 2, H, 5, D, dtype).copy_bytes == 0
+    for kernel in GENERAL[1:]:   # the backwards read q, k, v and dO
+        together = _cuda.general_plan(
+            kernel, 2, H, 5, D, dtype,
+            [(x.stride(), x.data_ptr()) for x in views.values()])
+        assert together.copy_bytes == min(widths.values())
 
 
 @pytest.mark.parametrize("dtype,D,want", [
@@ -342,7 +380,7 @@ def test_wrapper_errors_are_unchanged(shape, heads, seq_len, match):
 
 
 def test_ablation_edits_apply_to_the_kernels():
-    """``flash_ablation.py`` times P1, P2, P3, P6, G1 and G2 against text
+    """``flash_ablation.py`` times P1, P2, P3, P6 and G1-G3 against text
     edits of their committed sources; each edit must still find its text
     exactly once."""
     spec = importlib.util.spec_from_file_location(
