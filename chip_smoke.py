@@ -36,13 +36,19 @@ the checkout.  Phases, in order; any failure ends the run:
    training shape in f32 beside the plain versions, both bounds (FFMA,
    and the three TF32 products G1-G3 run) and f32
    ``scaled_dot_product_attention``, whose kernels are named from the
-   profiler (G2 + G3 beside its backward).  D 257 must raise.
+   profiler (G2 + G3 beside its backward).  Then the wide route W1-W3
+   (``flash_wide.cu``, head sizes above 256) against the plain versions
+   in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal; 1e-5) and in
+   bf16 at D 320 with a ragged seq_len; W1-W3 launched twice give the
+   same bits; timed at D 384 beside f32 ``scaled_dot_product_attention``,
+   whose kernels (the backend PyTorch picked) are named.
 5. f32 models: the reference's own checks
    (``tests/test_flash_attention.py``): ``TransformerLM(dim=256,
    num_heads=2, attn="flash", dtype=float32)`` (D 128 through
-   ``flash_qkv_proj``) and dim 32 with 4 heads (D 8 through
-   ``flash_attention_auto``) against ``attn="full"`` on the card, logits
-   within 1e-4; G1-G3 run, P1-P3 do not (counters zeroed just before).
+   ``flash_qkv_proj``), dim 32 with 4 heads (D 8 through
+   ``flash_attention_auto``) and dim 768 with 2 heads (D 384) against
+   ``attn="full"`` on the card, logits within 1e-4; G1-G3 run (W1-W3 at
+   D 384), P1-P3 do not (counters zeroed just before).
 6. Reference: a small bf16 TransformerLM step through the kernels against
    the same model on the oracle attention, same parameters, on the
    card.
@@ -121,6 +127,23 @@ the checkout.  Phases, in order; any failure ends the run:
    equals the plain codec's snap reduced over the mesh bit for bit and
    the flat sum of that snap within 1e-2; two small-ResNet steps on
    ``hierarchical_mesh()`` match the flat steps within 1e-5 relative.
+18. Eager plane, one card: ``hvd.allreduce`` (sum and average),
+   ``allgather`` and ``broadcast`` of CUDA f32, bf16 and int64 tensors,
+   async with ``poll`` and ``synchronize``, equal to what one rank gives;
+   the latency of one 4 KiB allreduce; a burst of 64 async 1 MiB f32
+   allreduces three times, fused into 64 MiB responses and served from
+   the response cache from the second burst on (``hvd.metrics()``), timed
+   beside one ``dist.all_reduce`` of the same 64 MiB on a one-rank NCCL
+   group.  The controller's background thread ticks beside every phase
+   above (``hvd.init()`` starts it).
+19. Eager plane, NCCL: four processes, one card each, launched without
+   ``HOROVOD_TPU_LOCAL_RANK``, only with four or more cards; otherwise a
+   line says it did not run.  Host discovery must give four distinct
+   GPUs; each fused eager allreduce (f32, bf16, int64) equals
+   ``dist.all_reduce`` of the same fused buffer bit for bit; the integer
+   average floor-divides; a ragged allgather and a broadcast are exact; a
+   dtype mismatch raises the coordinator's error on every rank; then the
+   phase-18 latency and burst on four cards.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -168,6 +191,7 @@ TOL_LOSS_TRACK = 1e-4
 # the losses drift apart a little: about 7x the 1.51e-5 measured on an
 # H100 80GB HBM3 at 700 W (PERF.md).
 TOL_ONE_PASS = 1e-4
+WIDE = ("flash_fwd_wide", "flash_bwd_dkdv_wide", "flash_bwd_dq_wide")
 GENERAL = ("flash_fwd_general", "flash_bwd_dkdv_general",
            "flash_bwd_dq_general")
 # The general family in f32 against the plain versions in f32 with TF32
@@ -193,6 +217,9 @@ PTXAS_NAMES = {
     "flash_fwd_general": "flash_fwd_general_kernelIfLi16EE",
     "flash_bwd_dkdv_general": "flash_bwd_dkdv_general_kernelIfLi16EE",
     "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfLi16EE",
+    "flash_fwd_wide": "flash_fwd_wide_kernelIfE",
+    "flash_bwd_dkdv_wide": "flash_bwd_dkdv_wide_kernelIfE",
+    "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernelIfE",
 }
 
 
@@ -270,6 +297,11 @@ def phase_device():
     libs, seconds, log = _cuda.build()
     print(f"kernels built in {seconds:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
+    from horovod_tpu_torch import cpp_core
+    t0 = time.perf_counter()
+    _check(cpp_core.available(), "the native core (cpp/) did not build")
+    print(f"native core {cpp_core._LIB_PATH} ready in "
+          f"{time.perf_counter() - t0:.1f} s")
     # ptxas' registers and spills for the kernels of the kernels line, and
     # any ptxas warning (a setmaxnreg that ptxas ignored, or wgmma
     # instructions it serialized, shows there).
@@ -570,9 +602,10 @@ def _device_kernels(fn) -> list:
                    and e.self_device_time_total > 0), key=lambda k: -k[1])
 
 
-def _run_general(c, label, timing=False, one_key=False):
-    """G1-G3 against the plain versions on one case (the wrappers must
-    route it to the general family); with ``timing``, also time kernels,
+def _run_general(c, label, timing=False, one_key=False, family="general"):
+    """G1-G3 (W1-W3 with ``family="wide"``) against the plain versions on
+    one case (the wrappers must route it to that family); with ``timing``,
+    also time kernels,
     plain versions and f32 ``scaled_dot_product_attention``, and name the
     kernels that ran the latter.  ``one_key``: every row sees at most one
     key (T 1, or seq_len 1), so the softmax has no gradient and the exact
@@ -583,11 +616,13 @@ def _run_general(c, label, timing=False, one_key=False):
     from horovod_tpu_torch.ops import flash_attention as fa
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
     kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
+    names = GENERAL if family == "general" else WIDE
     _check(_cuda.flash_family(q.dtype, c["D"], q.stride(), q.data_ptr())
-           == "general", f"{label}: not routed to the general family")
+           == family, f"{label}: not routed to the {family} family")
     copy = _cuda.general_plan(
         "flash_bwd_dkdv_general", c["B"], H, c["T"], c["D"], q.dtype,
-        [(x.stride(), x.data_ptr()) for x in (q, k, v, do)]).copy_bytes
+        [(x.stride(), x.data_ptr()) for x in (q, k, v, do)]).copy_bytes \
+        if family == "general" else q.dtype.itemsize
     _cuda.reset_launches()
     o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
     o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, H, **kw)
@@ -596,8 +631,8 @@ def _run_general(c, label, timing=False, one_key=False):
     dq = _cuda.flash_bwd_dq(q, k, v, do, lse_ref, delta, H, **kw)
     ref = fa._flash_bwd_fused_plain(q, k, v, do, lse_ref, delta, H, **kw)
     torch.cuda.synchronize()
-    launches = {n: _cuda.LAUNCHES[n] for n in FLASH + GENERAL}
-    _check(launches == {n: int(n in GENERAL) for n in launches},
+    launches = {n: _cuda.LAUNCHES[n] for n in FLASH + GENERAL + WIDE}
+    _check(launches == {n: int(n in names) for n in launches},
            f"{label}: launches {launches}")
     errs = {"o": _rel_fro(o, o_ref), "lse": _max_abs(lse, lse_ref),
             "dq": _rel_fro(dq, ref[0]), "dk": _rel_fro(dk, ref[1]),
@@ -625,11 +660,11 @@ def _run_general(c, label, timing=False, one_key=False):
     del o_ref, ref
     slow = dict(runs=3, warmup=1, reps=2)
     times = {
-        "flash_fwd_general": _median_ms(lambda: _cuda.flash_fwd(
+        names[0]: _median_ms(lambda: _cuda.flash_fwd(
             q, k, v, H, **kw), runs=10, reps=5),
-        "flash_bwd_dkdv_general": _median_ms(lambda: _cuda.flash_bwd_dkdv(
+        names[1]: _median_ms(lambda: _cuda.flash_bwd_dkdv(
             q, k, v, do, lse, delta, H, **kw), runs=10, reps=5),
-        "flash_bwd_dq_general": _median_ms(lambda: _cuda.flash_bwd_dq(
+        names[2]: _median_ms(lambda: _cuda.flash_bwd_dq(
             q, k, v, do, lse, delta, H, **kw), runs=10, reps=5),
         "fwd_plain": _median_ms(lambda: fa._flash_fwd_plain(
             q, k, v, H, **kw), runs=3, warmup=1, reps=1),
@@ -662,9 +697,9 @@ def _run_general(c, label, timing=False, one_key=False):
     return errs, times
 
 
-def _check_general_deterministic(c) -> None:
-    """G1, G2 and G3 launched twice on the same inputs give the same bits
-    (no atomics, a fixed order of every sum)."""
+def _check_general_deterministic(c, label="main f32: G1-G3") -> None:
+    """G1, G2 and G3 (or W1-W3) launched twice on the same inputs give the
+    same bits (no atomics, a fixed order of every sum)."""
     from horovod_tpu_torch.ops import _cuda
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
     kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
@@ -680,17 +715,17 @@ def _check_general_deterministic(c) -> None:
     same = {"o": _bits_equal(o, o2), "lse": _bits_equal(lse, lse2),
             "dk": _bits_equal(dk, dk2), "dv": _bits_equal(dv, dv2),
             "dq": _bits_equal(dq, dq2)}
-    print("  main f32: G1-G3 launched twice: " + ", ".join(
+    print(f"  {label} launched twice: " + ", ".join(
         f"{n} {'bit-identical' if ok else 'DIFFERENT'}"
         for n, ok in same.items()))
-    _check(all(same.values()), f"G1-G3 are not deterministic: {same}")
+    _check(all(same.values()), f"{label} are not deterministic: {same}")
 
 
 def phase_general():
     """G1-G3 against the plain versions: f32 at the training shape, on
     the small cases, at head sizes P1-P3 do not take and at the edges of
     the tiles (D 1, 129 and 256, T 1, seq_len 1, each copy width), fp16,
-    bf16; G1-G3 deterministic; D 257 raises.  Returns the
+    bf16; G1-G3 deterministic.  Returns the
     training shape's numbers."""
     from horovod_tpu_torch.ops import _cuda
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 reference
@@ -725,14 +760,6 @@ def phase_general():
     errs, times = _run_general(main, "main f32 B=8 H=16 T=2048 D=128 causal",
                                timing=True)
     _check_general_deterministic(main)
-    wide = torch.zeros((1, 64, 2 * 257), device="cuda")
-    try:
-        _cuda.flash_fwd(wide, wide, wide, 2, scale=1.0, causal=True)
-    except ValueError as e:
-        print(f"  D=257: ValueError: {e}")
-        _check("from 1 to 256" in str(e), f"D=257: unexpected error {e}")
-    else:
-        _fail("D=257 did not raise")
     B, H, T, D = BATCH, HEADS, SEQ, DIM // HEADS
     pairs = B * H * _visible_pairs(T, True, None)
     tensor = B * T * H * D * 4          # one (B, T, C) f32 tensor
@@ -763,6 +790,60 @@ def phase_general():
     return {"errs": errs, "times": times, "work": work, "bounds": bounds}
 
 
+# The wide route's timing case: head size 384, where G1-G3 cannot stage
+# their tiles.
+WIDE_CASE = dict(B=1, H=2, T=512, D=384, causal=True)
+
+
+def phase_wide():
+    """W1-W3 (``flash_wide.cu``, head sizes above 256) against the plain
+    versions in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal),
+    within 1e-5 relative with TF32 off, at the route's largest head size
+    ``WIDE_MAX_D`` (T 16: its shared memory, static and dynamic, must fit
+    a block), plus bf16 at D 320 with a ragged seq_len; launched twice,
+    the same bits; timed at D 384 beside the
+    plain versions and f32 ``scaled_dot_product_attention``, whose kernels
+    (the backend PyTorch picked) are named from the profiler."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    w = WIDE_CASE
+    print("wide route W1-W3 vs plain versions (f32: tolerance "
+          f"{TOL_F32} rel fro; bf16 {TOL_GRAD}):")
+    from horovod_tpu_torch.ops import _cuda
+    for D in (264, 1000):
+        _run_general(_case(w["B"], w["H"], w["T"], D, True, None, gen,
+                           torch.float32), f"f32 D={D}", family="wide")
+    _run_general(_case(1, 1, 16, _cuda.WIDE_MAX_D, True, None, gen,
+                       torch.float32), f"f32 D={_cuda.WIDE_MAX_D} T=16",
+                 family="wide")
+    _run_general(_case(2, 3, 200, 320, True, 150, gen, torch.bfloat16),
+                 "bf16 D=320 T=200 seq_len=150", family="wide")
+    main = _case(w["B"], w["H"], w["T"], w["D"], True, None, gen,
+                 torch.float32)
+    errs, times = _run_general(main, f"f32 D={w['D']}", timing=True,
+                               family="wide")
+    _check_general_deterministic(main, f"f32 D={w['D']}: W1-W3")
+    B, H, T, D = w["B"], w["H"], w["T"], w["D"]
+    pairs = B * H * _visible_pairs(T, True, None)
+    tensor = B * T * H * D * 4
+    rows = B * H * T * 4
+    work = {"flash_fwd_wide": (4 * D * pairs, 4 * tensor + rows),
+            "flash_bwd_dkdv_wide": (8 * D * pairs, 6 * tensor + 2 * rows),
+            "flash_bwd_dq_wide": (6 * D * pairs, 5 * tensor + 2 * rows)}
+    for name in WIDE:
+        flops, nbytes = work[name]
+        print(f"  f32 D={D}: {name} {times[name]:.3f} ms; bound (3xTF32 "
+              f"at 495/3 TFLOP/s) {3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} "
+              f"ms, FFMA (67 TFLOP/s) {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
+    for key in ("fwd", "bwd"):
+        top = times[f"sdpa_{key}_kernels"]
+        print(f"  f32 D={D}: scaled_dot_product_attention {key} "
+              f"{times['sdpa_' + key]:.3f} ms ran "
+              + "; ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in top[:3]))
+    return {"errs": errs, "times": times, "work": work}
+
+
 def phase_models_f32():
     """The reference's f32 model checks on the card: the flash model's
     logits equal the attn="full" model's elementwise within ``TOL_MODEL``
@@ -775,7 +856,8 @@ def phase_models_f32():
     from horovod_tpu_torch.ops import _cuda
     f32 = torch.float32
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for vocab, dim, depth, heads in ((64, 256, 1, 2), (64, 32, 2, 4)):
+    for vocab, dim, depth, heads in ((64, 256, 1, 2), (64, 32, 2, 4),
+                                     (64, 768, 1, 2)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
         tokens = torch.randint(0, vocab, (2, 32), generator=gen,
                                device="cuda")
@@ -802,7 +884,9 @@ def phase_models_f32():
               f"{rel:.3e}; launches { {n: c for n, c in ran.items() if c} }")
         _check(bad == 0, f"f32 model dim {dim}: {bad} logits differ")
         _check(rel <= TOL_MODEL, f"f32 model dim {dim}: grads rel {rel}")
-        want = {n: depth if n in GENERAL else 0 for n in FLASH + GENERAL}
+        names = WIDE if dim // heads > 256 else GENERAL
+        want = {n: depth if n in names else 0
+                for n in FLASH + GENERAL + WIDE}
         _check({n: ran[n] for n in want} == want,
                f"f32 model dim {dim}: launches {ran}")
         for n, c in ran.items():
@@ -1491,7 +1575,7 @@ def _resnet_errs(got: dict, want: dict) -> dict:
 def phase_resnet():
     """The ResNet-50 leg at full width: the first step's BatchNorm
     statistics against a direct computation, 1 warm-up call and 3 timed
-    calls of 5 steps, an eval step, one profiled step."""
+    calls of 5 steps, an eval step, two profiled steps."""
     from horovod_tpu_torch.models import ResNet50
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.spmd import make_eval_step, make_train_step
@@ -1560,7 +1644,10 @@ def phase_resnet():
            f"resnet50: eval logits {tuple(logits.shape)} not finite")
     print(f"resnet50: eval step on the running statistics: logits "
           f"{tuple(logits.shape)}, finite, mean {logits.mean().item():.4f}")
-    _profile_step(one, (images, labels), _resnet_category)
+    # One profiled step's busy share varies from profile to profile at
+    # the same kernel time (0.80-0.955 on an H100, PERF.md §5): two.
+    for _ in range(2):
+        _profile_step(one, (images, labels), _resnet_category)
     return {"images_s": images_s, "step_s": step_s, "mfu": mfu,
             "peak_gb": peak_gb}
 
@@ -1658,16 +1745,299 @@ def phase_hierarchical_nccl():
         _check(err <= TOL_SPC, f"rank {r}: mesh step vs flat {err}")
 
 
+# The eager plane's timing shapes: one 4 KiB allreduce for latency, and a
+# burst of 64 float32 tensors of 1 MiB each, which the planner fuses into
+# 64 MiB responses (HOROVOD_TPU_FUSION_THRESHOLD's default).
+EAGER_SMALL = 1024                       # f32 elements: 4 KiB
+EAGER_BURST, EAGER_BURST_N = 64, 1 << 18  # 64 x 1 MiB of f32
+EAGER_REPS = 50
+
+
+def _eager_latency_ms(hvd, device) -> float:
+    """Median host time of one synchronous 4 KiB eager allreduce, until
+    its result is on the device."""
+    x = torch.ones(EAGER_SMALL, device=device)
+    times = []
+    for i in range(EAGER_REPS + 5):
+        t0 = time.perf_counter()
+        hvd.allreduce(x, name="eager.small")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[5:])
+
+
+def _eager_burst(hvd, device, tag: str):
+    """The 64 x 1 MiB burst, async: enqueue all, then synchronize all.
+    Returns (the inputs, the results, host ms until every result is on the
+    device, the cache hits the burst added, host ms of the enqueues alone,
+    the control plane's ticks during the enqueues)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    xs = [torch.randint(-8, 8, (EAGER_BURST_N,), generator=gen,
+                        device=device).float() for _ in range(EAGER_BURST)]
+    torch.cuda.synchronize()
+    c0 = hvd.metrics()["counters"]
+    t0 = time.perf_counter()
+    hs = [hvd.allreduce_async(x, average=False, name=f"{tag}.{i}")
+          for i, x in enumerate(xs)]
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ticks = (hvd.metrics()["counters"].get("control.ticks", 0)
+             - c0.get("control.ticks", 0))
+    outs = [hvd.synchronize(h) for h in hs]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    added = (hvd.metrics()["counters"].get("control.cache_hits", 0)
+             - c0.get("control.cache_hits", 0))
+    return xs, outs, ms, added, enqueue_ms, ticks
+
+
+def _eager_small_bursts(hvd, device, rank: int, n: int) -> dict:
+    """The reference's cache burst (tests/test_multiprocess.py
+    CACHE_BYTES_WORKER) on the card: 16 allreduces of 8 floats enqueued
+    together, then synchronized, 31 times.  Returns the cache hits they
+    added, the first burst's and the best later burst's control bytes, and
+    the ticks the coordinator served from the cache."""
+    def counters():
+        return hvd.metrics()["counters"]
+
+    def served():
+        return hvd.metrics()["histograms"].get(
+            "control.tick_seconds#cached=1", {}).get("count", 0)
+
+    c0, s0 = counters(), served()
+    per_burst = []
+    for _ in range(31):
+        b0 = counters().get("control.negotiation_bytes", 0)
+        hs = [hvd.allreduce_async(torch.full((8,), float(rank + 1),
+                                             device=device),
+                                  average=False, name=f"nc.cache.{j:02d}")
+              for j in range(16)]
+        for h in hs:
+            _check(hvd.synchronize(h).tolist() == [n * (n + 1) / 2] * 8,
+                   "eager nccl: a cache burst's sum is wrong")
+        per_burst.append(counters().get("control.negotiation_bytes", 0)
+                         - b0)
+    return {"hits": counters().get("control.cache_hits", 0)
+            - c0.get("control.cache_hits", 0),
+            "first_bytes": per_burst[0], "best_bytes": min(per_burst[6:]),
+            "served_ticks": served() - s0}
+
+
+def _library_allreduce_ms(buf) -> float:
+    """Median host time of one dist.all_reduce of ``buf`` until it is
+    done on the device (the library yardstick of the burst)."""
+    import torch.distributed as dist
+    times = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[2:])
+
+
+def phase_eager():
+    """The negotiated eager plane at size 1 on the card: allreduce (sum
+    and average), allgather and broadcast of CUDA f32, bf16 and int64
+    tensors, async with poll and synchronize, results on the card and
+    equal to what one rank gives (the input; integers floor-divided);
+    then the latency of one 4 KiB allreduce, and the 64 x 1 MiB burst
+    three times, fused (hvd.metrics()'s ops and fill ratio) and served
+    from the response cache from the second burst on, timed beside one
+    dist.all_reduce of the same 64 MiB on a one-rank NCCL group."""
+    import horovod_tpu_torch as hvd
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ok = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        x = (torch.arange(24, device=dev) - 7).reshape(4, 6).to(dtype)
+        hs = [hvd.allreduce_async(x, average=False, name=f"e.sum.{dtype}"),
+              hvd.allreduce_async(x, average=True, name=f"e.avg.{dtype}"),
+              hvd.allgather_async(x, name=f"e.ag.{dtype}"),
+              hvd.broadcast_async(x, 0, name=f"e.bc.{dtype}")]
+        while not all(hvd.poll(h) for h in hs):
+            time.sleep(1e-4)
+        outs = [hvd.synchronize(h) for h in hs]
+        ok[str(dtype)] = all(o.is_cuda and o.dtype == dtype
+                             and _bits_equal(o, x) for o in outs)
+    print(f"eager (size 1): allreduce sum/average, allgather, broadcast "
+          f"on the card, async, equal to the input: {ok}")
+    _check(all(ok.values()), f"eager at size 1: {ok}")
+    lat = _eager_latency_ms(hvd, dev)
+    c0 = hvd.metrics()
+    bursts = [_eager_burst(hvd, dev, "burst") for _ in range(3)]
+    c1 = hvd.metrics()
+    ops = (c1["counters"]["controller.ops#type=allreduce"]
+           - c0["counters"].get("controller.ops#type=allreduce", 0))
+    fill = c1["histograms"]["controller.fusion_fill_ratio"]
+    for xs, outs, *_ in bursts:
+        _check(all(_bits_equal(o, x) for o, x in zip(outs, xs)),
+               "eager burst: a result differs from its input")
+    hits = [b[3] for b in bursts]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        buf = torch.cat(bursts[-1][0])
+        lib_ms = _library_allreduce_ms(buf)
+    finally:
+        dist.destroy_process_group()
+    times = [b[2] for b in bursts]
+    print(f"eager (size 1): 4 KiB allreduce {lat:.3f} ms (median of "
+          f"{EAGER_REPS}, host clock to the result on the card); burst "
+          f"{EAGER_BURST} x 1 MiB f32: {[round(t, 3) for t in times]} ms "
+          f"in 3 bursts, {ops} allreduce responses, fill ratio histogram "
+          f"count {fill['count']} sum {fill['sum']:.3f}; cache hits per "
+          f"burst {hits}; one dist.all_reduce of the 64 MiB on a one-rank "
+          f"NCCL group {lib_ms:.3f} ms")
+    _check(sum(hits[1:]) > 0, f"eager burst: no cache hit: {hits}")
+    _check(ops <= 3 * EAGER_BURST, f"eager burst: {ops} responses")
+    return {"latency_ms": lat, "burst_ms": times, "library_ms": lib_ms,
+            "cache_hits": hits, "responses": ops}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _eager_nccl_worker(rank: int, port: int, results) -> None:
+    try:
+        os.environ.update({
+            "HOROVOD_TPU_SIZE": "4", "HOROVOD_TPU_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_SIZE": "1",
+            "HOROVOD_TPU_COORD_ADDR": f"127.0.0.1:{port + 1}"})
+        os.environ.pop("HOROVOD_TPU_LOCAL_RANK", None)
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        out = {"local_rank": hvd.local_rank(), "device": dev.index}
+        ctrl = hvd.controller()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20 + rank)
+        # Allreduce, fused: each fused response against dist.all_reduce of
+        # the same concatenated buffer, bit for bit.
+        xs = {f"nc.{i}": torch.randn(1000 + 37 * i, generator=gen,
+                                     device=dev) for i in range(6)}
+        xs["nc.bf16"] = torch.randn(333, generator=gen,
+                                    device=dev).bfloat16()
+        xs["nc.int64"] = torch.randint(-1000, 1000, (77,), generator=gen,
+                                       device=dev)
+        hs = {n: hvd.allreduce_async(x, average=False, name=n)
+              for n, x in xs.items()}
+        got = {n: hvd.synchronize(h) for n, h in hs.items()}
+        same = True
+        for names in ctrl._executor.recent_fusions:
+            buf = torch.cat([xs[n].reshape(-1) for n in names])
+            dist.all_reduce(buf)
+            off = 0
+            for n in names:
+                k = xs[n].numel()
+                same &= _bits_equal(got[n], buf[off:off + k])
+                off += k
+        out["fusions"] = [len(f) for f in ctrl._executor.recent_fusions]
+        out["allreduce_same"] = same
+        avg = hvd.allreduce(torch.full((5,), rank + 1, device=dev,
+                                       dtype=torch.int64), name="nc.avg")
+        out["int_avg"] = avg.tolist()
+        # Ragged allgather and broadcast.
+        g = hvd.allgather(torch.full((rank + 1, 3), float(rank), device=dev),
+                          name="nc.gather")
+        out["gather"] = g[:, 0].tolist()
+        b = hvd.broadcast(torch.full((4,), float(rank), device=dev), 2,
+                          name="nc.bcast")
+        out["bcast"] = b.tolist()
+        # The coordinated mismatch error, on every rank.
+        bad = torch.zeros(2, device=dev,
+                          dtype=torch.int32 if rank == 0 else torch.float32)
+        try:
+            hvd.allreduce(bad, name="nc.bad")
+            out["mismatch"] = None
+        except hvd.CollectiveError as e:
+            out["mismatch"] = str(e)
+        out["latency_ms"] = _eager_latency_ms(hvd, dev)
+        out["small"] = _eager_small_bursts(hvd, dev, rank, 4)
+        bursts = [_eager_burst(hvd, dev, "nc.burst") for _ in range(3)]
+        out["burst_ms"] = [b[2] for b in bursts]
+        out["cache_hits"] = [b[3] for b in bursts]
+        out["enqueue_ms"] = [b[4] for b in bursts]
+        out["enqueue_ticks"] = [b[5] for b in bursts]
+        xs_b, outs_b = bursts[-1][0], bursts[-1][1]
+        buf = torch.cat(xs_b)
+        ref = buf.clone()
+        dist.all_reduce(ref)
+        out["burst_same"] = _bits_equal(torch.cat(outs_b), ref)
+        out["library_ms"] = _library_allreduce_ms(buf)
+        torch.cuda.synchronize()
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def phase_eager_nccl():
+    """The eager plane on four cards, one process each, launched without
+    HOROVOD_TPU_LOCAL_RANK: host discovery must give four distinct GPUs.
+    Each fused allreduce (f32, bf16, int64) equals dist.all_reduce of the
+    same fused buffer bit for bit; the integer average floor-divides; a
+    ragged allgather and a broadcast from rank 2 are exact; a dtype
+    mismatch raises the coordinator's error on every rank; then the 4 KiB
+    latency; the reference's cache burst (16 x 8 floats, 31 times) must
+    get cache hits; then the 64 x 1 MiB burst beside one dist.all_reduce
+    of the same 64 MiB, with the native cache's hits a burst, the host
+    time of its 64 enqueues and the ticks they spanned (hits printed, not
+    required: a name is given a cache slot only in a tick that carries
+    every rank's request for it, and enqueues that span ticks from
+    start times that differ across processes split the burst
+    differently; the coordinator then negotiates in full, as the
+    reference's does)."""
+    if torch.cuda.device_count() < 4:
+        print("eager nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    got = _spawn(_eager_nccl_worker, 4)
+    _check(all(isinstance(got.get(r), dict) for r in range(4)),
+           f"eager nccl failed: {got}")
+    for r in range(4):
+        o = got[r]
+        print(f"eager nccl rank {r}: local_rank {o['local_rank']} on "
+              f"cuda:{o['device']}, fusions {o['fusions']}, allreduce vs "
+              f"dist.all_reduce bit-identical {o['allreduce_same']}, burst "
+              f"{o['burst_same']}; 4 KiB allreduce {o['latency_ms']:.3f} ms;"
+              f" burst {[round(t, 3) for t in o['burst_ms']]} ms, cache hits "
+              f"{o['cache_hits']}, its enqueues "
+              f"{[round(t, 3) for t in o['enqueue_ms']]} ms over "
+              f"{o['enqueue_ticks']} ticks; dist.all_reduce of 64 MiB "
+              f"{o['library_ms']:.3f} ms; reference cache burst: "
+              f"{o['small']}")
+        _check(o["small"]["hits"] > 0,
+               f"rank {r}: the cache burst got no cache hit: {o['small']}")
+        _check(o["allreduce_same"] and o["burst_same"],
+               f"rank {r}: eager allreduce differs from dist.all_reduce")
+        _check(o["int_avg"] == [(1 + 2 + 3 + 4) // 4] * 5,
+               f"rank {r}: integer average {o['int_avg']}")
+        _check(o["gather"] == [float(q) for q in range(4)
+                               for _ in range(q + 1)],
+               f"rank {r}: allgather {o['gather']}")
+        _check(o["bcast"] == [2.0] * 4, f"rank {r}: broadcast {o['bcast']}")
+        _check(o["mismatch"] == got[0]["mismatch"] and o["mismatch"]
+               and o["mismatch"].startswith("Mismatched data types"),
+               f"rank {r}: mismatch error {o['mismatch']!r}")
+    devices = sorted(got[r]["device"] for r in range(4))
+    _check(devices == [0, 1, 2, 3] and all(
+        got[r]["local_rank"] == got[r]["device"] for r in range(4)),
+        f"eager nccl: ranks share GPUs: {devices}")
+    return got
+
+
 def _spawn(target, n: int) -> dict:
     """Run ``target(rank, port, results)`` in ``n`` spawned processes;
     {rank: result}, or an "exit"/"timeout" entry when a worker fails or
     300 s pass without every result."""
     import queue
-    import socket
     import torch.multiprocessing as mp
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=target, args=(r, port, results))
@@ -1715,10 +2085,11 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _profile_step(step, batch, category=None) -> None:
+def _profile_step(step, batch, category=None):
     """One more step under torch.profiler: device time by kernel and
     category (``_category`` unless given), and the device's busy share of
-    the (profiled) step."""
+    the (profiled) step.  Returns (wall ms, kernel ms), None when the
+    profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     category = category or _category
     with profile(activities=[ProfilerActivity.CPU,
@@ -1734,7 +2105,7 @@ def _profile_step(step, batch, category=None) -> None:
     busy = sum(ms for _, ms, _ in kernels)
     if not kernels:
         print("profile: the profiler recorded no device time")
-        return
+        return None
     print(f"profile: one step {wall_ms:.1f} ms wall under the profiler, "
           f"{busy:.1f} ms of kernels, device busy "
           f"{busy / wall_ms:.3f}")
@@ -1745,6 +2116,7 @@ def _profile_step(step, batch, category=None) -> None:
         print(f"  {cat}: {ms:.2f} ms ({ms / busy:.3f} of kernel time)")
     for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]:
         print(f"  top: {ms:8.2f} ms x{n:<4d} {name[:90]}")
+    return wall_ms, busy
 
 
 # Every TPU kernel of the JAX package (each function that reaches
@@ -1771,6 +2143,7 @@ SOURCES = {
     "int8_quantize": "horovod_tpu_torch/csrc/int8_codec.cu",
     "int8_dequantize": "horovod_tpu_torch/csrc/int8_codec.cu",
     "general": "horovod_tpu_torch/csrc/flash_general.cu",
+    "wide": "horovod_tpu_torch/csrc/flash_wide.cu",
 }
 SDPA_BWD = "scaled_dot_product_attention backward (dq, dk and dv)"
 
@@ -1785,6 +2158,7 @@ def main() -> None:
     k = phase_kernels()
     phase_fused_kernel(k)
     general = phase_general()
+    wide = phase_wide()
     f32_launches = phase_models_f32()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1809,6 +2183,8 @@ def main() -> None:
     phase_resnet_cpu()
     phase_resnet()
     phase_hierarchical_nccl()
+    phase_eager()
+    phase_eager_nccl()
     t, e = k["times"], k["errs"]
     flash = {
         "flash_fwd": (t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],
@@ -1858,6 +2234,27 @@ def main() -> None:
             gt[plain_key], flops, nbytes, lib, call, usage[name],
             peak_flops=PEAK_TF32_FLOPS / 3),   # three TF32 products a term
             bound_ffma_ms=general["bounds"][name]["ffma"]))
+    # The wide route: the same TPU kernels at head sizes above 256, timed
+    # in f32 at WIDE_CASE, launched by the f32 model at D 384.
+    wt, we = wide["times"], wide["errs"]
+    for name, rep, plain_key, err, lib, call in (
+            ("flash_fwd_wide", "horovod_tpu/ops/flash_attention.py:255",
+             "fwd_plain", we["o_abs"], wt["sdpa_fwd"],
+             "scaled_dot_product_attention forward, f32"),
+            ("flash_bwd_dkdv_wide", "horovod_tpu/ops/flash_attention.py:675",
+             "dkdv_plain", we["grad_abs"], wt["sdpa_bwd"],
+             SDPA_BWD + ", f32"),
+            ("flash_bwd_dq_wide", "horovod_tpu/ops/flash_attention.py:730",
+             "dq_plain", we["grad_abs"], wt["sdpa_bwd"],
+             SDPA_BWD + ", f32")):
+        flops, nbytes = wide["work"][name]
+        # f32 attention's least time is on the tensor cores at three TF32
+        # products a term, as for G1-G3; the FFMA time W1-W3 take beside it.
+        rows.append(dict(_kernel_row(
+            name, rep, SOURCES["wide"], f32_launches[name], err, wt[name],
+            wt[plain_key], flops, nbytes, lib, call, usage[name],
+            peak_flops=PEAK_TF32_FLOPS / 3),
+            bound_ffma_ms=flops / PEAK_F32_FLOPS * 1e3))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,25 @@
 """Process-global framework state: init / shutdown / rank queries.
 
-Port of ``horovod_tpu/basics.py:23-160``: every query raises before
+Port of ``horovod_tpu/basics.py:23-254``: every query raises before
 ``init()``, ``init()`` is idempotent, and ``shutdown()`` is registered with
 ``atexit``.  With more than one rank, ``init()`` creates the
 ``torch.distributed`` world group (NCCL on ``cuda``, gloo on ``cpu``) that
-the gradient reduction runs over; on ``cuda`` it also selects the GPU of
-this process's local rank.  ``hierarchical_mesh`` (:175) and
-``get_topology`` (:185) follow the reference.  The negotiated eager plane
-and its native controller are not ported yet.
+the gradient reduction runs over.  It then builds the background
+controller of the eager plane (:class:`horovod_tpu_torch.core.Controller`,
+``basics.py:58-150``), whose host discovery gives ``local_rank`` when the
+launcher does not set ``HOROVOD_TPU_LOCAL_RANK``; only then does it pick
+this process's GPU (``cuda:local_rank``) and start the controller.
+``shutdown()`` stops the controller first.  ``hierarchical_mesh`` (:175),
+``get_topology`` (:185), ``controller`` (:194), ``metrics`` (:198),
+``wire_dtype`` (:209), ``mpi_threads_supported`` (:219),
+``process_index`` (:154) and ``process_count`` (:158) follow the
+reference.
 """
 
 from __future__ import annotations
 
 import atexit
+import dataclasses
 import threading
 from typing import Optional
 
@@ -36,6 +43,7 @@ class _GlobalState:
         self.initialized = False
         self.topology: Optional[_topology_mod.Topology] = None
         self.device: Optional[torch.device] = None
+        self.controller = None          # horovod_tpu_torch.core.Controller
         self.atexit_registered = False
 
 
@@ -55,7 +63,10 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
     world group; ``"cpu"`` a gloo group.  ``init_method``: rendezvous of the
     world group when the job has more than one rank, e.g.
     ``"tcp://host:port"``; default ``"env://"`` (``MASTER_ADDR`` and
-    ``MASTER_PORT``).
+    ``MASTER_PORT``).  The eager collectives of a job of several ranks also
+    need ``HOROVOD_TPU_COORD_ADDR=<host>:<port>`` (the native control
+    plane's coordinator); without it they raise and the in-step path works
+    as before.
     """
     with _state.lock:
         if _state.initialized:
@@ -69,17 +80,40 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got "
                              f"{device!r}")
-        if kind == "cuda":
-            torch.cuda.set_device(topo.local_rank)
-            _state.device = torch.device("cuda", topo.local_rank)
-        else:
-            _state.device = torch.device("cpu")
         if topo.size > 1:
             dist.init_process_group(
                 backend="nccl" if kind == "cuda" else "gloo",
                 init_method=init_method or "env://",
                 world_size=topo.size, rank=topo.rank)
+        from horovod_tpu_torch import core as _core_mod
+        controller = None
+        try:
+            controller = _core_mod.Controller(topo, kind)
+            # The controller's host discovery found which processes share
+            # this host (reference: the shared-memory comm split,
+            # operations.cc:1499-1509); an explicit HOROVOD_TPU_LOCAL_RANK
+            # wins.
+            if (controller.host_local_rank is not None
+                    and not _topology_mod.local_rank_is_explicit()):
+                topo = dataclasses.replace(
+                    topo, local_rank=controller.host_local_rank)
+            device = torch.device("cpu")
+            if kind == "cuda":
+                torch.cuda.set_device(topo.local_rank)
+                device = torch.device("cuda", topo.local_rank)
+            controller.bind_device(device)
+            controller.start()
+        except BaseException:
+            if controller is not None:
+                controller.stop()
+            if topo.size > 1:
+                dist.destroy_process_group()
+            raise
+        from horovod_tpu_torch import metrics as _metrics_mod
+        _metrics_mod.start_exporters(topo.rank)
         _state.topology = topo
+        _state.device = device
+        _state.controller = controller
         if not _state.atexit_registered:
             atexit.register(shutdown)
             _state.atexit_registered = True
@@ -87,17 +121,24 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
 
 
 def shutdown() -> None:
-    """Shut the framework down (idempotent; registered with atexit)."""
+    """Shut the framework down (idempotent; registered with atexit): the
+    controller first, then the metrics exporters and the world group."""
     with _state.lock:
         if not _state.initialized:
             return
         try:
-            if _state.topology.size > 1:
-                dist.destroy_process_group()
+            _state.controller.stop()
         finally:
-            _state.topology = None
-            _state.device = None
-            _state.initialized = False
+            from horovod_tpu_torch import metrics as _metrics_mod
+            _metrics_mod.stop_exporters()
+            try:
+                if _state.topology.size > 1:
+                    dist.destroy_process_group()
+            finally:
+                _state.controller = None
+                _state.topology = None
+                _state.device = None
+                _state.initialized = False
 
 
 def is_initialized() -> bool:
@@ -124,9 +165,51 @@ def local_rank() -> int:
     return _require_init().topology.local_rank
 
 
+def process_index() -> int:
+    """Index of this process (its rank: one rank per process)."""
+    return _require_init().topology.process_index
+
+
+def process_count() -> int:
+    """Number of processes (the size: one rank per process)."""
+    return _require_init().topology.process_count
+
+
 def get_topology() -> _topology_mod.Topology:
     """The resolved job topology snapshot."""
     return _require_init().topology
+
+
+def controller():
+    """The background controller of the eager plane."""
+    return _require_init().controller
+
+
+def metrics() -> dict:
+    """One merged metrics snapshot: the native core's registry (ring bytes
+    per wire dtype, tick/gather/negotiation latency, aborts, stalls) plus
+    the controller-side series (enqueues/ops by type, handle wait time,
+    fusion-buffer utilization, response-cache hits), as ``{"counters",
+    "gauges", "histograms", "ts", "rank"}``.  Works before init too."""
+    from horovod_tpu_torch import metrics as _metrics_mod
+    return _metrics_mod.snapshot()
+
+
+def wire_dtype() -> str:
+    """Effective process-wide default for the host ring's wire compression
+    (``HOROVOD_TPU_WIRE_DTYPE``): "" = raw fp32, or "bf16"/"fp16"/"int8".
+    Per-call ``allreduce(..., compression=...)`` overrides it; all ranks
+    must agree per tensor or negotiation raises a coordinated error."""
+    from horovod_tpu_torch.core import default_wire_dtype
+    return default_wire_dtype()
+
+
+def mpi_threads_supported() -> bool:
+    """Parity shim for ``hvd.mpi_threads_supported()`` (reference
+    ``horovod/common/__init__.py:140-154``): there is no MPI; the control
+    plane is thread-safe, so this reports True once initialized."""
+    _require_init()
+    return True
 
 
 def hierarchical_mesh(ici_size: Optional[int] = None):

@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
     "flash_bwd_fused": 0, "flash_fwd_general": 0,
     "flash_bwd_dkdv_general": 0, "flash_bwd_dq_general": 0,
+    "flash_fwd_wide": 0, "flash_bwd_dkdv_wide": 0, "flash_bwd_dq_wide": 0,
     "int8_quantize": 0, "int8_dequantize": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -50,6 +51,8 @@ _VIEW = (_P, _I64, _I64)          # pointer, batch stride, row stride
 _PLAN_TAIL = (_I,) * 6 + (_F, _I, _I, _P)
 # B, H, T, D, seq_len, causal, scale, copy bytes, smem bytes, stream
 _GEN_TAIL = (_I,) * 6 + (_F, _I, _I, _P)
+# B, H, T, D, seq_len, causal, scale, smem bytes, stream
+_WIDE_TAIL = (_I,) * 6 + (_F, _I, _P)
 _ARGTYPES = {
     "htt_flash_fwd": _VIEW * 4 + (_P,) + _PLAN_TAIL,
     "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _PLAN_TAIL,
@@ -61,6 +64,11 @@ _ARGTYPES = {
     + _GEN_TAIL,
     "htt_flash_bwd_dq_general": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW
     + _GEN_TAIL,
+    "htt_flash_fwd_wide": (_I,) + _VIEW * 4 + (_P,) + _WIDE_TAIL,
+    "htt_flash_bwd_dkdv_wide": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW * 2
+    + _WIDE_TAIL,
+    "htt_flash_bwd_dq_wide": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW
+    + _WIDE_TAIL,
     "htt_int8_quantize": (_P, _P, _P, _I64, _P),
     "htt_int8_dequantize": (_P, _P, _P, _I64, _P),
 }
@@ -162,6 +170,25 @@ def kernel_strides_ok(strides, data_ptr: int) -> bool:
 # points.
 _GEN_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 GENERAL_MAX_D = 256
+# Shared memory a block may have on an H100, static and dynamic together.
+SMEM_LIMIT = 232_448
+# The wide route (W1-W3, csrc/flash_wide.cu) holds up to four rows of D
+# floats in dynamic shared memory (W2: k, v and the dk, dv accumulators)
+# beside at most two static tiles of 32 floats (W1: a step's scores and
+# probabilities; W2: its probabilities and ds): the largest head size
+# that memory holds.
+WIDE_STATIC_SMEM = 2 * 32 * 4
+WIDE_MAX_D = (SMEM_LIMIT - WIDE_STATIC_SMEM) // 16
+
+
+def wide_smem_bytes(kernel: str, D: int) -> int:
+    """Dynamic shared memory of W1 (``"flash_fwd_wide"``: q and o), W2
+    (``"flash_bwd_dkdv_wide"``: k, v, dk and dv) or W3
+    (``"flash_bwd_dq_wide"``: q, dO and dq) at head size D: D floats a
+    row."""
+    rows = {"flash_fwd_wide": 2, "flash_bwd_dkdv_wide": 4,
+            "flash_bwd_dq_wide": 3}[kernel]
+    return 4 * rows * D
 
 
 def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
@@ -173,18 +200,23 @@ def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
     strides.  ``"general"`` (G1-G3, ``csrc/flash_general.cu``: TF32
     ``mma.sync``, three products a term for f32): float32 and float16 at
     any head size up to 256, and bfloat16 at the other head sizes up to
-    256, with a unit column stride.  A rule on the input, fixed in
-    advance: anything else raises ``ValueError`` naming the limit, and
-    nothing falls back from one family to the other."""
+    256, with a unit column stride.  ``"wide"`` (W1-W3,
+    ``csrc/flash_wide.cu``: FFMA, one row a block): every dtype at a head
+    size from 257 to :data:`WIDE_MAX_D`, with a unit column stride.  A
+    rule on the input, fixed in advance: anything else raises
+    ``ValueError`` naming the limit, and nothing falls back from one
+    family to another."""
     if dtype not in _GEN_DTYPES:
         raise ValueError(f"the flash kernels take float32, float16 or "
                          f"bfloat16, got {dtype}")
-    if not 1 <= D <= GENERAL_MAX_D:
+    if not 1 <= D <= WIDE_MAX_D:
         raise ValueError(f"the flash kernels take a head size from 1 to "
-                         f"{GENERAL_MAX_D}, got D={D}")
+                         f"{WIDE_MAX_D}, got D={D}")
     if strides[-1] != 1:
         raise ValueError(f"the flash kernels need a unit column stride; "
                          f"got strides {tuple(strides)}")
+    if D > GENERAL_MAX_D:
+        return "wide"
     if dtype == torch.bfloat16 and D % 16 == 0 and 16 <= D <= 128:
         if not kernel_strides_ok(strides, data_ptr):
             raise ValueError(
@@ -232,9 +264,9 @@ def _geometry(q: torch.Tensor, num_heads: int, seq_len: Optional[int]):
     if H < 1 or C % H:
         raise ValueError(f"width {C} is not a multiple of num_heads={H}")
     D = C // H
-    if not 1 <= D <= GENERAL_MAX_D:
+    if not 1 <= D <= WIDE_MAX_D:
         raise ValueError(f"the flash kernels take a head size from 1 to "
-                         f"{GENERAL_MAX_D}, got D={D}")
+                         f"{WIDE_MAX_D}, got D={D}")
     lim = T if seq_len is None else int(seq_len)
     if not 0 < lim <= T:
         raise ValueError(f"seq_len {seq_len} out of range for T={T}")
@@ -244,7 +276,6 @@ def _geometry(q: torch.Tensor, num_heads: int, seq_len: Optional[int]):
 # The launch plan of the Hopper kernels P1 (csrc/flash_fwd.cu), P2
 # (csrc/flash_bwd_dkdv.cu), P3 (csrc/flash_bwd_dq.cu) and P6
 # (csrc/flash_bwd_fused.cu); their C entry points check it.
-SMEM_LIMIT = 232_448     # dynamic shared memory a block may use on an H100
 _BLOCK_COLS = 64         # bf16 columns of one 128-byte swizzled TMA box
 _STAGES = 2              # buffers in the ring of streamed tiles
 
@@ -458,6 +489,9 @@ def flash_fwd(q, k, v, num_heads: int, *, scale: float, causal: bool,
         plan = flash_plan("flash_fwd", B, H, T, D)
         _launch("flash_fwd", "flash_fwd", dev, *args, *out, *tail,
                 plan.stages, plan.smem_bytes)
+    elif family == "wide":
+        _launch("flash_fwd_wide", "flash_wide", dev, _GEN_DTYPES[q.dtype],
+                *args, *out, *tail, wide_smem_bytes("flash_fwd_wide", D))
     else:
         plan = general_plan("flash_fwd_general", B, H, T, D, q.dtype,
                             _strides_and_ptrs(q, k, v))
@@ -482,8 +516,15 @@ def _strides_and_ptrs(*xs):
 
 def _general_bwd(name, geo, args, outs, causal, scale, ins) -> None:
     """Launch G2 (``"flash_bwd_dkdv_general"``) or G3
-    (``"flash_bwd_dq_general"``); ``ins``: q, k, v, dO."""
-    B, T, C, H, D, lim, dev, _ = geo
+    (``"flash_bwd_dq_general"``), or W2/W3 for the wide route; ``ins``: q,
+    k, v, dO."""
+    B, T, C, H, D, lim, dev, family = geo
+    if family == "wide":
+        name = name.replace("_general", "_wide")
+        _launch(name, "flash_wide", dev, _GEN_DTYPES[ins[0].dtype], *args,
+                *outs, B, H, T, D, lim, int(bool(causal)), float(scale),
+                wide_smem_bytes(name, D))
+        return
     plan = general_plan(name, B, H, T, D, ins[0].dtype,
                         _strides_and_ptrs(*ins))
     _launch(name, "flash_general", dev, _GEN_DTYPES[ins[0].dtype], *args,
@@ -503,7 +544,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, num_heads: int, *,
     dk, dv = _new(q, dk, (B, T, C)), _new(q, dv, (B, T, C))
     outs = [*_view(dk, "dk", (B, T, C), dev, q.dtype, D),
             *_view(dv, "dv", (B, T, C), dev, q.dtype, D)]
-    if family == "general":
+    if family != "hopper":
         _general_bwd("flash_bwd_dkdv_general", geo, args, outs, causal,
                      scale, (q, k, v, do))
         return dk, dv
@@ -523,7 +564,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, num_heads: int, *, scale: float,
     B, T, C, H, D, lim, dev, family = geo
     dq = _new(q, dq, (B, T, C))
     outs = list(_view(dq, "dq", (B, T, C), dev, q.dtype, D))
-    if family == "general":
+    if family != "hopper":
         _general_bwd("flash_bwd_dq_general", geo, args, outs, causal, scale,
                      (q, k, v, do))
         return dq
@@ -549,7 +590,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, num_heads: int, *,
     dq, dk, dv = (_new(q, x, (B, T, C)) for x in (dq, dk, dv))
     outs = {n: list(_view(x, n, (B, T, C), dev, q.dtype, D))
             for n, x in (("dq", dq), ("dk", dk), ("dv", dv))}
-    if family == "general":
+    if family != "hopper":
         _general_bwd("flash_bwd_dkdv_general", geo, args,
                      outs["dk"] + outs["dv"], causal, scale, (q, k, v, do))
         _general_bwd("flash_bwd_dq_general", geo, args, outs["dq"], causal,

@@ -22,9 +22,12 @@ multiple of 16 up to 128):
 The general family G1-G3 (``csrc/flash_general.cu``: TF32 ``mma.sync``,
 three products a term for float32) computes what P1, P2 and P3 compute for everything else
 the JAX package runs: float32 and float16 at any head size up to 256,
-bfloat16 at the other head sizes up to 256.  ``_cuda.flash_family`` picks
-the family from the dtype and the head size; each wrapper of :mod:`._cuda`
-obeys it, and the one-pass wrapper runs G2 + G3 for the general family.
+bfloat16 at the other head sizes up to 256.  Its wide route W1-W3
+(``csrc/flash_wide.cu``: FFMA, one row a block) takes every dtype at head
+sizes above 256, up to what shared memory holds (``_cuda.WIDE_MAX_D``).
+``_cuda.flash_family`` picks the family from the dtype and the head size;
+each wrapper of :mod:`._cuda` obeys it, and the one-pass wrapper runs
+G2 + G3 (W2 + W3) for the general family.
 
 Which backward runs is :func:`_bwd_form`'s choice, made at backward time
 with the JAX package's conditions: the split pair P2 + P3, the one-pass

@@ -27,7 +27,8 @@ def allreduce(x: torch.Tensor, *, average: bool = True,
               op: Optional[str] = None, group=None) -> torch.Tensor:
     """Sum (or average/min/max) ``x`` across the ranks of ``group``; every
     rank gets the result in a new tensor.  The average is the sum divided
-    by the group size, as ``lax.pmean`` computes it."""
+    by the group size, as ``lax.pmean`` computes it: the float mean, also
+    for an integer ``x`` (int32 [3, 4] over 2 ranks gives float32 3.5)."""
     if op is None:
         op = AVERAGE if average else SUM
     if op not in _OPS:
@@ -35,7 +36,10 @@ def allreduce(x: torch.Tensor, *, average: bool = True,
     out = x.clone()
     dist.all_reduce(out, op=_OPS[op], group=group)
     if op == AVERAGE:
-        out.div_(dist.get_world_size(group))
+        n = dist.get_world_size(group)
+        if not out.is_floating_point():
+            return out / n
+        out.div_(n)
     return out
 
 

@@ -1,9 +1,11 @@
 """Bucket plan and issue order of the gradient collectives.
 
 Port of ``horovod_tpu/scheduler.py:40-128`` in pure Python:
-``overlap_enabled``, ``bucket_bytes_from_env``, ``pack_buckets`` and
+``overlap_enabled``, ``bucket_bytes_from_env``, ``resolve_algo``,
+``plan_tick`` (the eager plane's per-tick policy), ``pack_buckets`` and
 ``issue_order``.  The bucket plan is byte-for-byte the JAX package's.  The
-native planner and the eager plane's per-tick policy are not ported yet.
+bucket planners (``PyBucketPlanner``, the native one) are not ported
+yet.
 
 Knobs (shared with the JAX package):
 
@@ -41,6 +43,36 @@ def bucket_bytes_from_env(override: Optional[int] = None) -> int:
         return v if v > 0 else DEFAULT_BUCKET_BYTES
     except ValueError:
         return DEFAULT_BUCKET_BYTES
+
+
+def resolve_algo(pref: str, nbytes: int, num_hosts: int = 1,
+                 num_procs: int = 1,
+                 crossover_bytes: Optional[int] = None) -> str:
+    """Map an algorithm preference to the data-plane algorithm ("" = flat
+    ring).  Mirrors ``htpu::ResolveAlgo`` exactly; parity is tested."""
+    from horovod_tpu_torch.core import DEFAULT_ALGO_CROSSOVER_BYTES
+    if crossover_bytes is None:
+        crossover_bytes = DEFAULT_ALGO_CROSSOVER_BYTES
+    if pref in ("", "ring"):
+        return ""
+    if pref != "auto":
+        return pref
+    if nbytes <= crossover_bytes:
+        return "small"
+    if 1 < num_hosts < num_procs:
+        return "hier"
+    return ""
+
+
+def plan_tick(responses, entry_bytes, entry_dtype, threshold):
+    """Full per-tick policy: fusion plus first-ready-first-issued order.
+
+    The input arrives in negotiation-readiness order and fusion's stable
+    left-to-right merge preserves it, so the returned list IS the issue
+    schedule -- the response cache stores and replays it verbatim.
+    """
+    from horovod_tpu_torch.core import plan_fusion
+    return plan_fusion(responses, entry_bytes, entry_dtype, threshold)
 
 
 def pack_buckets(sizes: Sequence[int], dtypes: Sequence[str],

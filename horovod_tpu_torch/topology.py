@@ -6,8 +6,10 @@ same launcher variables (``topology.py:87,318-325``) and otherwise asks the
 JAX runtime for its devices; the port has no such runtime, so without the
 variables the job is one rank.  ``host_fingerprint`` (:115) and
 ``derive_host_groups`` (:159) are the reference's, verbatim: they feed the
-intra-host and cross-host groups of :mod:`.parallel.mesh`.  Rank subsets
-are not ported yet.
+intra-host and cross-host groups of :mod:`.parallel.mesh` and the
+controller's host discovery, which sets ``local_rank`` when
+``HOROVOD_TPU_LOCAL_RANK`` is unset (:func:`local_rank_is_explicit`).
+Rank subsets are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +35,20 @@ class Topology:
     local_rank: int
     local_size: int
 
+    # One rank per process: the reference's process queries
+    # (``horovod_tpu/topology.py``) are the rank queries.
+    @property
+    def process_index(self) -> int:
+        return self.rank
+
+    @property
+    def process_count(self) -> int:
+        return self.size
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self.rank == 0
+
 
 def _env_int(name: str, default: int) -> int:
     raw = os.environ.get(name)
@@ -44,10 +60,18 @@ def _env_int(name: str, default: int) -> int:
         raise ValueError(f"{name}={raw!r} is not an integer") from None
 
 
+def local_rank_is_explicit() -> bool:
+    """Whether the launcher set ``HOROVOD_TPU_LOCAL_RANK``; without it the
+    controller discovers the index among the host's processes, as the
+    reference does (``horovod_tpu/topology.py:75-92``)."""
+    return os.environ.get("HOROVOD_TPU_LOCAL_RANK", "") != ""
+
+
 def resolve() -> Topology:
     """Read ``HOROVOD_TPU_SIZE``, ``HOROVOD_TPU_RANK``,
     ``HOROVOD_TPU_LOCAL_RANK`` and ``HOROVOD_TPU_LOCAL_SIZE``; without them
-    the job is a single rank."""
+    the job is a single rank.  ``local_rank`` is 0 until ``init()`` folds
+    in the discovered one, unless the variable sets it."""
     size = _env_int("HOROVOD_TPU_SIZE", 1)
     rank = _env_int("HOROVOD_TPU_RANK", 0)
     local_rank = _env_int("HOROVOD_TPU_LOCAL_RANK", 0)

@@ -475,10 +475,12 @@ def test_general_wrappers_refuse_cpu_tensors(name, dtype, D_):
 
 @pytest.mark.parametrize("D_,causal,seq_len", [(8, True, None),
                                                (8, False, 50),
-                                               (200, True, 40)])
+                                               (200, True, 40),
+                                               (300, True, 40)])
 def test_general_head_sizes_match_jax(D_, causal, seq_len):
-    """Head sizes the Hopper kernels do not take (8, 200): the plain
-    versions, which the general family G1-G3 computes on the card, against
+    """Head sizes the Hopper kernels do not take (8, 200; 300 on the wide
+    route): the plain versions, which the general family G1-G3 (W1-W3)
+    computes on the card, against
     the JAX kernels in interpret mode, forward and gradients."""
     rng = _rng(11)
     Tg = 64

@@ -326,10 +326,19 @@ def test_flash_family_follows_dtype_and_head_size(dtype, D, want):
     assert _cuda.flash_family(dtype, D, x.stride(), x.data_ptr()) == want
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 257),
+                                     (torch.bfloat16, 257)])
+def test_flash_family_takes_head_sizes_over_256_on_the_wide_route(dtype, D):
+    """D 257 (which raised before the wide route) takes W1-W3, in every
+    dtype, whatever the strides the general family takes."""
+    strides = (24 * 2 * D, 2 * D, 1)
+    assert _cuda.flash_family(dtype, D, strides, 0) == "wide"
+
+
 @pytest.mark.parametrize("dtype,D,strides,ptr,match", [
-    (torch.float32, 257, (24 * 514, 514, 1), 0, "from 1 to 256"),
-    (torch.bfloat16, 257, (24 * 514, 514, 1), 0, "from 1 to 256"),
-    (torch.float16, 0, (24, 1, 1), 0, "from 1 to 256"),
+    (torch.float32, _cuda.WIDE_MAX_D + 1, (24 * 2 ** 15, 2 ** 15, 1), 0,
+     f"from 1 to {_cuda.WIDE_MAX_D}"),
+    (torch.float16, 0, (24, 1, 1), 0, f"from 1 to {_cuda.WIDE_MAX_D}"),
     (torch.float32, 8, (48, 16, 2), 0, "unit column stride"),
     (torch.bfloat16, 64, (24 * 129, 129, 1), 0, "multiples of 8"),
     (torch.bfloat16, 64, (24 * 128, 128, 1), 8, "16-byte aligned"),
@@ -363,9 +372,18 @@ def test_tma_strides_are_16_byte_multiples(D):
     assert not _cuda.kernel_strides_ok(odd.stride(), odd.data_ptr())
 
 
+@pytest.mark.parametrize("shape,heads,D", [((1, 64, 771), 3, 257),
+                                            ((1, 64, 600), 2, 300)])
+def test_wrapper_takes_head_sizes_over_256(shape, heads, D):
+    """The geometry checks before a launch take the head sizes that raised
+    before the wide route (D 257 and 300)."""
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    assert _cuda._geometry(q, heads, None)[4] == D
+
+
 @pytest.mark.parametrize("shape,heads,seq_len,match", [
-    ((1, 64, 771), 3, None, "head size from 1 to 256"),
-    ((1, 64, 600), 2, None, "head size from 1 to 256"),
+    ((1, 4, 2 * (_cuda.WIDE_MAX_D + 1)), 2, None,
+     f"head size from 1 to {_cuda.WIDE_MAX_D}"),
     ((1, 64, 100), 3, None, "not a multiple of num_heads"),
     ((1, 64, 128), 2, 65, "out of range"),
     ((1, 64, 128), 2, 0, "out of range"),
@@ -373,7 +391,8 @@ def test_tma_strides_are_16_byte_multiples(D):
 ])
 def test_wrapper_errors_are_unchanged(shape, heads, seq_len, match):
     """The checks before any launch raise as before the Hopper kernels;
-    the head size may now be anything up to 256 (the general family)."""
+    the head size may now be anything up to ``WIDE_MAX_D`` (the general
+    family and its wide route)."""
     q = torch.zeros(shape, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=match):
         _cuda._geometry(q, heads, seq_len)
@@ -398,3 +417,37 @@ def test_ablation_edits_apply_to_the_kernels():
         for old, new in edits:
             assert text.count(old) == 1, (stem, variant, old[:40])
             text = text.replace(old, new)
+
+
+WIDE = ("flash_fwd_wide", "flash_bwd_dkdv_wide", "flash_bwd_dq_wide")
+
+
+@pytest.mark.parametrize("kernel", WIDE)
+def test_wide_route_fits_shared_memory_up_to_its_limit(kernel):
+    """W1-W3 hold their own rows and accumulators, D floats each, in
+    dynamic shared memory beside the static tiles each kernel declares: at
+    ``WIDE_MAX_D`` every one fits an H100 block, static and dynamic bytes
+    together, and one more column does not fit W2.  The rows each holds
+    are the entry point's (``flash_wide.cu`` ``wide_smem_bytes``), and the
+    static bytes are counted from each kernel's ``__shared__`` arrays."""
+    text = (_cuda.CSRC / "flash_wide.cu").read_text()
+    m = re.search(r"const int rows = kernel == 0 \? (\d+) : kernel == 1 \? "
+                  r"(\d+) : (\d+);", text)
+    assert m
+    rows = dict(zip(WIDE, (int(m.group(i)) for i in (1, 2, 3))))
+    tile = int(re.search(r"constexpr int kWideTile = (\d+);", text).group(1))
+    static = {}
+    for name in WIDE:
+        body = text[text.index(f"{name}_kernel(const WideParams<E> p)"):]
+        body = body[:body.index("\n}\n")]
+        decls = re.findall(r"(?<!extern )__shared__ float ([^;]+);", body)
+        arrays = [a for d in decls for a in d.split(",")]
+        assert all(a.strip().endswith("[kWideTile]") for a in arrays)
+        static[name] = 4 * tile * len(arrays)
+    assert max(static.values()) == _cuda.WIDE_STATIC_SMEM
+    for D in (257, 384, 1000, _cuda.WIDE_MAX_D):
+        assert _cuda.wide_smem_bytes(kernel, D) == 4 * rows[kernel] * D
+        assert (_cuda.wide_smem_bytes(kernel, D) + static[kernel]
+                <= _cuda.SMEM_LIMIT)
+    assert (_cuda.wide_smem_bytes("flash_bwd_dkdv_wide", _cuda.WIDE_MAX_D + 1)
+            + static["flash_bwd_dkdv_wide"] > _cuda.SMEM_LIMIT)

@@ -1,8 +1,8 @@
 """The port imports nothing of JAX, and ``chip_smoke.py`` refuses to run
 without a GPU.
 
-Every file of ``horovod_tpu_torch/``, ``chip_smoke.py`` and
-``flash_ablation.py`` is parsed, and
+Every file of ``horovod_tpu_torch/``, ``chip_smoke.py``,
+``flash_ablation.py`` and ``controller_ab.py`` is parsed, and
 any import of ``jax``, ``flax``, ``optax`` or ``horovod_tpu`` (the JAX
 package; ``horovod_tpu_torch`` is the port itself) fails its case.
 """
@@ -19,7 +19,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu"}
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "horovod_tpu_torch").rglob("*.py")) + [
-    "chip_smoke.py", "flash_ablation.py"]
+    "chip_smoke.py", "flash_ablation.py", "controller_ab.py"]
 
 
 def _imported_modules(tree):
@@ -51,11 +51,30 @@ def test_scan_sees_the_whole_package():
     assert "horovod_tpu_torch/ops/flash_attention.py" in FILES
 
 
-def test_scan_flags_a_jax_import():
-    tree = ast.parse("import os\nfrom horovod_tpu.ops import injit\n"
-                     "import importlib\nimportlib.import_module('jax')\n")
-    assert sorted(_imported_modules(tree)) == [
-        "horovod_tpu.ops", "importlib", "jax", "os"]
+EAGER_MODULES = ["cpp_core", "core", "metrics", "timeline", "wire",
+                 "ops/executor", "ops/eager"]
+
+
+@pytest.fixture(scope="module")
+def eager_imports():
+    """The top-level packages loaded by a fresh interpreter that imports
+    every module of the eager plane."""
+    mods = ", ".join("horovod_tpu_torch." + n.replace("/", ".")
+                     for n in EAGER_MODULES)
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, {mods}; "
+         "print(sorted({m.split('.')[0] for m in sys.modules}))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("name", EAGER_MODULES)
+def test_scan_covers_the_eager_plane(name, eager_imports):
+    """The modules of the eager plane are scanned, and import without
+    JAX or the JAX package."""
+    assert f"horovod_tpu_torch/{name}.py" in FILES
+    assert not FORBIDDEN & set(eager_imports)
 
 
 def _run_smoke(cwd):
