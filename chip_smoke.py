@@ -10,7 +10,8 @@ the checkout.  Phases, in order; any failure ends the run:
 1. Device: the card's name and power limit, and the build of the port's
    CUDA kernels from ``horovod_tpu_torch/csrc`` (timed), with ptxas'
    registers and spills for each kernel of the ``kernels`` line and for
-   each of the 24 instantiations of G1-G3 (none may spill).
+   each of the 24 instantiations of G1-G3 and 15 of W1-W2 (none may
+   spill).
 2. Kernels: each Hopper flash kernel (forward P1, dk/dv P2, dq P3) at the
    training shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read
    from one (B, T, 3C) projection) and on four small cases (non-causal
@@ -38,10 +39,14 @@ the checkout.  Phases, in order; any failure ends the run:
    ``scaled_dot_product_attention``, whose kernels are named from the
    profiler (G2 + G3 beside its backward).  Then the wide route W1-W3
    (``flash_wide.cu``, head sizes above 256) against the plain versions
-   in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal; 1e-5) and in
-   bf16 at D 320 with a ragged seq_len; W1-W3 launched twice give the
-   same bits; timed at D 384 beside f32 ``scaled_dot_product_attention``,
-   whose kernels (the backend PyTorch picked) are named.
+   in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal; 1e-5), at
+   ``WIDE_MAX_D`` (T 16), at ``WIDE_FULL_CASE`` (B 4, H 8, T 2048, D
+   384) and in bf16 at D 320 with a ragged seq_len; W1-W3 launched twice
+   give the same bits; timed at D 384 at both ``WIDE_CASE`` and
+   ``WIDE_FULL_CASE`` beside f32 ``scaled_dot_product_attention``, whose
+   kernels (the backend PyTorch picked) are named, with W1's and W2's
+   products against the least and the registers and spills of each of
+   their 15 instantiations.
 5. f32 models: the reference's own checks
    (``tests/test_flash_attention.py``): ``TransformerLM(dim=256,
    num_heads=2, attn="flash", dtype=float32)`` (D 128 through
@@ -206,7 +211,8 @@ TOL_F32_LSE = 1e-4
 # (tests/test_flash_attention.py:274-300, rtol = atol = 1e-4).
 TOL_MODEL = 1e-4
 # The ptxas entry of each kernel of the kernels line (the instantiation
-# the training shape runs: D 128, or f32 at D 128 for the general family).
+# the training shape runs: D 128, or f32 at D 128 for the general family;
+# W1 and W2: f32 at WIDE_FULL_CASE, 192 and 128 columns a warp).
 PTXAS_NAMES = {
     "flash_fwd": "flash_fwd_kernelILi128E",
     "flash_bwd_dkdv": "flash_bwd_dkdv_kernelILi128E",
@@ -217,8 +223,8 @@ PTXAS_NAMES = {
     "flash_fwd_general": "flash_fwd_general_kernelIfLi16EE",
     "flash_bwd_dkdv_general": "flash_bwd_dkdv_general_kernelIfLi16EE",
     "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfLi16EE",
-    "flash_fwd_wide": "flash_fwd_wide_kernelIfE",
-    "flash_bwd_dkdv_wide": "flash_bwd_dkdv_wide_kernelIfE",
+    "flash_fwd_wide": "flash_fwd_wide_kernelIfLi24EE",
+    "flash_bwd_dkdv_wide": "flash_bwd_dkdv_wide_kernelIfLi16EE",
     "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernelIfE",
 }
 
@@ -326,14 +332,17 @@ def phase_device():
         _check(name in usage, f"no ptxas entry for {name}")
         print(f"  {name}: {usage[name]['registers']} registers, "
               f"{usage[name]['spill_bytes']} bytes spilled")
-    # Every instantiation of G1-G3 that general_plan can pick: element
-    # type and the columns of o (G1), dk and dv (G2) or dq (G3) a warp
-    # holds; none may spill.
+    # Every instantiation of G1-G3 that general_plan can pick, and of W1
+    # and W2 that wide_plan can pick: element type and the columns of o
+    # (G1, W1), dk and dv (G2, W2) or dq (G3) a warp holds; none may
+    # spill.  W1's and W2's are printed by the wide phase.
     types = {"f": "f32", "6__half": "fp16", "13__nv_bfloat16": "bf16"}
-    found = 0
+    found = {"general": 0, "wide": 0}
+    usage["wide"] = []
     for i, line in enumerate(lines):
         m = re.search(r"(flash_fwd_general|flash_bwd_dkdv_general|"
-                      r"flash_bwd_dq_general)_kernelI"
+                      r"flash_bwd_dq_general|flash_fwd_wide|"
+                      r"flash_bwd_dkdv_wide)_kernelI"
                       r"(f|6__half|13__nv_bfloat16)Li(\d+)E",
                       line)
         if "Compiling entry function" not in line or not m:
@@ -344,14 +353,20 @@ def phase_device():
                           r"spill loads", text)
         _check(spill is not None, f"no spill line for {m.group(0)}")
         spilled = int(spill.group(1)) + int(spill.group(2))
-        print(f"  {m.group(1)} {types[m.group(2)]} {8 * int(m.group(3))} "
-              f"columns: "
-              f"{regs.group(1) if regs else '?'} registers, {spilled} bytes "
-              f"spilled")
+        label = (f"{m.group(1)} {types[m.group(2)]} "
+                 f"{8 * int(m.group(3))} columns")
+        family = "wide" if m.group(1).endswith("wide") else "general"
+        if family == "wide":
+            usage["wide"].append(
+                (label, regs.group(1) if regs else "?", spilled))
+        else:
+            print(f"  {label}: {regs.group(1) if regs else '?'} registers, "
+                  f"{spilled} bytes spilled")
         _check(spilled == 0, f"{m.group(0)} spills")
-        found += 1
-    _check(found == 24, f"{found} G1-G3 instantiations in ptxas' log, "
-           f"expected 24")
+        found[family] += 1
+    _check(found == {"general": 24, "wide": 15},
+           f"{found} G1-G3 and W1-W2 instantiations in ptxas' log, expected "
+           f"24 and 15")
     return usage
 
 
@@ -619,10 +634,10 @@ def _run_general(c, label, timing=False, one_key=False, family="general"):
     names = GENERAL if family == "general" else WIDE
     _check(_cuda.flash_family(q.dtype, c["D"], q.stride(), q.data_ptr())
            == family, f"{label}: not routed to the {family} family")
-    copy = _cuda.general_plan(
-        "flash_bwd_dkdv_general", c["B"], H, c["T"], c["D"], q.dtype,
-        [(x.stride(), x.data_ptr()) for x in (q, k, v, do)]).copy_bytes \
-        if family == "general" else q.dtype.itemsize
+    plan = _cuda.general_plan if family == "general" else _cuda.wide_plan
+    copy = plan(f"flash_bwd_dkdv_{family}", c["B"], H, c["T"], c["D"],
+                q.dtype, [(x.stride(), x.data_ptr())
+                          for x in (q, k, v, do)]).copy_bytes
     _cuda.reset_launches()
     o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
     o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, H, **kw)
@@ -790,27 +805,47 @@ def phase_general():
     return {"errs": errs, "times": times, "work": work, "bounds": bounds}
 
 
-# The wide route's timing case: head size 384, where G1-G3 cannot stage
-# their tiles.
+# The wide route's timing cases: head size 384, where G1-G3 cannot stage
+# their tiles; WIDE_CASE too small to fill the card (16 row blocks of 64),
+# WIDE_FULL_CASE at a size that does (1024 row blocks; each (B, T, H*D)
+# f32 tensor 100.7 MB).
 WIDE_CASE = dict(B=1, H=2, T=512, D=384, causal=True)
+WIDE_FULL_CASE = dict(B=4, H=8, T=2048, D=384, causal=True)
 
 
-def phase_wide():
+def _wide_work(w) -> dict:
+    """FLOPs (the least: 4 D a visible pair for W1, 8 D for W2, 6 D for
+    W3) and bytes (each input read once, each output written once) of
+    W1-W3 on case ``w`` in f32."""
+    B, H, T, D = w["B"], w["H"], w["T"], w["D"]
+    pairs = B * H * _visible_pairs(T, w["causal"], None)
+    tensor = B * T * H * D * 4
+    rows = B * H * T * 4
+    return {"flash_fwd_wide": (4 * D * pairs, 4 * tensor + rows),
+            "flash_bwd_dkdv_wide": (8 * D * pairs, 6 * tensor + 2 * rows),
+            "flash_bwd_dq_wide": (6 * D * pairs, 5 * tensor + 2 * rows)}
+
+
+def phase_wide(usage):
     """W1-W3 (``flash_wide.cu``, head sizes above 256) against the plain
-    versions in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal),
-    within 1e-5 relative with TF32 off, at the route's largest head size
-    ``WIDE_MAX_D`` (T 16: its shared memory, static and dynamic, must fit
-    a block), plus bf16 at D 320 with a ragged seq_len; launched twice,
-    the same bits; timed at D 384 beside the
-    plain versions and f32 ``scaled_dot_product_attention``, whose kernels
-    (the backend PyTorch picked) are named from the profiler."""
+    versions in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal) and
+    at ``WIDE_FULL_CASE``, within 1e-5 relative with TF32 off, at the
+    route's largest head size ``WIDE_MAX_D`` (T 16), plus bf16 at D 320
+    with a ragged seq_len; launched twice at both timing cases, the same
+    bits; timed at ``WIDE_CASE`` and ``WIDE_FULL_CASE`` beside the plain
+    versions and f32 ``scaled_dot_product_attention``, whose kernels (the
+    backend PyTorch picked) are named from the profiler, with the
+    products W1 and W2 do against the least (``wide_plan``) and the
+    registers and spills of every W1 and W2 instantiation (``usage``)."""
+    from horovod_tpu_torch.ops import _cuda
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     w = WIDE_CASE
     print("wide route W1-W3 vs plain versions (f32: tolerance "
           f"{TOL_F32} rel fro; bf16 {TOL_GRAD}):")
-    from horovod_tpu_torch.ops import _cuda
+    for name, regs, spilled in usage["wide"]:
+        print(f"  {name}: {regs} registers, {spilled} bytes spilled")
     for D in (264, 1000):
         _run_general(_case(w["B"], w["H"], w["T"], D, True, None, gen,
                            torch.float32), f"f32 D={D}", family="wide")
@@ -819,29 +854,38 @@ def phase_wide():
                  family="wide")
     _run_general(_case(2, 3, 200, 320, True, 150, gen, torch.bfloat16),
                  "bf16 D=320 T=200 seq_len=150", family="wide")
-    main = _case(w["B"], w["H"], w["T"], w["D"], True, None, gen,
-                 torch.float32)
-    errs, times = _run_general(main, f"f32 D={w['D']}", timing=True,
-                               family="wide")
-    _check_general_deterministic(main, f"f32 D={w['D']}: W1-W3")
-    B, H, T, D = w["B"], w["H"], w["T"], w["D"]
-    pairs = B * H * _visible_pairs(T, True, None)
-    tensor = B * T * H * D * 4
-    rows = B * H * T * 4
-    work = {"flash_fwd_wide": (4 * D * pairs, 4 * tensor + rows),
-            "flash_bwd_dkdv_wide": (8 * D * pairs, 6 * tensor + 2 * rows),
-            "flash_bwd_dq_wide": (6 * D * pairs, 5 * tensor + 2 * rows)}
-    for name in WIDE:
-        flops, nbytes = work[name]
-        print(f"  f32 D={D}: {name} {times[name]:.3f} ms; bound (3xTF32 "
-              f"at 495/3 TFLOP/s) {3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} "
-              f"ms, FFMA (67 TFLOP/s) {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
-    for key in ("fwd", "bwd"):
-        top = times[f"sdpa_{key}_kernels"]
-        print(f"  f32 D={D}: scaled_dot_product_attention {key} "
-              f"{times['sdpa_' + key]:.3f} ms ran "
-              + "; ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in top[:3]))
-    return {"errs": errs, "times": times, "work": work}
+    out = {}
+    for key, c in (("small", WIDE_CASE), ("full", WIDE_FULL_CASE)):
+        B, H, T, D = c["B"], c["H"], c["T"], c["D"]
+        label = f"f32 B={B} H={H} T={T} D={D}"
+        main = _case(B, H, T, D, True, None, gen, torch.float32)
+        errs, times = _run_general(main, label, timing=True, family="wide")
+        _check_general_deterministic(main, f"{label}: W1-W3")
+        del main
+        work = _wide_work(c)
+        for name in WIDE:
+            flops, _ = work[name]
+            line = (f"  {label}: {name} {times[name]:.4f} ms; bound (3xTF32 "
+                    f"at 495/3 TFLOP/s) "
+                    f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms, FFMA (67 "
+                    f"TFLOP/s) {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
+            if name in ("flash_fwd_wide", "flash_bwd_dkdv_wide"):
+                plan = _cuda.wide_plan(name, B, H, T, D)
+                line += (f"; products {plan.products:.3f}x the least "
+                         f"({plan.n_ochunks} column chunks of "
+                         f"{plan.ocols}, {plan.grid[0] * H * B} blocks)")
+            print(line)
+        for k in ("fwd", "bwd"):
+            top = times[f"sdpa_{k}_kernels"]
+            print(f"  {label}: scaled_dot_product_attention {k} "
+                  f"{times['sdpa_' + k]:.4f} ms ran "
+                  + "; ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in top[:3]))
+        print(f"  {label}: W1 {times['flash_fwd_wide'] / times['sdpa_fwd']:.3f}x"
+              f" the scaled_dot_product_attention forward")
+        out[key] = {"errs": errs, "times": times, "work": work}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_models_f32():
@@ -2158,7 +2202,7 @@ def main() -> None:
     k = phase_kernels()
     phase_fused_kernel(k)
     general = phase_general()
-    wide = phase_wide()
+    wide = phase_wide(usage)
     f32_launches = phase_models_f32()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2235,26 +2279,31 @@ def main() -> None:
             peak_flops=PEAK_TF32_FLOPS / 3),   # three TF32 products a term
             bound_ffma_ms=general["bounds"][name]["ffma"]))
     # The wide route: the same TPU kernels at head sizes above 256, timed
-    # in f32 at WIDE_CASE, launched by the f32 model at D 384.
-    wt, we = wide["times"], wide["errs"]
-    for name, rep, plain_key, err, lib, call in (
+    # in f32 at WIDE_FULL_CASE (and WIDE_CASE beside it), launched by the
+    # f32 model at D 384.
+    wt, we = wide["full"]["times"], wide["full"]["errs"]
+    st = wide["small"]["times"]
+    for name, rep, plain_key, err, lib, call, status in (
             ("flash_fwd_wide", "horovod_tpu/ops/flash_attention.py:255",
-             "fwd_plain", we["o_abs"], wt["sdpa_fwd"],
-             "scaled_dot_product_attention forward, f32"),
+             "fwd_plain", we["o_abs"], "sdpa_fwd",
+             "scaled_dot_product_attention forward, f32",
+             "redesigned PR 12"),
             ("flash_bwd_dkdv_wide", "horovod_tpu/ops/flash_attention.py:675",
-             "dkdv_plain", we["grad_abs"], wt["sdpa_bwd"],
-             SDPA_BWD + ", f32"),
+             "dkdv_plain", we["grad_abs"], "sdpa_bwd", SDPA_BWD + ", f32",
+             "redesigned PR 12"),
             ("flash_bwd_dq_wide", "horovod_tpu/ops/flash_attention.py:730",
-             "dq_plain", we["grad_abs"], wt["sdpa_bwd"],
-             SDPA_BWD + ", f32")):
-        flops, nbytes = wide["work"][name]
+             "dq_plain", we["grad_abs"], "sdpa_bwd", SDPA_BWD + ", f32",
+             "ported PR 11")):
+        flops, nbytes = wide["full"]["work"][name]
         # f32 attention's least time is on the tensor cores at three TF32
-        # products a term, as for G1-G3; the FFMA time W1-W3 take beside it.
+        # products a term, as for G1-G3; the FFMA time beside it.
         rows.append(dict(_kernel_row(
             name, rep, SOURCES["wide"], f32_launches[name], err, wt[name],
-            wt[plain_key], flops, nbytes, lib, call, usage[name],
+            wt[plain_key], flops, nbytes, wt[lib], call, usage[name],
             peak_flops=PEAK_TF32_FLOPS / 3),
-            bound_ffma_ms=flops / PEAK_F32_FLOPS * 1e3))
+            bound_ffma_ms=flops / PEAK_F32_FLOPS * 1e3, status=status,
+            shape="WIDE_FULL_CASE", ms_wide_case=st[name],
+            plain_ms_wide_case=st[plain_key], library_ms_wide_case=st[lib]))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,26 @@
-"""What bounds the Hopper flash kernels P1, P2, P3 and P6, and the general
-family's G1, G2 and G3, on the card: each one timed against variants of
-itself, and the rate of the tensor-core instruction G1-G3 issue.
+"""What bounds the Hopper flash kernels P1, P2, P3 and P6, the general
+family's G1, G2 and G3 and the wide route's W1 and W2, on the card: each
+one timed against variants of itself, and the rate of the tensor-core
+instruction G1-G3, W1 and W2 issue.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
-    python3 flash_ablation.py
+    python3 flash_ablation.py [--parent DIR]
 
 The variants are text edits of the committed sources
 (``horovod_tpu_torch/csrc/flash_fwd.cu``, ``flash_bwd_dkdv.cu``,
-``flash_bwd_dq.cu``, ``flash_bwd_fused.cu`` and ``flash_general.cu``),
-built with the port's ``nvcc`` flags into ``build/flash_ablation/`` and
-timed at the training shape of ``chip_smoke.py`` (B 8, H 16, T 2048, D
-128, causal; bf16 for P1-P6, f32 for G1-G3).  Their outputs are
-wrong by design; only their times count.
+``flash_bwd_dq.cu``, ``flash_bwd_fused.cu``, ``flash_general.cu`` and
+``flash_wide.cu``, with the headers they include: an edit may fall in
+``flash_mma.cuh``), built with the port's ``nvcc`` flags into
+``build/flash_ablation/`` and timed at the training shape of
+``chip_smoke.py`` (B 8, H 16, T 2048, D 128, causal; bf16 for P1-P6, f32
+for G1-G3); W1 and W2 at ``chip_smoke.WIDE_FULL_CASE`` and
+``WIDE_CASE`` (f32, D 384).  Their outputs are wrong by design; only
+their times count.  ``--parent DIR``: a directory holding an earlier
+commit's ``flash_general.cu``, ``flash_wide.cu`` and the headers they
+include (for example ``git archive <commit> horovod_tpu_torch/csrc | tar
+-x -C DIR --strip-components 2``); its G1-G3 and W1-W2 are built and
+timed in turns with the committed ones ("parent").
 
 - ``no reload``: once the ring is full the producer stops loading the
   streamed tiles (k and v for P1 and P3, q and dO for P2 and P6) and only
@@ -41,21 +49,44 @@ wrong by design; only their times count.
 - ``no reload`` (G1-G3): the streamed tiles (k and v for G1 and G3, q
   and dO for G2) are loaded once and never refilled.
 
+W1 and W2 (``flash_wide.cu``), at both cases:
+
+- ``no reload``: the steps over D and the column tiles of the first key
+  (query) tile only are loaded; later tiles reuse them.
+- ``no products over D``: neither s (W1) nor s^T and dp^T (W2) are
+  formed; the partial tiles are still exchanged.
+- ``no row products``: neither p.v (W1) nor dk and dv (W2) run.
+- ``one product``: f32 takes only hi.hi.
+- ``one group stages``: the first warp group issues every copy, the
+  second none (both share them in the kernel).
+
+and plan variants of the committed kernels (``ops/_cuda.py:wide_plan``'s
+constants changed for the call): ``q streamed`` (W1 streams its q rows
+with k instead of holding them whole), ``dcols 32/16`` and ``dcols
+96/32`` (each group takes 32 or 96 columns of a W1 step and 16 or 32 of
+a W2 step, where the kernels take 64 and 32; a wider W2 step does not
+fit shared memory in f32), ``ocols 128/64`` (column chunks of o, dk and dv of at most 128
+and 64 columns) and ``no fill`` (the fewest column chunks even where the
+grid does not fill the card).
+
 ``mma rate``: a kernel that issues only ``mma.sync.m16n8k8`` TF32
 products (8 independent accumulators a warp, 4 warps a block, 8 blocks
 an SM, 2000 rounds) and one that issues ``m16n8k16`` fp16 ones: the
 rate G1-G3 can reach at most with this instruction.
 
 Times are CUDA events around 10 launches, median of 20 such batches
-(``chip_smoke._median_ms``), every variant timed twice, in turns.  It
-exits non-zero without a CUDA device or when a source edit no longer
-applies.
+(``chip_smoke._median_ms``; the parent's W1 and W2 at the full case: 2
+launches, median of 3), every variant timed twice, in turns.  It exits
+non-zero without a CUDA device or when a source edit no longer applies
+(each must find its text exactly once in the source and its headers).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -170,6 +201,61 @@ EDITS = {
          "    if (false)\n      stage_tile(sV,"),
         ("    if (more)\n      stage_tile(sK,",
          "    if (false)\n      stage_tile(sK,")],
+    ("flash_wide", "no reload"): [
+        ("      if (i + 1 < n_steps) stage_step(i + 1);\n"
+         "      cp_async_commit();\n"
+         "      const int nk = wide_half_steps(d8 - d * 2 * w.dc, gr * w.dc, "
+         "w.dc);\n      if (busy && nk > 0) {\n        const E* a",
+         "      if (i + 1 < n_dc) stage_step(i + 1);\n"
+         "      cp_async_commit();\n"
+         "      const int nk = wide_half_steps(d8 - d * 2 * w.dc, gr * w.dc, "
+         "w.dc);\n      if (busy && nk > 0) {\n        const E* a"),
+        ("      if (d == 0)\n        stage_halves(sV,",
+         "      if (j == 0 && d == 0)\n        stage_halves(sV,"),
+        ("      if (i + 1 < n_steps) stage_step(i + 1);\n"
+         "      cp_async_commit();\n"
+         "      const int nk = wide_half_steps(d8 - d * 2 * w.dc, gr * w.dc, "
+         "w.dc);\n      if (busy && nk > 0) {\n        const E* c",
+         "      if (i + 1 < n_dc) stage_step(i + 1);\n"
+         "      cp_async_commit();\n"
+         "      const int nk = wide_half_steps(d8 - d * 2 * w.dc, gr * w.dc, "
+         "w.dc);\n      if (busy && nk > 0) {\n        const E* c"),
+        ("      if (d == 0) {\n        stage_halves(sQo",
+         "      if (it == i_begin && d == 0) {\n"
+         "        stage_halves(sQo")],
+    ("flash_wide", "one group stages"): [
+        ("  const int gr = threadIdx.x / kGenThreads, half = n / 2;\n"
+         "  stage_tile(s + gr * half * ld, ld, g, st, row0 + gr * half, half, "
+         "T_, D,\n             d8, vec, static_cast<int>(threadIdx.x % "
+         "kGenThreads));",
+         "  if (threadIdx.x < kGenThreads)\n"
+         "    stage_tile(s, ld, g, st, row0, n, T_, D, d8, vec,\n"
+         "               static_cast<int>(threadIdx.x));")],
+    ("flash_wide", "no products over D"): [
+        ("      if (busy && nk > 0) {\n        const E* a = w.q_res",
+         "      if (false) {\n        const E* a = w.q_res"),
+        ("      if (busy && nk > 0) {\n        const E* c = sC",
+         "      if (false) {\n        const E* c = sC")],
+    ("flash_wide", "no row products"): [
+        ("      product_rows<E, NT, kTcKeys>(o, s, sV + gr * w.oc",
+         "      if (false) product_rows<E, NT, kTcKeys>(o, s, sV + gr * w.oc"),
+        ("      product_rows<E, NT, BQ>(dk, dp, sQo",
+         "      if (false) product_rows<E, NT, BQ>(dk, dp, sQo"),
+        ("      product_rows<E, NT, BQ>(dv, st, sOo",
+         "      if (false) product_rows<E, NT, BQ>(dv, st, sOo")],
+}
+EDITS[("flash_wide", "one product")] = EDITS[("flash_general", "one product")]
+
+# Plan variants of W1 and W2: ops/_cuda.py constants for the call.
+WIDE_PLANS = {
+    "q streamed": {"WIDE_Q_RESIDENT_SMEM": 0},
+    "dcols 32/16": {"WIDE_DCOLS": {"flash_fwd_wide": 32,
+                                   "flash_bwd_dkdv_wide": 16}},
+    "dcols 96/32": {"WIDE_DCOLS": {"flash_fwd_wide": 96,
+                                   "flash_bwd_dkdv_wide": 32}},
+    "ocols 128/64": {"WIDE_OCOLS": {"flash_fwd_wide": 128,
+                                    "flash_bwd_dkdv_wide": 64}},
+    "no fill": {"WIDE_SMS": 0},
 }
 
 # Only mma.sync products, 8 independent accumulators a warp: the rate of
@@ -219,32 +305,46 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _build_all(variants: dict, csrc: Path) -> dict:
-    """The library of ``csrc/<stem>.cu`` with each variant's edits, by
-    (stem, variant); one ``nvcc`` per library, all started together."""
+def _sources(csrc: Path, stem: str, edits) -> dict:
+    """The text of ``csrc/<stem>.cu`` and of every header beside it, with
+    ``edits`` applied; each must find its text exactly once in them."""
+    texts = {f.name: f.read_text()
+             for f in [csrc / f"{stem}.cu", *sorted(csrc.glob("*.cuh"))]}
+    for old, new in edits:
+        hits = [name for name, text in texts.items() if old in text]
+        if len(hits) != 1 or texts[hits[0]].count(old) != 1:
+            _fail(f"the edit of {stem} no longer applies: {old[:60]!r}")
+        texts[hits[0]] = texts[hits[0]].replace(old, new)
+    return texts
+
+
+def _build_all(variants: dict, csrc: Path, parent) -> dict:
+    """The library of ``csrc/<stem>.cu`` with each variant's edits (the
+    parent's source for "parent"), by (stem, variant); each variant's
+    sources in a directory of their own, one ``nvcc`` per library, all
+    started together."""
     from horovod_tpu_torch.ops import _cuda
     procs = {}
     for stem, names in variants.items():
         for variant in names:
-            text = (csrc / f"{stem}.cu").read_text()
-            for old, new in EDITS.get((stem, variant), []):
-                if text.count(old) != 1:
-                    _fail(f"{variant}: the edit of {stem}.cu no longer "
-                          f"applies: {old[:60]!r}")
-                text = text.replace(old, new)
-            tag = variant.replace(" ", "_")
-            src = OUT / f"{stem}_{tag}.cu"
-            lib = OUT / f"lib{stem}_{tag}.so"
-            src.write_text(text)
+            if variant == "parent":
+                texts = _sources(parent, stem, [])
+            else:
+                texts = _sources(csrc, stem, EDITS.get((stem, variant), []))
+            d = OUT / f"{stem}_{variant.replace(' ', '_')}"
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+            for name, text in texts.items():
+                (d / name).write_text(text)
+            src, lib = d / f"{stem}.cu", d / f"lib{stem}.so"
             procs[(stem, variant)] = (src, lib, subprocess.Popen(
-                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(csrc), "-o",
-                 str(lib), str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
+                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (src, lib, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            _fail(f"nvcc failed for {src.name}:\n{out}")
+            _fail(f"nvcc failed for {key}:\n{out}")
         handle = ctypes.CDLL(str(lib))
         for symbol, argtypes in _cuda._ARGTYPES.items():
             if hasattr(handle, symbol):
@@ -253,6 +353,36 @@ def _build_all(variants: dict, csrc: Path) -> dict:
                 fn.restype = ctypes.c_int
         libs[key] = handle
     return libs
+
+
+def _parent_wide(lib, c, lse, delta):
+    """Calls of the parent's W1 and W2 on case ``c`` (one row a block; its
+    entry points take only the shared memory, 8 D and 16 D bytes)."""
+    from horovod_tpu_torch.ops import _cuda
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    B, T, C, D = c["B"], c["T"], q.shape[-1], c["D"]
+    tail = (B, H, T, D, T, 1, c["scale"])
+    fwd, bwd = lib.htt_flash_fwd_wide, lib.htt_flash_bwd_dkdv_wide
+    fwd.argtypes = (_cuda._I,) + _cuda._VIEW * 4 + (_cuda._P,) \
+        + _cuda._WIDE_TAIL
+    bwd.argtypes = (_cuda._I,) + _cuda._VIEW * 4 + (_cuda._P, _cuda._P) \
+        + _cuda._VIEW * 2 + _cuda._WIDE_TAIL
+    o, dk, dv = (torch.empty((B, T, C), device="cuda") for _ in range(3))
+    lse_out = torch.empty((B, H, T), device="cuda")
+    views = [a for x in (q, k, v, do) for a in (x.data_ptr(), *x.stride()[:2])]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def w1():
+        _cuda._check(fwd(0, *views[:9], o.data_ptr(),
+                         *o.stride()[:2], lse_out.data_ptr(), *tail, 8 * D,
+                         stream), "parent W1")
+
+    def w2():
+        _cuda._check(bwd(0, *views, lse.data_ptr(), delta.data_ptr(),
+                         dk.data_ptr(), *dk.stride()[:2], dv.data_ptr(),
+                         *dv.stride()[:2], *tail, 16 * D, stream),
+                     "parent W2")
+    return w1, w2
 
 
 def _mma_rate() -> list:
@@ -294,7 +424,64 @@ def _mma_rate() -> list:
     return rows
 
 
+def _wide_times(cs, libs, parent_lib, label, case) -> dict:
+    """W1 and W2 on ``case`` (f32): the committed kernels, their text
+    variants and plan variants, and the parent's, in turns."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+    c = cs._case(case["B"], case["H"], case["T"], case["D"], True, None,
+                 gen, torch.float32)
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    kw = dict(scale=c["scale"], causal=True, seq_len=None)
+    o, lse = fa._flash_fwd_plain(q, k, v, H, **kw)
+    delta = fa._delta(do, o, H)
+    del o
+    calls = {"flash_fwd_wide": lambda: _cuda.flash_fwd(q, k, v, H, **kw),
+             "flash_bwd_dkdv_wide": lambda: _cuda.flash_bwd_dkdv(
+                 q, k, v, do, lse, delta, H, **kw)}
+    texts = [n for (stem, n) in libs if stem == "flash_wide"]
+    names = texts + list(WIDE_PLANS) + (["parent"] if parent_lib else [])
+    committed = libs[("flash_wide", "kernel")]
+    saved = {n: getattr(_cuda, n) for p in WIDE_PLANS.values() for n in p}
+    times: dict = {}
+    for name in names + names[::-1]:
+        _cuda._LIBS["flash_wide"] = libs.get(("flash_wide", name), committed)
+        for n, value in WIDE_PLANS.get(name, {}).items():
+            setattr(_cuda, n, value)
+        if name == "parent":
+            timed = dict(zip(calls, _parent_wide(parent_lib, c, lse, delta)))
+        else:
+            timed = calls
+        slow = name == "parent" and label == "full"
+        for kernel, call in timed.items():
+            times.setdefault((kernel, label, name), []).append(
+                cs._median_ms(call, runs=3, warmup=1, reps=2) if slow
+                else cs._median_ms(call))
+        for n, value in saved.items():
+            setattr(_cuda, n, value)
+    plans = {}
+    for name in ["kernel"] + list(WIDE_PLANS):
+        for n, value in WIDE_PLANS.get(name, {}).items():
+            setattr(_cuda, n, value)
+        for kernel in calls:
+            p = _cuda.wide_plan(kernel, c["B"], H, c["T"], c["D"])
+            plans[(kernel, label, name)] = {
+                "ocols": p.ocols, "dcols": p.dcols, "q_resident":
+                p.q_resident, "smem_bytes": p.smem_bytes,
+                "blocks": p.grid[0] * H * c["B"], "products": p.products}
+        for n, value in saved.items():
+            setattr(_cuda, n, value)
+    return times, plans
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="an earlier commit's csrc directory")
+    parser.add_argument("--wide-only", action="store_true",
+                        help="W1 and W2 alone, and the mma rate")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this needs a CUDA GPU")
     sys.path.insert(0, str(ROOT))
@@ -312,8 +499,17 @@ def main() -> None:
                                     "no dq"],
                 "flash_general": ["kernel", "one product", "no B split",
                                   "cvt.rna split", "always clamp",
-                                  "sum sets 1", "no reload"]}
-    libs = _build_all(variants, csrc)
+                                  "sum sets 1", "no reload"],
+                "flash_wide": ["kernel", "no reload", "no products over D",
+                               "no row products", "one product",
+                               "one group stages"]}
+    if args.parent:
+        variants["flash_general"].insert(1, "parent")
+        variants["flash_wide"].append("parent")
+    if args.wide_only:
+        variants = {"flash_wide": variants["flash_wide"]}
+    libs = _build_all(variants, csrc, args.parent)
+    parent_wide = libs.pop(("flash_wide", "parent"), None)
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     c = cs._case(cs.BATCH, cs.HEADS, cs.SEQ, cs.DIM // cs.HEADS, True, None,
@@ -345,21 +541,34 @@ def main() -> None:
     }
     times: dict = {}
     for stem, names in variants.items():
+        if stem == "flash_wide":
+            continue
         timed = general if stem == "flash_general" else {stem: calls[stem]}
         for v_name in names + names[::-1]:
             _cuda._LIBS[stem] = libs[(stem, v_name)]
             for kernel, call in timed.items():
                 times.setdefault((kernel, v_name), []).append(
                     cs._median_ms(call))
+    del q, k, v, do, o, lse, delta, gq, gk, gv, gdo, glse, gdelta
+    torch.cuda.empty_cache()
+    plans = {}
+    for label, case in (("full", cs.WIDE_FULL_CASE), ("small", cs.WIDE_CASE)):
+        t, p = _wide_times(cs, libs, parent_wide, label, case)
+        times.update(t)
+        plans.update(p)
     _cuda._LIBS.clear()
     rows = []
-    for (kernel, v_name), ts in times.items():
-        base = min(times[(kernel, "kernel")])
+    for key, ts in times.items():
+        kernel, v_name = key[0], key[-1]
+        base = min(times[key[:-1] + ("kernel",)])
         rows.append({"kernel": kernel, "variant": v_name, "ms": ts,
-                     "vs_kernel": min(ts) / base})
-        print(f"{kernel:22s} {v_name:12s} "
+                     "vs_kernel": min(ts) / base,
+                     **({"case": key[1]} if len(key) == 3 else {}),
+                     **plans.get(key, {})})
+        print(f"{kernel:22s} {' '.join(key[1:]):24s} "
               + " ".join(f"{t:.4f}" for t in ts)
-              + f" ms, {min(ts) / base:.3f} of the kernel's time")
+              + f" ms, {min(ts) / base:.3f} of the kernel's time"
+              + (f" ({plans[key]})" if key in plans else ""))
     rates = _mma_rate()
     print(gpu)
     print(json.dumps({"ablation": rows, "mma_rate": rates}))

@@ -1,6 +1,6 @@
 // Flash attention at head sizes above 256: the wide route of the general
 // family, W1 (forward), W2 (dk, dv) and W3 (dq), for f32, fp16 and bf16 at
-// any head size that shared memory holds (ops/_cuda.py:WIDE_MAX_D).
+// any head size up to ops/_cuda.py:WIDE_MAX_D.
 //
 // Replaces: the same Pallas kernels as G1-G3
 // (horovod_tpu/ops/flash_attention.py): W1 _fwd_kernel, _fwd_kernel_unrollkv
@@ -10,15 +10,47 @@
 // The JAX package has no bound on D; ops/_cuda.py:flash_family sends
 // D > 256 here.
 //
-// A simple design that is right first; making it fast is later work.  A
-// block of 4 warps owns ONE row of one head: a query row (W1, W3) or a key
-// row (W2).  The row's own operands (W1: q; W3: q and dO; W2: k and v) and
-// its f32 accumulators (o; dq; dk and dv) live in shared memory as D
-// floats each, so D is bounded by shared memory alone (W2: 16 D bytes).
-// The other side streams from global memory 32 rows a tile: each warp
-// takes every fourth row of the tile and forms its dot products over D
-// in FFMA, lanes striding the columns (coalesced), reduced by a butterfly
-// of shuffles; then every thread updates the accumulator columns it owns
+// W1 and W2 run on the tensor cores with G1's and G2's pieces
+// (flash_mma.cuh): mma.sync.m16n8k8 with TF32 operands, three products a
+// term for f32 and one for fp16, bf16 and p, ds once rounded.  A block
+// owns 64 rows of one head (W1: query rows, the heaviest first; W2: key
+// rows, the lowest first) with two groups of 4 warps: warps w and w + 4
+// own the same m16 tile of rows.  What bounds them is what bounds G1 and
+// G2, the products and the operands' way into registers, and past D 256
+// two limits besides: 64 rows x D no longer fit shared memory, nor 16 x D
+// f32 of o (2 x 16 x D of dk and dv) a warp's registers.  So:
+// - the products over D (W1: s = q.k^T; W2: s^T = k.q^T, dp^T = v.dO^T)
+//   run in steps of 2 dc columns of each operand, through two buffers
+//   filled by cp.async: the next step loads while this one's products
+//   run.  In each step group 0 takes the first dc columns and group 1
+//   the rest; each step's part is summed from 0 on the tensor cores and
+//   added to the warp's partial s (dp) in f32, and the two warps of a
+//   pair then add their partial tiles through shared memory (put_part,
+//   add_part).  Shared memory does not grow with D, and no product is
+//   formed twice in a block.  W1 may stage its 64 q rows whole instead,
+//   once (q_res), where ops/_cuda.py:wide_plan says so.
+// - the columns of o (W1), dk and dv (W2) are cut into chunks of at most
+//   oc columns, which a warp's registers hold: two a block, one a group.
+//   Each block forms s (s and dp) over all of D for its two chunks, so
+//   for n chunks the products are (ceil(n / 2) + 1) / 2 of the least: 1x
+//   (W1) and 1.5x (W2) at D 384 (wide_plan's `products`, which also
+//   counts the extra chunks a grid too small to fill the card takes).
+// The other side streams a tile of 32 rows at a time (W1: k and v; W2: q
+// and dO with their lse and delta).  Of the tile that p.v (v), dv += p^T
+// dO and dk += ds^T q (dO, q) read, only the block's column chunks are
+// staged, once a tile.  Both warp groups issue the copies.  Rows at or past
+// seq_len are staged as 0, never read.  lse is written by the first
+// group of the blocks of the first chunks.  Warps skip the tiles that
+// causality and seq_len mask entirely for them; the mask applies element
+// by element only on tiles that cross the diagonal or an edge.  Copies
+// are 16, 4 or one element wide by general_plan's rule.
+//
+// W3 is still the first, simple design: a block of 4 warps owns ONE query
+// row of one head; q, dO and the f32 dq accumulator live in shared memory
+// as D floats each (12 D bytes), and k and v stream from global memory 32
+// rows a tile: each warp takes every fourth row of the tile and forms its
+// dot products over D in FFMA, lanes striding the columns, reduced by a
+// butterfly of shuffles; then every thread updates the dq columns it owns
 // (c = thread, thread + 128, ...) with the tile's rows, in row order.
 //
 // Every sum runs in a fixed order without atomics: every result is
@@ -32,50 +64,446 @@
 // dv += p^T dO, dk += ds^T q and dq += ds k.  Rows at or past seq_len see
 // no key (o = 0), keys at or past it are never read.
 
-#include <cuda_fp16.h>
-
-#include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace htt {
+
+// ---------------------------------------------------------------------------
+// W1 and W2.
+
+constexpr int kWideTcThreads = 2 * kGenThreads;  // two groups of 4 warps
+// Accumulators of a chunk's f32 sum over D (product_t): one, as each sum
+// over a chunk is short; it saves the registers W2 needs.
+constexpr int kWideSets = 1;
+constexpr int kSPart = 16 * kTcKeys;  // f32 of one warp's partial s tile
+
+// W1 and W2: the general family's parameters plus the plan of
+// ops/_cuda.py:wide_plan.
+template <typename E>
+struct WideTcParams {
+  GenParams<E> g;
+  int oc;     // columns of o (W1), dk and dv (W2) a warp group computes
+  int dc;     // columns of a warp group's half of each step over D
+  int q_res;  // W1: the block's 64 q rows are staged whole, once
+};
+
+// Column chunks of oc columns (the last may be narrower) over D8, one a
+// warp group, and the blocks of a row block: two chunks each.
+__host__ __device__ inline int wide_chunks(int D, int oc) {
+  return (gen_d8(D) + oc - 1) / oc;
+}
+__host__ __device__ inline int wide_block_chunks(int D, int oc) {
+  return (wide_chunks(D, oc) + 1) / 2;
+}
+
+// Dynamic shared memory of W1 (kernel 0) or W2 (1) at head size D,
+// element size es and the plan's oc, dc and q_res; a step's tiles are
+// 2 dc columns wide, the tiles of the block's column chunks 2 oc.  W1:
+// its q rows (64 x D whole, or two buffers of a step's 64 rows), two
+// buffers of a step's 32 k rows, the 8 warps' partial s tiles, the v
+// tile's 32 rows.  W2: two buffers of a step's 64 k and 64 v rows and 32
+// q and 32 dO rows, the q tile's lse and delta, the 8 warps' partial s
+// and dp tiles, the q and dO tiles' 32 rows.  Each then kTcSlack bytes.
+inline long long wide_tc_smem_bytes(int kernel, int D, int es, int oc,
+                                    int dc, int q_res) {
+  const long long c = gen_tc_ld(2 * dc, es) * es;
+  const long long o = gen_tc_ld(2 * oc, es) * es;
+  if (kernel == 0)
+    return (q_res ? kTcRows * gen_tc_ld(D, es) * es : 2 * kTcRows * c) +
+           2 * kTcKeys * c + 8 * kSPart * 4 + kTcKeys * o + kTcSlack;
+  return 2 * (2 * kTcRows + 2 * kTcQueries) * c + 2 * kTcQueries * 4 +
+         2 * 8 * kSPart * 4 + 2 * kTcQueries * o + kTcSlack;
+}
+
+// stage_tile by both warp groups of a W1 or W2 block, each staging half
+// of the n rows.
+template <typename E>
+__device__ __forceinline__ void stage_halves(E* s, int ld, const E* g,
+                                             long long st, int row0, int n,
+                                             int T_, int D, int d8,
+                                             int vec) {
+  const int gr = threadIdx.x / kGenThreads, half = n / 2;
+  stage_tile(s + gr * half * ld, ld, g, st, row0 + gr * half, half, T_, D,
+             d8, vec, static_cast<int>(threadIdx.x % kGenThreads));
+}
+
+// Columns a warp group's half of a step of `cols` columns starting at
+// column off of the step: its 8-column steps of the product over D.
+__device__ __forceinline__ int wide_half_steps(int cols, int off, int dc) {
+  return max(min(cols - off, dc), 0) / 8;
+}
+
+// A warp's partial tile (16 rows x 32 f32 of C fragments) to shared
+// memory, and the partner warp's added to it: the two parts of the sum
+// over D.  a + b is b + a in f32, so both warps get the same bits.
+__device__ __forceinline__ void put_part(float* s, const float (&x)[4][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[(nt * 4 + c) * 32 + lane] = x[nt][c];
+}
+__device__ __forceinline__ void add_part(float (&x)[4][4], const float* s) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[nt][c] += s[(nt * 4 + c) * 32 + lane];
+}
+
+// W1: o (two column chunks of it, one a warp group) and lse for 64 query
+// rows.  Warps w and w + 4 own the same 16 rows; each forms s over its
+// half of every step's columns, and they add their parts through shared
+// memory.  NT: 8-column tiles of o a warp holds, at least oc / 8.
+template <typename E, int NT>
+__global__ void __launch_bounds__(kWideTcThreads)
+    flash_fwd_wide_kernel(const WideTcParams<E> w) {
+  static_assert(kTcKeys == 32, "partial s tiles are 16 x 32");
+  const GenParams<E>& p = w.g;
+  extern __shared__ uint4 wsm_tc[];
+  const int D = p.D, d8 = gen_d8(D);
+  const int ldc = gen_tc_ld(2 * w.dc, sizeof(E));
+  const int ldq = w.q_res ? gen_tc_ld(D, sizeof(E)) : ldc;
+  const int ldv = gen_tc_ld(2 * w.oc, sizeof(E));
+  E* sQ = reinterpret_cast<E*>(wsm_tc);
+  E* sK = sQ + kTcRows * (w.q_res ? ldq : 2 * ldc);
+  float* sS = reinterpret_cast<float*>(sK + 2 * kTcKeys * ldc);
+  E* sV = reinterpret_cast<E*>(sS + 8 * kSPart);  // last: p.v reads past it
+  const int n_bc = wide_block_chunks(D, w.oc);
+  const int rb = blockIdx.x / n_bc, bc = blockIdx.x - rb * n_bc;
+  const int q0 = (gridDim.x / n_bc - 1 - rb) * kTcRows;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, gr = warp >> 2;
+  const int cb = 2 * bc * w.oc;  // the block's columns
+  const int cb_cols = min(2 * w.oc, d8 - cb);
+  const int n_ct = max(min(w.oc, d8 - cb - gr * w.oc), 0) / 8;  // own
+  const int wrow = q0 + 16 * (warp & 3);  // the warp's first query row
+  const long long hD = (long long)h * D;
+  const E* gq = p.q.ptr + b * p.q.sb + hD;
+  const E* gk = p.k.ptr + b * p.k.sb + hD;
+  const E* gv = p.v.ptr + b * p.v.sb + hD;
+  int n_kv = q0 < p.lim ? (p.lim + kTcKeys - 1) / kTcKeys : 0;
+  if (p.causal) n_kv = min(n_kv, (q0 + kTcRows - 1) / kTcKeys + 1);
+  const int n_dc = (d8 + 2 * w.dc - 1) / (2 * w.dc);
+  const int n_steps = n_kv * n_dc;
+  // Step i: columns 2 dc (i % n_dc) .. of k tile i / n_dc (and of the q
+  // rows unless they are resident), into buffer i & 1.
+  auto stage_step = [&](int i) {
+    const int j = i / n_dc, d0 = (i - j * n_dc) * 2 * w.dc;
+    const int cols = min(2 * w.dc, d8 - d0);
+    if (!w.q_res)
+      stage_halves(sQ + (i & 1) * kTcRows * ldc, ldc, gq + d0, p.q.st, q0,
+                   kTcRows, p.lim, D - d0, cols, p.vec);
+    stage_halves(sK + (i & 1) * kTcKeys * ldc, ldc, gk + d0, p.k.st,
+                 j * kTcKeys, kTcKeys, p.lim, D - d0, cols, p.vec);
+  };
+  if (n_steps > 0) {
+    if (w.q_res)
+      stage_halves(sQ, ldq, gq, p.q.st, q0, kTcRows, p.lim, D, d8, p.vec);
+    stage_step(0);
+  }
+  cp_async_commit();
+
+  float o[NT][4], m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[nt][c] = 0.f;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTcKeys;
+    const bool busy = wrow < p.lim && !(p.causal && k0 > wrow + 15);
+    // s = q.k^T: 16 rows x the tile's keys, n-tile nt = keys 8 nt ..
+    // 8 nt + 7; this warp's part, step by step over its columns.
+    float s[kTcKeys / 8][4] = {}, alpha[2];
+    for (int d = 0; d < n_dc; ++d) {
+      const int i = j * n_dc + d, d0 = d * 2 * w.dc + gr * w.dc;
+      cp_async_wait<0>();
+      __syncthreads();  // step i is in buffer i & 1; every warp is done
+      //                   with step i - 1 and, at d 0, with v tile j - 1
+      if (d == 0)
+        stage_halves(sV, ldv, gv + cb, p.v.st, k0, kTcKeys, p.lim, D - cb,
+                     cb_cols, p.vec);
+      cp_async_commit();
+      if (i + 1 < n_steps) stage_step(i + 1);
+      cp_async_commit();
+      const int nk = wide_half_steps(d8 - d * 2 * w.dc, gr * w.dc, w.dc);
+      if (busy && nk > 0) {
+        const E* a = w.q_res ? sQ + 16 * (warp & 3) * ldq + d0
+                             : sQ + ((i & 1) * kTcRows + 16 * (warp & 3)) *
+                                        ldc + gr * w.dc;
+        product_t<E, kTcKeys / 8, true, kWideSets>(
+            s, a, ldq, sK + (i & 1) * kTcKeys * ldc + gr * w.dc, ldc, nk, g,
+            t);
+      }
+    }
+    if (busy) put_part(sS + warp * kSPart, s);
+    cp_async_wait<1>();
+    __syncthreads();  // v tile j and both parts of s are in shared memory
+    if (busy) {
+      add_part(s, sS + (warp ^ 4) * kSPart);
+      // Online softmax over rows g (r 0) and g + 8 (r 1) of the warp.
+      const float kNegInf = __int_as_float(0xff800000);
+      const bool edge = (p.causal && k0 + kTcKeys - 1 > wrow) ||
+                        k0 + kTcKeys > p.lim || wrow + 16 > p.lim;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = s[nt][c] * p.scale;
+          if (edge && !visible(wrow + g + (c >> 1) * 8,
+                               k0 + 8 * nt + 2 * t + (c & 1), p.causal,
+                               p.lim))
+            x = kNegInf;
+          s[nt][c] = x;
+          mx[c >> 1] = fmaxf(mx[c >> 1], x);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float e = expf(s[nt][c] - m[c >> 1]);  // 0 where masked
+          sum[c >> 1] += e;
+          s[nt][c] = round_to<E>(e);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+      // o = o alpha + p.v over the group's columns.
+      product_rows<E, NT, kTcKeys>(o, s, sV + gr * w.oc, ldv, n_ct, alpha[0],
+                                   alpha[1], g, t);
+    }
+  }
+
+  const float la = fmaxf(l[0], 1e-30f), lb = fmaxf(l[1], 1e-30f);
+  store_frags<E, NT>(p.o.ptr + b * p.o.sb + hD, p.o.st, wrow,
+                     cb + gr * w.oc, n_ct, p.T, D, o, la, lb, g, t);
+  if (bc == 0 && gr == 0 && t == 0) {
+    float* lse = p.lse + ((long long)b * p.H + h) * p.T;
+    if (wrow + g < p.T) lse[wrow + g] = m[0] + logf(la);
+    if (wrow + g + 8 < p.T) lse[wrow + g + 8] = m[1] + logf(lb);
+  }
+}
+
+// W2: dk and dv (two column chunks of each, one a warp group) for 64 key
+// rows.  Warps w and w + 4 own the same 16 keys; each forms s^T and dp^T
+// over its half of every step's columns, and they add their parts
+// through shared memory.  NT: 8-column tiles of dk and dv a warp holds,
+// at least oc / 8.
+template <typename E, int NT>
+__global__ void __launch_bounds__(kWideTcThreads)
+    flash_bwd_dkdv_wide_kernel(const WideTcParams<E> w) {
+  constexpr int BQ = kTcQueries;
+  constexpr int kStepRows = 2 * kTcRows + 2 * BQ;  // k, v, q, dO
+  static_assert(BQ == 32, "partial s tiles are 16 x 32");
+  const GenParams<E>& p = w.g;
+  extern __shared__ uint4 wsm_tc[];
+  const int D = p.D, d8 = gen_d8(D);
+  const int ldc = gen_tc_ld(2 * w.dc, sizeof(E));
+  const int ldo = gen_tc_ld(2 * w.oc, sizeof(E));
+  E* sC = reinterpret_cast<E*>(wsm_tc);  // two buffers of kStepRows rows
+  float* sL = reinterpret_cast<float*>(sC + 2 * kStepRows * ldc);  // lse
+  float* sD = sL + BQ;                                  // delta
+  float* sS = sD + BQ;  // partial s^T (8 warps), then dp^T (8 warps)
+  E* sQo = reinterpret_cast<E*>(sS + 16 * kSPart);  // the q tile's
+  E* sOo = sQo + BQ * ldo;  // and the dO tile's columns, last
+  const int n_bc = wide_block_chunks(D, w.oc);
+  const int kb = blockIdx.x / n_bc, bc = blockIdx.x - kb * n_bc;
+  const int k0 = kb * kTcRows;  // low keys have the most work: first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, gr = warp >> 2;
+  const int cb = 2 * bc * w.oc;  // the block's columns
+  const int cb_cols = min(2 * w.oc, d8 - cb);
+  const int n_ct = max(min(w.oc, d8 - cb - gr * w.oc), 0) / 8;  // own
+  const int wkey = k0 + 16 * (warp & 3);  // the warp's first key row
+  const long long hD = (long long)h * D;
+  const long long bh = (long long)b * p.H + h;
+  const E* gq = p.q.ptr + b * p.q.sb + hD;
+  const E* gk = p.k.ptr + b * p.k.sb + hD;
+  const E* gv = p.v.ptr + b * p.v.sb + hD;
+  const E* go = p.dout.ptr + b * p.dout.sb + hD;
+  const int i_begin = p.causal ? k0 / BQ : 0;
+  const int i_end = k0 < p.lim ? (p.lim + BQ - 1) / BQ : 0;
+  const int n_dc = (d8 + 2 * w.dc - 1) / (2 * w.dc);
+  const int n_steps = max(i_end - i_begin, 0) * n_dc;
+  // Step i: columns 2 dc (i % n_dc) .. of the block's k and v rows and
+  // of q tile i_begin + i / n_dc and its dO, into buffer i & 1.
+  auto stage_step = [&](int i) {
+    const int it = i / n_dc, d0 = (i - it * n_dc) * 2 * w.dc;
+    const int cols = min(2 * w.dc, d8 - d0), q0 = (i_begin + it) * BQ;
+    E* s = sC + (i & 1) * kStepRows * ldc;
+    stage_halves(s, ldc, gk + d0, p.k.st, k0, kTcRows, p.lim, D - d0, cols,
+                 p.vec);
+    stage_halves(s + kTcRows * ldc, ldc, gv + d0, p.v.st, k0, kTcRows,
+                 p.lim, D - d0, cols, p.vec);
+    stage_halves(s + 2 * kTcRows * ldc, ldc, gq + d0, p.q.st, q0, BQ, p.lim,
+                 D - d0, cols, p.vec);
+    stage_halves(s + (2 * kTcRows + BQ) * ldc, ldc, go + d0, p.dout.st, q0,
+                 BQ, p.lim, D - d0, cols, p.vec);
+  };
+  if (n_steps > 0) stage_step(0);
+  cp_async_commit();
+
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[nt][c] = dv[nt][c] = 0.f;
+  for (int it = i_begin; it < i_end; ++it) {
+    const int q0 = it * BQ;
+    const bool busy = wkey < p.lim && !(p.causal && q0 + BQ - 1 < wkey);
+    // s^T = k.q^T and dp^T = v.dO^T: 16 keys x BQ queries; this warp's
+    // part, step by step over its columns.
+    float st[BQ / 8][4] = {}, dp[BQ / 8][4] = {};
+    for (int d = 0; d < n_dc; ++d) {
+      const int i = (it - i_begin) * n_dc + d;
+      cp_async_wait<0>();
+      __syncthreads();  // step i is in buffer i & 1; every warp is done
+      //                   with step i - 1 and, at d 0, with q tile it - 1
+      if (d == 0) {
+        stage_halves(sQo, ldo, gq + cb, p.q.st, q0, BQ, p.lim, D - cb,
+                     cb_cols, p.vec);
+        stage_halves(sOo, ldo, go + cb, p.dout.st, q0, BQ, p.lim, D - cb,
+                     cb_cols, p.vec);
+        stage_vals(gr ? sD : sL, (gr ? p.delta : p.lse) + bh * p.T, q0, BQ,
+                   p.T, static_cast<int>(threadIdx.x % kGenThreads));
+      }
+      cp_async_commit();
+      if (i + 1 < n_steps) stage_step(i + 1);
+      cp_async_commit();
+      const int nk = wide_half_steps(d8 - d * 2 * w.dc, gr * w.dc, w.dc);
+      if (busy && nk > 0) {
+        const E* c = sC + (i & 1) * kStepRows * ldc + gr * w.dc;
+        product_t<E, BQ / 8, true, kWideSets>(
+            st, c + 16 * (warp & 3) * ldc, ldc, c + 2 * kTcRows * ldc, ldc,
+            nk, g, t);
+        product_t<E, BQ / 8, true, kWideSets>(
+            dp, c + (kTcRows + 16 * (warp & 3)) * ldc, ldc,
+            c + (2 * kTcRows + BQ) * ldc, ldc, nk, g, t);
+      }
+    }
+    if (busy) {
+      put_part(sS + warp * kSPart, st);
+      put_part(sS + (8 + warp) * kSPart, dp);
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // the q and dO tiles' columns, lse, delta and both
+    //                   parts of s^T and dp^T are in shared memory
+    if (busy) {
+      add_part(st, sS + (warp ^ 4) * kSPart);
+      add_part(dp, sS + (8 + (warp ^ 4)) * kSPart);
+      // p = exp(s scale - lse) (0 where masked), ds = p (dp - delta)
+      // scale, both rounded to E; st and dp now hold them.
+      const bool edge = (p.causal && q0 < wkey + 15) || q0 + BQ > p.lim ||
+                        wkey + 16 > p.lim;
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int ql = 8 * nt + 2 * t + (c & 1);
+          const bool vis = !edge || visible(q0 + ql, wkey + g + (c >> 1) * 8,
+                                            p.causal, p.lim);
+          const float pe = vis ? expf(st[nt][c] * p.scale - sL[ql]) : 0.f;
+          st[nt][c] = round_to<E>(pe);
+          dp[nt][c] = round_to<E>(pe * (dp[nt][c] - sD[ql]) * p.scale);
+        }
+      // dk += ds^T q and dv += p^T dO over the group's columns.
+      product_rows<E, NT, BQ>(dk, dp, sQo + gr * w.oc, ldo, n_ct, 1.f, 1.f,
+                              g, t);
+      product_rows<E, NT, BQ>(dv, st, sOo + gr * w.oc, ldo, n_ct, 1.f, 1.f,
+                              g, t);
+    }
+  }
+
+  const int c0 = cb + gr * w.oc;
+  store_frags<E, NT>(p.dk.ptr + b * p.dk.sb + hD, p.dk.st, wkey, c0, n_ct,
+                     p.T, D, dk, 1.f, 1.f, g, t);
+  store_frags<E, NT>(p.dv.ptr + b * p.dv.sb + hD, p.dv.st, wkey, c0, n_ct,
+                     p.T, D, dv, 1.f, 1.f, g, t);
+}
+
+// Columns of o (W1, kernel 0) or dk and dv (W2, 1) a warp may hold: the
+// instantiations' largest NT.
+__host__ __device__ inline int wide_max_oc(int kernel) {
+  return kernel == 0 ? 256 : 128;
+}
+
+template <typename E>
+cudaError_t launch_wide_tc(int kernel, const WideTcParams<E>& w, int B,
+                           int smem, cudaStream_t stream) {
+  void (*fn)(const WideTcParams<E>);
+  if (kernel == 0)
+    fn = w.oc <= 128   ? flash_fwd_wide_kernel<E, 16>
+         : w.oc <= 192 ? flash_fwd_wide_kernel<E, 24>
+                       : flash_fwd_wide_kernel<E, 32>;
+  else
+    fn = w.oc <= 64 ? flash_bwd_dkdv_wide_kernel<E, 8>
+                    : flash_bwd_dkdv_wide_kernel<E, 16>;
+  const int blocks =
+      (w.g.T + kTcRows - 1) / kTcRows * wide_block_chunks(w.g.D, w.oc);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fn<<<dim3(blocks, w.g.H, B), kWideTcThreads, smem, stream>>>(w);
+  return cudaGetLastError();
+}
+
+// ptrs: q, k, v, dout, o, dq, dk, dv (null where a kernel has none);
+// strides: (batch, row) of each, in the same order, in elements; dtype:
+// 0 f32, 1 fp16, 2 bf16; vec, oc, dc, q_res and smem_bytes: the plan of
+// ops/_cuda.py:wide_plan, checked here.
+inline int run_wide_tc(int kernel, int dtype, const void* const* ptrs,
+                       const long long* strides, const void* lse,
+                       const void* delta, int B, int H, int T, int D,
+                       int seq_len, int causal, float scale, int vec, int oc,
+                       int dc, int q_res, int smem_bytes, void* stream) {
+  const int es = dtype == 0 ? 4 : 2;
+  if (dtype < 0 || dtype > 2 || D < 1 || T < 1 || oc < 8 || oc % 8 ||
+      oc > wide_max_oc(kernel) || dc < 8 || dc % 8 || q_res < 0 ||
+      q_res > (kernel == 0) ||
+      smem_bytes != wide_tc_smem_bytes(kernel, D, es, oc, dc, q_res) ||
+      !copies_fit(kernel, ptrs, strides, D, es, vec))
+    return cudaErrorInvalidValue;
+  if (H > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_wide_tc(kernel, WideTcParams<float>{gen_params<float>(
+          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
+          oc, dc, q_res}, B, smem_bytes, s);
+    case 1:
+      return launch_wide_tc(kernel, WideTcParams<__half>{gen_params<__half>(
+          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
+          oc, dc, q_res}, B, smem_bytes, s);
+    default:
+      return launch_wide_tc(kernel, WideTcParams<bf16>{gen_params<bf16>(
+          ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
+          oc, dc, q_res}, B, smem_bytes, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// W3.
 
 constexpr int kWideThreads = 128;
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideTile = 32;  // rows of the other side a step
 
-__device__ __forceinline__ float wide_f32(float x) { return x; }
-__device__ __forceinline__ float wide_f32(__half x) {
-  return __half2float(x);
-}
-__device__ __forceinline__ float wide_f32(bf16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename E>
-__device__ __forceinline__ E wide_from(float x);
-template <>
-__device__ __forceinline__ float wide_from<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half wide_from<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ bf16 wide_from<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to the input dtype, as the plain versions cast p and ds.
-template <typename E>
-__device__ __forceinline__ float wide_round(float x) {
-  return wide_f32(wide_from<E>(x));
-}
-
 template <typename E>
 struct WideParams {
   const E* in[4];  // q, k, v, dout
   long long in_sb[4], in_st[4];
-  E* out[2];  // W1: o; W2: dk, dv; W3: dq
-  long long out_sb[2], out_st[2];
-  float* lse;  // W1 writes it, W2 and W3 read it
+  E* out;  // dq
+  long long out_sb, out_st;
+  const float* lse;
   const float* delta;
   int H, T, D, lim, causal;
   float scale;
@@ -88,20 +516,13 @@ __device__ __forceinline__ const E* wide_row(const WideParams<E>& p, int op,
          static_cast<long long>(h) * p.D;
 }
 
-template <typename E>
-__device__ __forceinline__ E* wide_out_row(const WideParams<E>& p, int op,
-                                           int b, int t, int h) {
-  return p.out[op] + b * p.out_sb[op] + t * p.out_st[op] +
-         static_cast<long long>(h) * p.D;
-}
-
 // sum over c < D of a[c] * x[c], a in shared memory, x a row in global
 // memory; every lane of the warp gets the same bits.
 template <typename E>
 __device__ __forceinline__ float warp_dot(const float* a, const E* x, int D,
                                           int lane) {
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(a[c], wide_f32(x[c]), acc);
+  for (int c = lane; c < D; c += 32) acc = fmaf(a[c], to_f32(x[c]), acc);
   for (int off = 16; off; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   return acc;
@@ -110,66 +531,7 @@ __device__ __forceinline__ float warp_dot(const float* a, const E* x, int D,
 template <typename E>
 __device__ __forceinline__ void load_row(float* dst, const E* src, int D) {
   for (int c = threadIdx.x; c < D; c += kWideThreads)
-    dst[c] = wide_f32(src[c]);
-}
-
-__device__ __forceinline__ void zero_row(float* dst, int D) {
-  for (int c = threadIdx.x; c < D; c += kWideThreads) dst[c] = 0.f;
-}
-
-// Keys a query row sees: none past seq_len, up to the row under
-// causality.
-__device__ __forceinline__ int visible_keys(int i, int lim, int causal) {
-  return i < lim ? (causal ? i + 1 : lim) : 0;
-}
-
-// W1: o and lse of query row blockIdx.x.
-template <typename E>
-__global__ void __launch_bounds__(kWideThreads)
-    flash_fwd_wide_kernel(const WideParams<E> p) {
-  extern __shared__ float wide_smem[];
-  float* sq = wide_smem;    // D: the query row
-  float* so = sq + p.D;     // D: the output accumulator
-  __shared__ float ss[kWideTile], sp[kWideTile];
-  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_row(sq, wide_row(p, 0, b, i, h), p.D);
-  zero_row(so, p.D);
-  __syncthreads();
-  const int n = visible_keys(i, p.lim, p.causal);
-  float m = kNegBig, l = 0.f;
-  for (int j0 = 0; j0 < n; j0 += kWideTile) {
-    const int nk = min(kWideTile, n - j0);
-    for (int jj = warp; jj < nk; jj += kWideWarps) {
-      const float s = warp_dot(sq, wide_row(p, 1, b, j0 + jj, h), p.D,
-                               lane) * p.scale;
-      if (lane == 0) ss[jj] = s;
-    }
-    __syncthreads();
-    float mt = m;
-    for (int jj = 0; jj < nk; ++jj) mt = fmaxf(mt, ss[jj]);
-    const float alpha = expf(m - mt);
-    if (threadIdx.x < nk) sp[threadIdx.x] = expf(ss[threadIdx.x] - mt);
-    __syncthreads();
-    float sum = 0.f;
-    for (int jj = 0; jj < nk; ++jj) sum += sp[jj];
-    for (int c = threadIdx.x; c < p.D; c += kWideThreads) {
-      float acc = 0.f;
-      for (int jj = 0; jj < nk; ++jj)
-        acc = fmaf(wide_round<E>(sp[jj]),
-                   wide_f32(wide_row(p, 2, b, j0 + jj, h)[c]), acc);
-      so[c] = so[c] * alpha + acc;
-    }
-    m = mt;
-    l = l * alpha + sum;
-    __syncthreads();  // every thread is done with ss and sp
-  }
-  const float la = fmaxf(l, 1e-30f);
-  E* orow = wide_out_row(p, 0, b, i, h);
-  for (int c = threadIdx.x; c < p.D; c += kWideThreads)
-    orow[c] = wide_from<E>(so[c] / la);
-  if (threadIdx.x == 0)
-    p.lse[(static_cast<long long>(b) * p.H + h) * p.T + i] = m + logf(la);
+    dst[c] = to_f32(src[c]);
 }
 
 // W3: dq of query row blockIdx.x.
@@ -185,11 +547,12 @@ __global__ void __launch_bounds__(kWideThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   load_row(sq, wide_row(p, 0, b, i, h), p.D);
   load_row(sdo, wide_row(p, 3, b, i, h), p.D);
-  zero_row(sdq, p.D);
+  for (int c = threadIdx.x; c < p.D; c += kWideThreads) sdq[c] = 0.f;
   __syncthreads();
   const long long row = (static_cast<long long>(b) * p.H + h) * p.T + i;
   const float lse = p.lse[row], delta = p.delta[row];
-  const int n = visible_keys(i, p.lim, p.causal);
+  // Keys the row sees: none past seq_len, up to the row under causality.
+  const int n = i < p.lim ? (p.causal ? i + 1 : p.lim) : 0;
   for (int j0 = 0; j0 < n; j0 += kWideTile) {
     const int nk = min(kWideTile, n - j0);
     for (int jj = warp; jj < nk; jj += kWideWarps) {
@@ -198,105 +561,41 @@ __global__ void __launch_bounds__(kWideThreads)
       const float dp = warp_dot(sdo, wide_row(p, 2, b, j0 + jj, h), p.D,
                                 lane);
       if (lane == 0)
-        sds[jj] = wide_round<E>(expf(s - lse) * (dp - delta) * p.scale);
+        sds[jj] = round_to<E>(expf(s - lse) * (dp - delta) * p.scale);
     }
     __syncthreads();
     for (int c = threadIdx.x; c < p.D; c += kWideThreads) {
       float acc = 0.f;
       for (int jj = 0; jj < nk; ++jj)
-        acc = fmaf(sds[jj], wide_f32(wide_row(p, 1, b, j0 + jj, h)[c]),
-                   acc);
+        acc = fmaf(sds[jj], to_f32(wide_row(p, 1, b, j0 + jj, h)[c]), acc);
       sdq[c] += acc;
     }
     __syncthreads();  // every thread is done with sds
   }
-  E* dq = wide_out_row(p, 0, b, i, h);
+  E* dq = p.out + b * p.out_sb + i * p.out_st +
+          static_cast<long long>(h) * p.D;
   for (int c = threadIdx.x; c < p.D; c += kWideThreads)
-    dq[c] = wide_from<E>(sdq[c]);
+    dq[c] = from_f32<E>(sdq[c]);
 }
 
-// W2: dk and dv of key row blockIdx.x.
-template <typename E>
-__global__ void __launch_bounds__(kWideThreads)
-    flash_bwd_dkdv_wide_kernel(const WideParams<E> p) {
-  extern __shared__ float wide_smem[];
-  float* sk = wide_smem;     // D: the key row
-  float* sv = sk + p.D;      // D: its v row
-  float* sdk = sv + p.D;     // D: the dk accumulator
-  float* sdv = sdk + p.D;    // D: the dv accumulator
-  __shared__ float sp[kWideTile], sds[kWideTile];
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_row(sk, wide_row(p, 1, b, j, h), p.D);
-  load_row(sv, wide_row(p, 2, b, j, h), p.D);
-  zero_row(sdk, p.D);
-  zero_row(sdv, p.D);
-  __syncthreads();
-  // Queries that see key j: none when j is past seq_len, else those
-  // before seq_len, from j on under causality.
-  const int first = p.causal ? j : 0;
-  const int last = j < p.lim ? p.lim : first;
-  const long long rows = (static_cast<long long>(b) * p.H + h) * p.T;
-  for (int i0 = first; i0 < last; i0 += kWideTile) {
-    const int nq = min(kWideTile, last - i0);
-    for (int ii = warp; ii < nq; ii += kWideWarps) {
-      const int i = i0 + ii;
-      const float s = warp_dot(sk, wide_row(p, 0, b, i, h), p.D, lane) *
-                      p.scale;
-      const float dp = warp_dot(sv, wide_row(p, 3, b, i, h), p.D, lane);
-      if (lane == 0) {
-        const float pr = expf(s - p.lse[rows + i]);
-        sp[ii] = wide_round<E>(pr);
-        sds[ii] = wide_round<E>(pr * (dp - p.delta[rows + i]) * p.scale);
-      }
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < p.D; c += kWideThreads) {
-      float acc_v = 0.f, acc_k = 0.f;
-      for (int ii = 0; ii < nq; ++ii) {
-        acc_v = fmaf(sp[ii], wide_f32(wide_row(p, 3, b, i0 + ii, h)[c]),
-                     acc_v);
-        acc_k = fmaf(sds[ii], wide_f32(wide_row(p, 0, b, i0 + ii, h)[c]),
-                     acc_k);
-      }
-      sdv[c] += acc_v;
-      sdk[c] += acc_k;
-    }
-    __syncthreads();  // every thread is done with sp and sds
-  }
-  E* dk = wide_out_row(p, 0, b, j, h);
-  E* dv = wide_out_row(p, 1, b, j, h);
-  for (int c = threadIdx.x; c < p.D; c += kWideThreads) {
-    dk[c] = wide_from<E>(sdk[c]);
-    dv[c] = wide_from<E>(sdv[c]);
-  }
-}
-
-// Shared memory of kernel 0 (W1), 1 (W2) or 2 (W3) at head size D: the
-// block's own rows and accumulators, D floats each.
-inline long long wide_smem_bytes(int kernel, int D) {
-  const int rows = kernel == 0 ? 2 : kernel == 1 ? 4 : 3;
-  return 4LL * rows * D;
-}
+// W3's dynamic shared memory at head size D: q, dO and dq, D floats each.
+inline long long wide_dq_smem_bytes(int D) { return 12LL * D; }
 
 template <typename E>
-cudaError_t launch_wide(int kernel, const void* const* ptrs,
-                        const long long* strides, const void* lse,
-                        const void* delta, int B, int H, int T, int D,
-                        int seq_len, int causal, float scale, int smem,
-                        cudaStream_t stream) {
+cudaError_t launch_wide_dq(const void* const* ptrs, const long long* strides,
+                           const void* lse, const void* delta, int B, int H,
+                           int T, int D, int seq_len, int causal,
+                           float scale, int smem, cudaStream_t stream) {
   WideParams<E> p{};
   for (int i = 0; i < 4; ++i) {
     p.in[i] = static_cast<const E*>(ptrs[i]);
     p.in_sb[i] = strides[2 * i];
     p.in_st[i] = strides[2 * i + 1];
   }
-  for (int i = 0; i < 2; ++i) {
-    p.out[i] = static_cast<E*>(const_cast<void*>(ptrs[4 + i]));
-    p.out_sb[i] = strides[8 + 2 * i];
-    p.out_st[i] = strides[9 + 2 * i];
-  }
-  p.lse = static_cast<float*>(const_cast<void*>(lse));
+  p.out = static_cast<E*>(const_cast<void*>(ptrs[4]));
+  p.out_sb = strides[8];
+  p.out_st = strides[9];
+  p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.H = H;
   p.T = T;
@@ -304,81 +603,57 @@ cudaError_t launch_wide(int kernel, const void* const* ptrs,
   p.lim = seq_len;
   p.causal = causal;
   p.scale = scale;
-  void (*fn)(const WideParams<E>) =
-      kernel == 0   ? flash_fwd_wide_kernel<E>
-      : kernel == 1 ? flash_bwd_dkdv_wide_kernel<E>
-                    : flash_bwd_dq_wide_kernel<E>;
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_bwd_dq_wide_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  fn<<<dim3(T, H, B), kWideThreads, smem, stream>>>(p);
+  flash_bwd_dq_wide_kernel<E><<<dim3(T, H, B), kWideThreads, smem, stream>>>(
+      p);
   return cudaGetLastError();
-}
-
-// ptrs: q, k, v, dout, then the outputs (W1: o; W2: dk, dv; W3: dq), null
-// where a kernel has none; strides: (batch, row) of each in the same
-// order, in elements; smem_bytes: ops/_cuda.py:wide_smem_bytes, checked
-// here.
-inline int run_wide(int kernel, int dtype, const void* const* ptrs,
-                    const long long* strides, const void* lse,
-                    const void* delta, int B, int H, int T, int D,
-                    int seq_len, int causal, float scale, int smem_bytes,
-                    void* stream) {
-  if (dtype < 0 || dtype > 2 || D < 1 || T < 1 ||
-      smem_bytes != wide_smem_bytes(kernel, D))
-    return cudaErrorInvalidValue;
-  if (H > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_wide<float>(kernel, ptrs, strides, lse, delta, B, H, T,
-                                D, seq_len, causal, scale, smem_bytes, s);
-    case 1:
-      return launch_wide<__half>(kernel, ptrs, strides, lse, delta, B, H, T,
-                                 D, seq_len, causal, scale, smem_bytes, s);
-    default:
-      return launch_wide<bf16>(kernel, ptrs, strides, lse, delta, B, H, T,
-                               D, seq_len, causal, scale, smem_bytes, s);
-  }
 }
 
 }  // namespace htt
 
 // W1.  q, k, v: (B, T, H*D) views of dtype `dtype` (0 f32, 1 fp16, 2 bf16)
-// with unit column stride; o: the same; lse: (B, H, T) f32.  smem_bytes is
-// horovod_tpu_torch/ops/_cuda.py:wide_smem_bytes, checked here.  Returns
-// the CUDA error code of the launch.
+// with unit column stride; o: the same; lse: (B, H, T) f32.  vec (the
+// staging copy width), oc, dc, q_res and smem_bytes are the plan of
+// horovod_tpu_torch/ops/_cuda.py:wide_plan, checked here.  Returns the
+// CUDA error code of the launch.
 extern "C" int htt_flash_fwd_wide(
     int dtype, const void* q, long long q_sb, long long q_st, const void* k,
     long long k_sb, long long k_st, const void* v, long long v_sb,
     long long v_st, void* o, long long o_sb, long long o_st, void* lse,
     int B, int H, int T, int D, int seq_len, int causal, float scale,
-    int smem_bytes, void* stream) {
-  const void* ptrs[6] = {q, k, v, nullptr, o, nullptr};
-  const long long strides[12] = {q_sb, q_st, k_sb, k_st, v_sb, v_st,
-                                 0,    0,    o_sb, o_st, 0,    0};
-  return htt::run_wide(0, dtype, ptrs, strides, lse, nullptr, B, H, T, D,
-                       seq_len, causal, scale, smem_bytes, stream);
+    int vec, int oc, int dc, int q_res, int smem_bytes, void* stream) {
+  const void* ptrs[8] = {q, k, v, nullptr, o, nullptr, nullptr, nullptr};
+  const long long strides[16] = {q_sb, q_st, k_sb, k_st, v_sb, v_st, 0, 0,
+                                 o_sb, o_st, 0, 0, 0, 0, 0, 0};
+  return htt::run_wide_tc(0, dtype, ptrs, strides, lse, nullptr, B, H, T, D,
+                          seq_len, causal, scale, vec, oc, dc, q_res,
+                          smem_bytes, stream);
 }
 
 // W2.  Inputs as W1 plus dout and lse, delta (B, H, T) f32; dk, dv:
-// (B, T, H*D) views of the same dtype, written in full.
+// (B, T, H*D) views of the same dtype, written in full; q_res is 0.
 extern "C" int htt_flash_bwd_dkdv_wide(
     int dtype, const void* q, long long q_sb, long long q_st, const void* k,
     long long k_sb, long long k_st, const void* v, long long v_sb,
     long long v_st, const void* dout, long long do_sb, long long do_st,
     const void* lse, const void* delta, void* dk, long long dk_sb,
     long long dk_st, void* dv, long long dv_sb, long long dv_st, int B,
-    int H, int T, int D, int seq_len, int causal, float scale,
-    int smem_bytes, void* stream) {
-  const void* ptrs[6] = {q, k, v, dout, dk, dv};
-  const long long strides[12] = {q_sb,  q_st,  k_sb,  k_st,  v_sb,  v_st,
-                                 do_sb, do_st, dk_sb, dk_st, dv_sb, dv_st};
-  return htt::run_wide(1, dtype, ptrs, strides, lse, delta, B, H, T, D,
-                       seq_len, causal, scale, smem_bytes, stream);
+    int H, int T, int D, int seq_len, int causal, float scale, int vec,
+    int oc, int dc, int q_res, int smem_bytes, void* stream) {
+  const void* ptrs[8] = {q, k, v, dout, nullptr, nullptr, dk, dv};
+  const long long strides[16] = {q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                                 do_sb, do_st, 0, 0, 0, 0, dk_sb, dk_st,
+                                 dv_sb, dv_st};
+  return htt::run_wide_tc(1, dtype, ptrs, strides, lse, delta, B, H, T, D,
+                          seq_len, causal, scale, vec, oc, dc, q_res,
+                          smem_bytes, stream);
 }
 
 // W3.  Inputs as W2; dq: a (B, T, H*D) view of the same dtype.
+// smem_bytes is ops/_cuda.py:wide_smem_bytes, checked here.
 extern "C" int htt_flash_bwd_dq_wide(
     int dtype, const void* q, long long q_sb, long long q_st, const void* k,
     long long k_sb, long long k_st, const void* v, long long v_sb,
@@ -386,9 +661,26 @@ extern "C" int htt_flash_bwd_dq_wide(
     const void* lse, const void* delta, void* dq, long long dq_sb,
     long long dq_st, int B, int H, int T, int D, int seq_len, int causal,
     float scale, int smem_bytes, void* stream) {
-  const void* ptrs[6] = {q, k, v, dout, dq, nullptr};
-  const long long strides[12] = {q_sb,  q_st,  k_sb,  k_st, v_sb, v_st,
-                                 do_sb, do_st, dq_sb, dq_st, 0,   0};
-  return htt::run_wide(2, dtype, ptrs, strides, lse, delta, B, H, T, D,
-                       seq_len, causal, scale, smem_bytes, stream);
+  const void* ptrs[5] = {q, k, v, dout, dq};
+  const long long strides[10] = {q_sb, q_st, k_sb,  k_st,  v_sb,
+                                 v_st, do_sb, do_st, dq_sb, dq_st};
+  if (dtype < 0 || dtype > 2 || D < 1 || T < 1 ||
+      smem_bytes != htt::wide_dq_smem_bytes(D))
+    return cudaErrorInvalidValue;
+  if (H > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return htt::launch_wide_dq<float>(ptrs, strides, lse, delta, B, H, T,
+                                        D, seq_len, causal, scale,
+                                        smem_bytes, s);
+    case 1:
+      return htt::launch_wide_dq<__half>(ptrs, strides, lse, delta, B, H, T,
+                                         D, seq_len, causal, scale,
+                                         smem_bytes, s);
+    default:
+      return htt::launch_wide_dq<htt::bf16>(ptrs, strides, lse, delta, B, H, T,
+                                       D, seq_len, causal, scale,
+                                       smem_bytes, s);
+  }
 }

@@ -23,8 +23,9 @@ The general family G1-G3 (``csrc/flash_general.cu``: TF32 ``mma.sync``,
 three products a term for float32) computes what P1, P2 and P3 compute for everything else
 the JAX package runs: float32 and float16 at any head size up to 256,
 bfloat16 at the other head sizes up to 256.  Its wide route W1-W3
-(``csrc/flash_wide.cu``: FFMA, one row a block) takes every dtype at head
-sizes above 256, up to what shared memory holds (``_cuda.WIDE_MAX_D``).
+(``csrc/flash_wide.cu``: W1 and W2 on the same TF32 ``mma.sync`` with D
+in column steps, W3 FFMA, one row a block) takes every dtype at head
+sizes above 256, up to ``_cuda.WIDE_MAX_D``.
 ``_cuda.flash_family`` picks the family from the dtype and the head size;
 each wrapper of :mod:`._cuda` obeys it, and the one-pass wrapper runs
 G2 + G3 (W2 + W3) for the general family.

@@ -226,8 +226,10 @@ def test_general_fragment_loads_hit_distinct_banks(dtype, D):
 
 
 def _csrc_constant(name):
-    """An ``int`` constant of ``csrc/flash_general.cu``."""
-    text = (_cuda.CSRC / "flash_general.cu").read_text()
+    """An ``int`` constant of ``csrc/flash_general.cu`` or of the
+    tensor-core pieces it shares with W1 and W2, ``csrc/flash_mma.cuh``."""
+    text = "".join((_cuda.CSRC / f).read_text()
+                   for f in ("flash_general.cu", "flash_mma.cuh"))
     m = re.search(rf"constexpr int {name} = (\d+);", text)
     assert m, name
     return int(m.group(1))
@@ -399,9 +401,11 @@ def test_wrapper_errors_are_unchanged(shape, heads, seq_len, match):
 
 
 def test_ablation_edits_apply_to_the_kernels():
-    """``flash_ablation.py`` times P1, P2, P3, P6 and G1-G3 against text
-    edits of their committed sources; each edit must still find its text
-    exactly once."""
+    """``flash_ablation.py`` times P1, P2, P3, P6, G1-G3 and W1-W2 against
+    text edits of their committed sources and the headers beside them;
+    each edit must still find its text exactly once in them.  Its plan
+    variants of W1 and W2 name constants of ``ops/_cuda.py`` and give
+    plans that fit the card at both timing cases."""
     spec = importlib.util.spec_from_file_location(
         "flash_ablation", ROOT / "flash_ablation.py")
     ablation = importlib.util.module_from_spec(spec)
@@ -409,45 +413,163 @@ def test_ablation_edits_apply_to_the_kernels():
     assert {v for _, v in ablation.EDITS} == {
         "no reload", "no softmax", "heads first", "no dq sum", "no dq",
         "one product", "no B split", "cvt.rna split", "always clamp",
-        "sum sets 1"}
+        "sum sets 1", "no products over D", "no row products",
+        "one group stages"}
     assert {stem for stem, _ in ablation.EDITS} == set(KERNELS) | {
-        "flash_general"}
+        "flash_general", "flash_wide"}
+    headers = sorted(_cuda.CSRC.glob("*.cuh"))
     for (stem, variant), edits in ablation.EDITS.items():
-        text = (_cuda.CSRC / f"{stem}.cu").read_text()
+        texts = [p.read_text() for p in [_cuda.CSRC / f"{stem}.cu", *headers]]
         for old, new in edits:
-            assert text.count(old) == 1, (stem, variant, old[:40])
-            text = text.replace(old, new)
+            hits = [i for i, text in enumerate(texts) if old in text]
+            assert len(hits) == 1 and texts[hits[0]].count(old) == 1, (
+                stem, variant, old[:40])
+            texts[hits[0]] = texts[hits[0]].replace(old, new)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for variant, consts in ablation.WIDE_PLANS.items():
+        saved = {n: getattr(_cuda, n) for n in consts}
+        try:
+            for n, value in consts.items():
+                setattr(_cuda, n, value)
+            for case in (smoke.WIDE_CASE, smoke.WIDE_FULL_CASE):
+                for kernel in WIDE_TC:
+                    plan = _cuda.wide_plan(kernel, case["B"], case["H"],
+                                           case["T"], case["D"])
+                    assert plan.smem_bytes <= _cuda.SMEM_LIMIT, variant
+        finally:
+            for n, value in saved.items():
+                setattr(_cuda, n, value)
 
 
 WIDE = ("flash_fwd_wide", "flash_bwd_dkdv_wide", "flash_bwd_dq_wide")
+WIDE_TC = WIDE[:2]
+WIDE_SIZES = (257, 384, 1000, _cuda.WIDE_MAX_D)
+
+
+def _wide_tc_smem_from_source():
+    """``wide_tc_smem_bytes`` of ``flash_wide.cu``, read from the source
+    and evaluated in Python: the C entry points refuse any other
+    ``smem_bytes``."""
+    text = (_cuda.CSRC / "flash_wide.cu").read_text()
+    body = text[text.index("inline long long wide_tc_smem_bytes("):]
+    body = body[body.index("{") + 1:body.index("\n}\n")]
+    consts = {n: _csrc_constant(n)
+              for n in ("kTcRows", "kTcKeys", "kTcQueries", "kTcSlack")}
+    consts["kSPart"] = 16 * consts["kTcKeys"]
+    assert "constexpr int kSPart = 16 * kTcKeys;" in text
+    src = "def f(kernel, D, es, oc, dc, q_res):\n"
+    for stmt in body.split(";"):
+        stmt = " ".join(stmt.split()).replace("const long long ", "")
+        stmt = re.sub(r"\((\w+) \? (.+?) : (.+?)\)",
+                      r"((\2) if \1 else (\3))", stmt)
+        if stmt:
+            src += " " + stmt.replace("if (kernel == 0)",
+                                      "if kernel == 0:") + "\n"
+    env = dict(consts, gen_tc_ld=_cuda.general_row_stride)
+    exec(src, env)
+    return env["f"]
 
 
 @pytest.mark.parametrize("kernel", WIDE)
 def test_wide_route_fits_shared_memory_up_to_its_limit(kernel):
-    """W1-W3 hold their own rows and accumulators, D floats each, in
-    dynamic shared memory beside the static tiles each kernel declares: at
-    ``WIDE_MAX_D`` every one fits an H100 block, static and dynamic bytes
-    together, and one more column does not fit W2.  The rows each holds
-    are the entry point's (``flash_wide.cu`` ``wide_smem_bytes``), and the
-    static bytes are counted from each kernel's ``__shared__`` arrays."""
+    """W1 and W2 stream D in steps, so their shared memory (the plan's
+    ``smem_bytes``, which the entry points check against the same formula
+    in ``flash_wide.cu``, read here from the source) fits an H100 block
+    at D 257, 384, 1000 and ``WIDE_MAX_D`` in every dtype, with no static
+    ``__shared__`` array beside it.  W3 holds three rows of D floats (its
+    entry point's ``wide_dq_smem_bytes``) beside the static tile it
+    declares: at ``WIDE_MAX_D`` that fits too."""
     text = (_cuda.CSRC / "flash_wide.cu").read_text()
-    m = re.search(r"const int rows = kernel == 0 \? (\d+) : kernel == 1 \? "
-                  r"(\d+) : (\d+);", text)
-    assert m
-    rows = dict(zip(WIDE, (int(m.group(i)) for i in (1, 2, 3))))
     tile = int(re.search(r"constexpr int kWideTile = (\d+);", text).group(1))
-    static = {}
-    for name in WIDE:
-        body = text[text.index(f"{name}_kernel(const WideParams<E> p)"):]
-        body = body[:body.index("\n}\n")]
-        decls = re.findall(r"(?<!extern )__shared__ float ([^;]+);", body)
-        arrays = [a for d in decls for a in d.split(",")]
+    body = text[text.index(f"{kernel}_kernel(const Wide"):]
+    body = body[:body.index("\n}\n")]
+    decls = re.findall(r"(?<!extern )__shared__ float ([^;]+);", body)
+    arrays = [a for d in decls for a in d.split(",")]
+    if kernel == "flash_bwd_dq_wide":
+        assert "return 12LL * D;" in text
         assert all(a.strip().endswith("[kWideTile]") for a in arrays)
-        static[name] = 4 * tile * len(arrays)
-    assert max(static.values()) == _cuda.WIDE_STATIC_SMEM
-    for D in (257, 384, 1000, _cuda.WIDE_MAX_D):
-        assert _cuda.wide_smem_bytes(kernel, D) == 4 * rows[kernel] * D
-        assert (_cuda.wide_smem_bytes(kernel, D) + static[kernel]
-                <= _cuda.SMEM_LIMIT)
-    assert (_cuda.wide_smem_bytes("flash_bwd_dkdv_wide", _cuda.WIDE_MAX_D + 1)
-            + static["flash_bwd_dkdv_wide"] > _cuda.SMEM_LIMIT)
+        static = 4 * tile * len(arrays)
+        assert static == _cuda.WIDE_STATIC_SMEM
+        for D in WIDE_SIZES:
+            assert _cuda.wide_smem_bytes(kernel, D) == 12 * D
+            assert (_cuda.wide_smem_bytes(kernel, D) + static
+                    <= _cuda.SMEM_LIMIT)
+        return
+    assert not arrays
+    smem = _wide_tc_smem_from_source()
+    k = WIDE_TC.index(kernel)
+    for dtype in GEN_DTYPES:
+        for D in WIDE_SIZES:
+            for T in (16, 2048):
+                plan = _cuda.wide_plan(kernel, 4, 8, T, D, dtype)
+                assert plan.smem_bytes == smem(
+                    k, D, dtype.itemsize, plan.ocols, plan.dcols,
+                    int(plan.q_resident)), (dtype, D, T)
+                assert plan.smem_bytes <= _cuda.SMEM_LIMIT, (dtype, D, T)
+
+
+@pytest.mark.parametrize("D", WIDE_SIZES)
+@pytest.mark.parametrize("dtype", GEN_DTYPES)
+@pytest.mark.parametrize("kernel", WIDE_TC)
+def test_wide_plan_covers_the_head_in_chunks(kernel, dtype, D):
+    """W1 and W2's plan (``wide_plan``): the column chunks of o (dk, dv)
+    cover D exactly once, in multiples of 8 columns, two a block; the
+    steps over D cover D8; the grid is (row blocks x blocks of two
+    chunks, H, B); the copy width is G1-G3's rule; the products done
+    against the least (``products``) follow from the chunks; and a grid
+    that would not fill the card takes more chunks, no narrower than
+    ``WIDE_MIN_OCOLS``, where the full-size one takes the fewest."""
+    for B, H, T in ((4, 8, 2048), (1, 2, 512), (1, 1, 16)):
+        plan = _cuda.wide_plan(kernel, B, H, T, D, dtype)
+        d8 = -(-D // 8) * 8
+        assert plan.d8 == d8
+        starts = [i * plan.ocols for i in range(plan.n_ochunks)]
+        widths = [min(plan.ocols, d8 - c) for c in starts]
+        assert all(w > 0 and w % 8 == 0 for w in widths)
+        assert sum(widths) == d8 and d8 - 8 < D <= d8
+        cols = [c for c0, w in zip(starts, widths) for c in range(c0, c0 + w)
+                if c < D]
+        assert cols == list(range(D))
+        assert plan.ocols <= _cuda.WIDE_OCOLS[kernel]
+        assert plan.n_steps * 2 * plan.dcols >= d8 > (plan.n_steps - 1) * \
+            2 * plan.dcols
+        blocks = -(-plan.n_ochunks // 2)
+        row_blocks = -(-T // 64)
+        assert plan.grid == (row_blocks * blocks, H, B)
+        assert plan.threads == 256 and plan.rows == 64
+        assert plan.copy_bytes == _cuda.general_copy_bytes(
+            dtype.itemsize, D, [((T * H * D, H * D, 1), 0)])
+        # Each block forms s (W1: 2 D8 a pair; W2: s and dp, 4 D8) once
+        # for its two chunks; the row products (p.v; dk and dv) cover
+        # each chunk's columns once.
+        least = 4 if kernel == "flash_fwd_wide" else 8
+        done = blocks * least // 2 * d8 + least // 2 * sum(widths)
+        assert plan.products == pytest.approx(done / (least * D), rel=1e-12)
+        fewest = -(-d8 // _cuda.WIDE_OCOLS[kernel])
+        if row_blocks * H * B * -(-fewest // 2) >= _cuda.WIDE_SMS:
+            assert plan.n_ochunks == fewest
+        else:
+            assert plan.n_ochunks >= fewest
+            assert plan.ocols >= min(_cuda.WIDE_MIN_OCOLS,
+                                     _cuda.WIDE_OCOLS[kernel])
+            assert (row_blocks * H * B * blocks <= _cuda.WIDE_SMS
+                    or plan.n_ochunks == fewest)
+        if kernel == "flash_fwd_wide":
+            assert plan.q_resident == (_cuda.wide_tc_smem_bytes(
+                kernel, D, dtype.itemsize, plan.ocols, plan.dcols, True)
+                <= _cuda.WIDE_Q_RESIDENT_SMEM)
+        else:
+            assert not plan.q_resident
+
+
+def test_wide_plan_refuses_other_kernels():
+    """W3 keeps its own plan (``wide_smem_bytes``); the G1-G3 names have
+    ``general_plan``."""
+    for name in ("flash_bwd_dq_wide", "flash_fwd_general", "flash_fwd"):
+        with pytest.raises(ValueError, match="no wide launch plan"):
+            _cuda.wide_plan(name, 1, 1, 64, 384)
+    with pytest.raises(ValueError, match="wide_plan"):
+        _cuda.wide_smem_bytes("flash_fwd_wide", 384)
