@@ -10,7 +10,7 @@ the checkout.  Phases, in order; any failure ends the run:
 1. Device: the card's name and power limit, and the build of the port's
    CUDA kernels from ``horovod_tpu_torch/csrc`` (timed), with ptxas'
    registers and spills for each kernel of the ``kernels`` line and for
-   each of the 24 instantiations of G1-G3 and 15 of W1-W2 (none may
+   each of the 24 instantiations of G1-G3 and 21 of W1-W3 (none may
    spill).
 2. Kernels: each Hopper flash kernel (forward P1, dk/dv P2, dq P3) at the
    training shape (B 8, H 16, T 2048, D 128, bf16, causal, q/k/v read
@@ -44,9 +44,9 @@ the checkout.  Phases, in order; any failure ends the run:
    384) and in bf16 at D 320 with a ragged seq_len; W1-W3 launched twice
    give the same bits; timed at D 384 at both ``WIDE_CASE`` and
    ``WIDE_FULL_CASE`` beside f32 ``scaled_dot_product_attention``, whose
-   kernels (the backend PyTorch picked) are named, with W1's and W2's
-   products against the least and the registers and spills of each of
-   their 15 instantiations.
+   kernels (the backend PyTorch picked) are named, with W1-W3's products
+   against the least and the registers and spills of each of their 21
+   instantiations.
 5. f32 models: the reference's own checks
    (``tests/test_flash_attention.py``): ``TransformerLM(dim=256,
    num_heads=2, attn="flash", dtype=float32)`` (D 128 through
@@ -212,7 +212,7 @@ TOL_F32_LSE = 1e-4
 TOL_MODEL = 1e-4
 # The ptxas entry of each kernel of the kernels line (the instantiation
 # the training shape runs: D 128, or f32 at D 128 for the general family;
-# W1 and W2: f32 at WIDE_FULL_CASE, 192 and 128 columns a warp).
+# W1-W3: f32 at WIDE_FULL_CASE, 192, 128 and 192 columns a warp).
 PTXAS_NAMES = {
     "flash_fwd": "flash_fwd_kernelILi128E",
     "flash_bwd_dkdv": "flash_bwd_dkdv_kernelILi128E",
@@ -225,7 +225,7 @@ PTXAS_NAMES = {
     "flash_bwd_dq_general": "flash_bwd_dq_general_kernelIfLi16EE",
     "flash_fwd_wide": "flash_fwd_wide_kernelIfLi24EE",
     "flash_bwd_dkdv_wide": "flash_bwd_dkdv_wide_kernelIfLi16EE",
-    "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernelIfE",
+    "flash_bwd_dq_wide": "flash_bwd_dq_wide_kernelIfLi24EE",
 }
 
 
@@ -332,17 +332,17 @@ def phase_device():
         _check(name in usage, f"no ptxas entry for {name}")
         print(f"  {name}: {usage[name]['registers']} registers, "
               f"{usage[name]['spill_bytes']} bytes spilled")
-    # Every instantiation of G1-G3 that general_plan can pick, and of W1
-    # and W2 that wide_plan can pick: element type and the columns of o
-    # (G1, W1), dk and dv (G2, W2) or dq (G3) a warp holds; none may
-    # spill.  W1's and W2's are printed by the wide phase.
+    # Every instantiation of G1-G3 that general_plan can pick, and of
+    # W1-W3 that wide_plan can pick: element type and the columns of o
+    # (G1, W1), dk and dv (G2, W2) or dq (G3, W3) a warp holds; none may
+    # spill.  W1-W3's are printed by the wide phase.
     types = {"f": "f32", "6__half": "fp16", "13__nv_bfloat16": "bf16"}
     found = {"general": 0, "wide": 0}
     usage["wide"] = []
     for i, line in enumerate(lines):
         m = re.search(r"(flash_fwd_general|flash_bwd_dkdv_general|"
                       r"flash_bwd_dq_general|flash_fwd_wide|"
-                      r"flash_bwd_dkdv_wide)_kernelI"
+                      r"flash_bwd_dkdv_wide|flash_bwd_dq_wide)_kernelI"
                       r"(f|6__half|13__nv_bfloat16)Li(\d+)E",
                       line)
         if "Compiling entry function" not in line or not m:
@@ -364,9 +364,9 @@ def phase_device():
                   f"{spilled} bytes spilled")
         _check(spilled == 0, f"{m.group(0)} spills")
         found[family] += 1
-    _check(found == {"general": 24, "wide": 15},
-           f"{found} G1-G3 and W1-W2 instantiations in ptxas' log, expected "
-           f"24 and 15")
+    _check(found == {"general": 24, "wide": 21},
+           f"{found} G1-G3 and W1-W3 instantiations in ptxas' log, expected "
+           f"24 and 21")
     return usage
 
 
@@ -826,17 +826,41 @@ def _wide_work(w) -> dict:
             "flash_bwd_dq_wide": (6 * D * pairs, 5 * tensor + 2 * rows)}
 
 
+def _wide_device_ms(c) -> dict:
+    """Device time of one call of W1, W2 and W3 on case ``c``: the
+    profiler's time of every kernel a call launches.  Where the kernels
+    take less than the wrappers' host time, as at ``WIDE_CASE``, CUDA
+    events around back-to-back calls time the host instead."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
+    kw = dict(scale=c["scale"], causal=c["causal"], seq_len=c["seq_len"])
+    o, lse = _cuda.flash_fwd(q, k, v, H, **kw)
+    delta = fa._delta(do, o, H)
+    calls = {"flash_fwd_wide": lambda: _cuda.flash_fwd(q, k, v, H, **kw),
+             "flash_bwd_dkdv_wide": lambda: _cuda.flash_bwd_dkdv(
+                 q, k, v, do, lse, delta, H, **kw),
+             "flash_bwd_dq_wide": lambda: _cuda.flash_bwd_dq(
+                 q, k, v, do, lse, delta, H, **kw)}
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    return {n: sum(ms for _, ms in _device_kernels(call))
+            for n, call in calls.items()}
+
+
 def phase_wide(usage):
     """W1-W3 (``flash_wide.cu``, head sizes above 256) against the plain
     versions in f32 at D 264, 384 and 1000 (B 1, H 2, T 512, causal) and
     at ``WIDE_FULL_CASE``, within 1e-5 relative with TF32 off, at the
     route's largest head size ``WIDE_MAX_D`` (T 16), plus bf16 at D 320
     with a ragged seq_len; launched twice at both timing cases, the same
-    bits; timed at ``WIDE_CASE`` and ``WIDE_FULL_CASE`` beside the plain
+    bits; timed (and their device time a call taken from the profiler) at
+    ``WIDE_CASE`` and ``WIDE_FULL_CASE`` beside the plain
     versions and f32 ``scaled_dot_product_attention``, whose kernels (the
     backend PyTorch picked) are named from the profiler, with the
-    products W1 and W2 do against the least (``wide_plan``) and the
-    registers and spills of every W1 and W2 instantiation (``usage``)."""
+    products W1-W3 do against the least (``wide_plan``) and the registers
+    and spills of every W1-W3 instantiation (``usage``)."""
     from horovod_tpu_torch.ops import _cuda
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -861,6 +885,9 @@ def phase_wide(usage):
         main = _case(B, H, T, D, True, None, gen, torch.float32)
         errs, times = _run_general(main, label, timing=True, family="wide")
         _check_general_deterministic(main, f"{label}: W1-W3")
+        device = _wide_device_ms(main)
+        print(f"  {label}: device time a call (profiler): "
+              + ", ".join(f"{n} {ms:.4f} ms" for n, ms in device.items()))
         del main
         work = _wide_work(c)
         for name in WIDE:
@@ -869,11 +896,10 @@ def phase_wide(usage):
                     f"at 495/3 TFLOP/s) "
                     f"{3 * flops / PEAK_TF32_FLOPS * 1e3:.4f} ms, FFMA (67 "
                     f"TFLOP/s) {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
-            if name in ("flash_fwd_wide", "flash_bwd_dkdv_wide"):
-                plan = _cuda.wide_plan(name, B, H, T, D)
-                line += (f"; products {plan.products:.3f}x the least "
-                         f"({plan.n_ochunks} column chunks of "
-                         f"{plan.ocols}, {plan.grid[0] * H * B} blocks)")
+            plan = _cuda.wide_plan(name, B, H, T, D)
+            line += (f"; products {plan.products:.3f}x the least "
+                     f"({plan.n_ochunks} column chunks of {plan.ocols}, "
+                     f"{plan.grid[0] * H * B} blocks)")
             print(line)
         for k in ("fwd", "bwd"):
             top = times[f"sdpa_{k}_kernels"]
@@ -882,7 +908,12 @@ def phase_wide(usage):
                   + "; ".join(f"{n[:100]} {ms:.3f} ms" for n, ms in top[:3]))
         print(f"  {label}: W1 {times['flash_fwd_wide'] / times['sdpa_fwd']:.3f}x"
               f" the scaled_dot_product_attention forward")
-        out[key] = {"errs": errs, "times": times, "work": work}
+        pair = times["flash_bwd_dkdv_wide"] + times["flash_bwd_dq_wide"]
+        print(f"  {label}: W2 + W3 {pair:.4f} ms, "
+              f"{pair / times['sdpa_bwd']:.3f}x the "
+              f"scaled_dot_product_attention backward")
+        out[key] = {"errs": errs, "times": times, "work": work,
+                    "device": device}
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2282,7 +2313,7 @@ def main() -> None:
     # in f32 at WIDE_FULL_CASE (and WIDE_CASE beside it), launched by the
     # f32 model at D 384.
     wt, we = wide["full"]["times"], wide["full"]["errs"]
-    st = wide["small"]["times"]
+    st, sd = wide["small"]["times"], wide["small"]["device"]
     for name, rep, plain_key, err, lib, call, status in (
             ("flash_fwd_wide", "horovod_tpu/ops/flash_attention.py:255",
              "fwd_plain", we["o_abs"], "sdpa_fwd",
@@ -2293,7 +2324,7 @@ def main() -> None:
              "redesigned PR 12"),
             ("flash_bwd_dq_wide", "horovod_tpu/ops/flash_attention.py:730",
              "dq_plain", we["grad_abs"], "sdpa_bwd", SDPA_BWD + ", f32",
-             "ported PR 11")):
+             "redesigned PR 13")):
         flops, nbytes = wide["full"]["work"][name]
         # f32 attention's least time is on the tensor cores at three TF32
         # products a term, as for G1-G3; the FFMA time beside it.
@@ -2303,6 +2334,7 @@ def main() -> None:
             peak_flops=PEAK_TF32_FLOPS / 3),
             bound_ffma_ms=flops / PEAK_F32_FLOPS * 1e3, status=status,
             shape="WIDE_FULL_CASE", ms_wide_case=st[name],
+            device_ms_wide_case=sd[name],
             plain_ms_wide_case=st[plain_key], library_ms_wide_case=st[lib]))
     print(gpu)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """What bounds the Hopper flash kernels P1, P2, P3 and P6, the general
-family's G1, G2 and G3 and the wide route's W1 and W2, on the card: each
-one timed against variants of itself, and the rate of the tensor-core
-instruction G1-G3, W1 and W2 issue.
+family's G1, G2 and G3 and the wide route's W1, W2 and W3, on the card:
+each one timed against variants of itself, and the rate of the
+tensor-core instruction G1-G3 and W1-W3 issue.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100::
 
@@ -14,13 +14,16 @@ The variants are text edits of the committed sources
 ``flash_mma.cuh``), built with the port's ``nvcc`` flags into
 ``build/flash_ablation/`` and timed at the training shape of
 ``chip_smoke.py`` (B 8, H 16, T 2048, D 128, causal; bf16 for P1-P6, f32
-for G1-G3); W1 and W2 at ``chip_smoke.WIDE_FULL_CASE`` and
-``WIDE_CASE`` (f32, D 384).  Their outputs are wrong by design; only
-their times count.  ``--parent DIR``: a directory holding an earlier
-commit's ``flash_general.cu``, ``flash_wide.cu`` and the headers they
-include (for example ``git archive <commit> horovod_tpu_torch/csrc | tar
--x -C DIR --strip-components 2``); its G1-G3 and W1-W2 are built and
-timed in turns with the committed ones ("parent").
+for G1-G3); W1-W3 at ``chip_smoke.WIDE_FULL_CASE`` and ``WIDE_CASE``
+(f32, D 384).  Their outputs are wrong by design; only their times
+count.  ``--parent DIR``: a directory holding an earlier commit's
+``flash_general.cu``, ``flash_wide.cu`` and the headers they include
+(for example ``git archive <commit> horovod_tpu_torch/csrc | tar -x -C
+DIR --strip-components 2``); its G1-G3 and W1-W3 are built and timed in
+turns with the committed ones ("parent"), through the committed entry
+points where the parent's take the same arguments, else (a W3 of the
+first design) as the parent's source declares them
+(``_parent_calls``).
 
 - ``no reload``: once the ring is full the producer stops loading the
   streamed tiles (k and v for P1 and P3, q and dO for P2 and P6) and only
@@ -49,25 +52,28 @@ timed in turns with the committed ones ("parent").
 - ``no reload`` (G1-G3): the streamed tiles (k and v for G1 and G3, q
   and dO for G2) are loaded once and never refilled.
 
-W1 and W2 (``flash_wide.cu``), at both cases:
+W1-W3 (``flash_wide.cu``), at both cases:
 
 - ``no reload``: the steps over D and the column tiles of the first key
-  (query) tile only are loaded; later tiles reuse them.
-- ``no products over D``: neither s (W1) nor s^T and dp^T (W2) are
-  formed; the partial tiles are still exchanged.
-- ``no row products``: neither p.v (W1) nor dk and dv (W2) run.
+  (W2: query) tile only are loaded; later tiles reuse them.
+- ``no products over D``: neither s (W1) nor s^T and dp^T (W2) nor dp
+  and s (W3) are formed; the partial tiles are still exchanged.
+- ``no row products``: neither p.v (W1) nor dk and dv (W2) nor dq += ds.k
+  (W3) run.
 - ``one product``: f32 takes only hi.hi.
 - ``one group stages``: the first warp group issues every copy, the
   second none (both share them in the kernel).
 
 and plan variants of the committed kernels (``ops/_cuda.py:wide_plan``'s
 constants changed for the call): ``q streamed`` (W1 streams its q rows
-with k instead of holding them whole), ``dcols 32/16`` and ``dcols
-96/32`` (each group takes 32 or 96 columns of a W1 step and 16 or 32 of
-a W2 step, where the kernels take 64 and 32; a wider W2 step does not
-fit shared memory in f32), ``ocols 128/64`` (column chunks of o, dk and dv of at most 128
-and 64 columns) and ``no fill`` (the fewest column chunks even where the
-grid does not fill the card).
+with k, W3 its q and dO rows, instead of holding them whole; f32 at D
+384 streams them anyway), ``dcols 32/16/16`` and ``dcols 96/32/24``
+(W1 takes steps of 2 x 32 or 2 x 96 columns, W2 2 x 16 or 2 x 32 and W3
+2 x 16 or 2 x 24, where the kernels take 64, 32 and 24; a wider W2 or
+W3 step does not fit shared memory in f32), ``ocols 128/64/128``
+(column chunks of o, of dk and dv, and of dq of at most 128, 64 and 128
+columns) and ``no fill`` (the fewest column chunks even where the grid
+does not fill the card).
 
 ``mma rate``: a kernel that issues only ``mma.sync.m16n8k8`` TF32
 products (8 independent accumulators a warp, 4 warps a block, 8 blocks
@@ -75,8 +81,8 @@ an SM, 2000 rounds) and one that issues ``m16n8k16`` fp16 ones: the
 rate G1-G3 can reach at most with this instruction.
 
 Times are CUDA events around 10 launches, median of 20 such batches
-(``chip_smoke._median_ms``; the parent's W1 and W2 at the full case: 2
-launches, median of 3), every variant timed twice, in turns.  It exits
+(``chip_smoke._median_ms``; a W3 of the first design at the full case:
+2 launches, median of 3), every variant timed twice, in turns.  It exits
 non-zero without a CUDA device or when a source edit no longer applies
 (each must find its text exactly once in the source and its headers).
 """
@@ -222,7 +228,15 @@ EDITS = {
          "w.dc);\n      if (busy && nk > 0) {\n        const E* c"),
         ("      if (d == 0) {\n        stage_halves(sQo",
          "      if (it == i_begin && d == 0) {\n"
-         "        stage_halves(sQo")],
+         "        stage_halves(sQo"),
+        ("      if (i + 1 < n_steps) stage_step(i + 1);\n"
+         "      cp_async_commit();\n"
+         "      const int nk = min(",
+         "      if (i + 1 < n_dc) stage_step(i + 1);\n"
+         "      cp_async_commit();\n"
+         "      const int nk = min("),
+        ("      if (d == 0)\n        stage_halves(sKo,",
+         "      if (j == 0 && d == 0)\n        stage_halves(sKo,")],
     ("flash_wide", "one group stages"): [
         ("  const int gr = threadIdx.x / kGenThreads, half = n / 2;\n"
          "  stage_tile(s + gr * half * ld, ld, g, st, row0 + gr * half, half, "
@@ -235,26 +249,35 @@ EDITS = {
         ("      if (busy && nk > 0) {\n        const E* a = w.q_res",
          "      if (false) {\n        const E* a = w.q_res"),
         ("      if (busy && nk > 0) {\n        const E* c = sC",
-         "      if (false) {\n        const E* c = sC")],
+         "      if (false) {\n        const E* c = sC"),
+        ("      if (busy) {\n        const E* aq",
+         "      if (false) {\n        const E* aq")],
     ("flash_wide", "no row products"): [
         ("      product_rows<E, NT, kTcKeys>(o, s, sV + gr * w.oc",
          "      if (false) product_rows<E, NT, kTcKeys>(o, s, sV + gr * w.oc"),
         ("      product_rows<E, NT, BQ>(dk, dp, sQo",
          "      if (false) product_rows<E, NT, BQ>(dk, dp, sQo"),
         ("      product_rows<E, NT, BQ>(dv, st, sOo",
-         "      if (false) product_rows<E, NT, BQ>(dv, st, sOo")],
+         "      if (false) product_rows<E, NT, BQ>(dv, st, sOo"),
+        ("    if (busy)\n      product_rows<E, NT, kTcKeys>(dq, dp,",
+         "    if (false)\n      product_rows<E, NT, kTcKeys>(dq, dp,"),
+        ("    if (busy1) {\n      get_part(",
+         "    if (false) {\n      get_part(")],
 }
 EDITS[("flash_wide", "one product")] = EDITS[("flash_general", "one product")]
 
-# Plan variants of W1 and W2: ops/_cuda.py constants for the call.
+# Plan variants of W1-W3: ops/_cuda.py constants for the call.
 WIDE_PLANS = {
     "q streamed": {"WIDE_Q_RESIDENT_SMEM": 0},
-    "dcols 32/16": {"WIDE_DCOLS": {"flash_fwd_wide": 32,
-                                   "flash_bwd_dkdv_wide": 16}},
-    "dcols 96/32": {"WIDE_DCOLS": {"flash_fwd_wide": 96,
-                                   "flash_bwd_dkdv_wide": 32}},
-    "ocols 128/64": {"WIDE_OCOLS": {"flash_fwd_wide": 128,
-                                    "flash_bwd_dkdv_wide": 64}},
+    "dcols 32/16/16": {"WIDE_DCOLS": {"flash_fwd_wide": 32,
+                                      "flash_bwd_dkdv_wide": 16,
+                                      "flash_bwd_dq_wide": 16}},
+    "dcols 96/32/24": {"WIDE_DCOLS": {"flash_fwd_wide": 96,
+                                      "flash_bwd_dkdv_wide": 32,
+                                      "flash_bwd_dq_wide": 24}},
+    "ocols 128/64/128": {"WIDE_OCOLS": {"flash_fwd_wide": 128,
+                                        "flash_bwd_dkdv_wide": 64,
+                                        "flash_bwd_dq_wide": 128}},
     "no fill": {"WIDE_SMS": 0},
 }
 
@@ -355,34 +378,29 @@ def _build_all(variants: dict, csrc: Path, parent) -> dict:
     return libs
 
 
-def _parent_wide(lib, c, lse, delta):
-    """Calls of the parent's W1 and W2 on case ``c`` (one row a block; its
-    entry points take only the shared memory, 8 D and 16 D bytes)."""
+def _parent_calls(src, lib, c, lse, delta) -> dict:
+    """Calls of the parent's W3 on case ``c`` where it is of the first
+    design (``src``: the parent's ``flash_wide.cu``): one query row a
+    block, whose entry point takes only its shared memory, 12 D bytes.
+    Empty where the parent's W1-W3 take the committed arguments."""
     from horovod_tpu_torch.ops import _cuda
+    if "wide_dq_smem_bytes" not in src:
+        return {}
     q, k, v, do, H = c["q"], c["k"], c["v"], c["do"], c["H"]
     B, T, C, D = c["B"], c["T"], q.shape[-1], c["D"]
     tail = (B, H, T, D, T, 1, c["scale"])
-    fwd, bwd = lib.htt_flash_fwd_wide, lib.htt_flash_bwd_dkdv_wide
-    fwd.argtypes = (_cuda._I,) + _cuda._VIEW * 4 + (_cuda._P,) \
-        + _cuda._WIDE_TAIL
-    bwd.argtypes = (_cuda._I,) + _cuda._VIEW * 4 + (_cuda._P, _cuda._P) \
-        + _cuda._VIEW * 2 + _cuda._WIDE_TAIL
-    o, dk, dv = (torch.empty((B, T, C), device="cuda") for _ in range(3))
-    lse_out = torch.empty((B, H, T), device="cuda")
     views = [a for x in (q, k, v, do) for a in (x.data_ptr(), *x.stride()[:2])]
     stream = torch.cuda.current_stream().cuda_stream
+    dq = torch.empty((B, T, C), device="cuda")
+    fn = lib.htt_flash_bwd_dq_wide
+    fn.argtypes = (_cuda._I,) + _cuda._VIEW * 4 + (_cuda._P, _cuda._P) \
+        + _cuda._VIEW + (_cuda._I,) * 6 + (_cuda._F, _cuda._I, _cuda._P)
 
-    def w1():
-        _cuda._check(fwd(0, *views[:9], o.data_ptr(),
-                         *o.stride()[:2], lse_out.data_ptr(), *tail, 8 * D,
-                         stream), "parent W1")
-
-    def w2():
-        _cuda._check(bwd(0, *views, lse.data_ptr(), delta.data_ptr(),
-                         dk.data_ptr(), *dk.stride()[:2], dv.data_ptr(),
-                         *dv.stride()[:2], *tail, 16 * D, stream),
-                     "parent W2")
-    return w1, w2
+    def w3():
+        _cuda._check(fn(0, *views, lse.data_ptr(), delta.data_ptr(),
+                        dq.data_ptr(), *dq.stride()[:2], *tail, 12 * D,
+                        stream), "parent W3")
+    return {"flash_bwd_dq_wide": w3}
 
 
 def _mma_rate() -> list:
@@ -424,9 +442,10 @@ def _mma_rate() -> list:
     return rows
 
 
-def _wide_times(cs, libs, parent_lib, label, case) -> dict:
-    """W1 and W2 on ``case`` (f32): the committed kernels, their text
-    variants and plan variants, and the parent's, in turns."""
+def _wide_times(cs, libs, parent_lib, parent_src, label, case) -> dict:
+    """W1-W3 on ``case`` (f32): the committed kernels, their text variants
+    and plan variants, and the parent's (``parent_src``: its
+    ``flash_wide.cu``), in turns."""
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
@@ -439,6 +458,8 @@ def _wide_times(cs, libs, parent_lib, label, case) -> dict:
     del o
     calls = {"flash_fwd_wide": lambda: _cuda.flash_fwd(q, k, v, H, **kw),
              "flash_bwd_dkdv_wide": lambda: _cuda.flash_bwd_dkdv(
+                 q, k, v, do, lse, delta, H, **kw),
+             "flash_bwd_dq_wide": lambda: _cuda.flash_bwd_dq(
                  q, k, v, do, lse, delta, H, **kw)}
     texts = [n for (stem, n) in libs if stem == "flash_wide"]
     names = texts + list(WIDE_PLANS) + (["parent"] if parent_lib else [])
@@ -446,17 +467,19 @@ def _wide_times(cs, libs, parent_lib, label, case) -> dict:
     saved = {n: getattr(_cuda, n) for p in WIDE_PLANS.values() for n in p}
     times: dict = {}
     for name in names + names[::-1]:
-        _cuda._LIBS["flash_wide"] = libs.get(("flash_wide", name), committed)
+        _cuda._LIBS["flash_wide"] = (parent_lib if name == "parent" else
+                                     libs.get(("flash_wide", name), committed))
         for n, value in WIDE_PLANS.get(name, {}).items():
             setattr(_cuda, n, value)
+        timed = calls
+        slow = name == "parent" and "wide_dq_smem_bytes" in parent_src
         if name == "parent":
-            timed = dict(zip(calls, _parent_wide(parent_lib, c, lse, delta)))
-        else:
-            timed = calls
-        slow = name == "parent" and label == "full"
+            timed = dict(calls, **_parent_calls(parent_src, parent_lib, c,
+                                                lse, delta))
         for kernel, call in timed.items():
             times.setdefault((kernel, label, name), []).append(
-                cs._median_ms(call, runs=3, warmup=1, reps=2) if slow
+                cs._median_ms(call, runs=3, warmup=1, reps=2)
+                if slow and kernel == "flash_bwd_dq_wide" and label == "full"
                 else cs._median_ms(call))
         for n, value in saved.items():
             setattr(_cuda, n, value)
@@ -480,7 +503,7 @@ def main() -> None:
     parser.add_argument("--parent", type=Path, default=None,
                         help="an earlier commit's csrc directory")
     parser.add_argument("--wide-only", action="store_true",
-                        help="W1 and W2 alone, and the mma rate")
+                        help="W1-W3 alone, and the mma rate")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this needs a CUDA GPU")
@@ -510,6 +533,8 @@ def main() -> None:
         variants = {"flash_wide": variants["flash_wide"]}
     libs = _build_all(variants, csrc, args.parent)
     parent_wide = libs.pop(("flash_wide", "parent"), None)
+    parent_src = ((args.parent / "flash_wide.cu").read_text()
+                  if args.parent else "")
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     c = cs._case(cs.BATCH, cs.HEADS, cs.SEQ, cs.DIM // cs.HEADS, True, None,
@@ -553,7 +578,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     plans = {}
     for label, case in (("full", cs.WIDE_FULL_CASE), ("small", cs.WIDE_CASE)):
-        t, p = _wide_times(cs, libs, parent_wide, label, case)
+        t, p = _wide_times(cs, libs, parent_wide, parent_src, label, case)
         times.update(t)
         plans.update(p)
     _cuda._LIBS.clear()

@@ -10,48 +10,48 @@
 // The JAX package has no bound on D; ops/_cuda.py:flash_family sends
 // D > 256 here.
 //
-// W1 and W2 run on the tensor cores with G1's and G2's pieces
-// (flash_mma.cuh): mma.sync.m16n8k8 with TF32 operands, three products a
-// term for f32 and one for fp16, bf16 and p, ds once rounded.  A block
-// owns 64 rows of one head (W1: query rows, the heaviest first; W2: key
-// rows, the lowest first) with two groups of 4 warps: warps w and w + 4
-// own the same m16 tile of rows.  What bounds them is what bounds G1 and
-// G2, the products and the operands' way into registers, and past D 256
-// two limits besides: 64 rows x D no longer fit shared memory, nor 16 x D
-// f32 of o (2 x 16 x D of dk and dv) a warp's registers.  So:
-// - the products over D (W1: s = q.k^T; W2: s^T = k.q^T, dp^T = v.dO^T)
-//   run in steps of 2 dc columns of each operand, through two buffers
-//   filled by cp.async: the next step loads while this one's products
-//   run.  In each step group 0 takes the first dc columns and group 1
-//   the rest; each step's part is summed from 0 on the tensor cores and
-//   added to the warp's partial s (dp) in f32, and the two warps of a
-//   pair then add their partial tiles through shared memory (put_part,
-//   add_part).  Shared memory does not grow with D, and no product is
-//   formed twice in a block.  W1 may stage its 64 q rows whole instead,
-//   once (q_res), where ops/_cuda.py:wide_plan says so.
-// - the columns of o (W1), dk and dv (W2) are cut into chunks of at most
-//   oc columns, which a warp's registers hold: two a block, one a group.
-//   Each block forms s (s and dp) over all of D for its two chunks, so
-//   for n chunks the products are (ceil(n / 2) + 1) / 2 of the least: 1x
-//   (W1) and 1.5x (W2) at D 384 (wide_plan's `products`, which also
-//   counts the extra chunks a grid too small to fill the card takes).
+// W1-W3 run on the tensor cores with G1-G3's pieces (flash_mma.cuh):
+// mma.sync.m16n8k8 with TF32 operands, three products a term for f32 and
+// one for fp16, bf16 and p, ds once rounded.  A block owns 64 rows of one
+// head (W1 and W3: query rows, the heaviest first; W2: key rows, the
+// lowest first) with two groups of 4 warps: warps w and w + 4 own the
+// same m16 tile of rows.  What bounds them is what bounds G1-G3, the
+// products and the operands' way into registers, and past D 256 two
+// limits besides: 64 rows x D no longer fit shared memory, nor 16 x D f32
+// of o or dq (2 x 16 x D of dk and dv) a warp's registers.  So:
+// - the products over D (W1: s = q.k^T; W2: s^T = k.q^T, dp^T = v.dO^T;
+//   W3: dp = dO.v^T, s = q.k^T) run in steps of 2 dc columns of each
+//   operand, through two buffers filled by cp.async: the next step loads
+//   while this one's products run.  Each step's part is summed from 0 on
+//   the tensor cores and added to the warp's s (dp) in f32.  In W1 and
+//   W2 group 0 takes the first dc columns of each step and group 1 the
+//   rest, and the two warps of a pair add their partial tiles through
+//   shared memory (put_part, add_part).  W3 streams 64 keys a tile
+//   instead of 32, and the pair splits the keys: each warp forms s and dp
+//   for its 32 keys over the whole step, so each staged step serves twice
+//   the keys; the two then exchange ds (put_part, get_part).  Shared
+//   memory does not grow with D, and no product is formed twice in a
+//   block.  W1 may stage its 64 q rows whole instead, once, and W3 its 64
+//   q and 64 dO rows (q_res), where ops/_cuda.py:wide_plan finds that
+//   they fit.
+// - the columns of o (W1), dk and dv (W2) and dq (W3) are cut into chunks
+//   of at most oc columns, which a warp's registers hold: two a block, one
+//   a group.  Each block forms s (s and dp) over all of D for its two
+//   chunks, so for n chunks, b = ceil(n / 2) blocks of them, the products
+//   are (b + 1) / 2 (W1, W2) and (2 b + 1) / 3 (W3) of the least: 1x (W1,
+//   W3) and 1.5x (W2) at D 384 (wide_plan's `products`, which also counts
+//   the extra chunks a grid too small to fill the card takes).
 // The other side streams a tile of 32 rows at a time (W1: k and v; W2: q
-// and dO with their lse and delta).  Of the tile that p.v (v), dv += p^T
-// dO and dk += ds^T q (dO, q) read, only the block's column chunks are
-// staged, once a tile.  Both warp groups issue the copies.  Rows at or past
-// seq_len are staged as 0, never read.  lse is written by the first
-// group of the blocks of the first chunks.  Warps skip the tiles that
-// causality and seq_len mask entirely for them; the mask applies element
-// by element only on tiles that cross the diagonal or an edge.  Copies
-// are 16, 4 or one element wide by general_plan's rule.
-//
-// W3 is still the first, simple design: a block of 4 warps owns ONE query
-// row of one head; q, dO and the f32 dq accumulator live in shared memory
-// as D floats each (12 D bytes), and k and v stream from global memory 32
-// rows a tile: each warp takes every fourth row of the tile and forms its
-// dot products over D in FFMA, lanes striding the columns, reduced by a
-// butterfly of shuffles; then every thread updates the dq columns it owns
-// (c = thread, thread + 128, ...) with the tile's rows, in row order.
+// and dO with their lse and delta; W3: 64 rows of k and v).  Of the tile
+// that p.v (v), dv += p^T dO and dk += ds^T q (dO, q) or dq += ds.k (k)
+// read, only the block's column chunks are staged, once a tile.  Both
+// warp groups issue the copies.  Rows at or past seq_len are staged as 0,
+// never read.  lse is written by the first group of the blocks of the
+// first chunks; W3 keeps the lse and delta of its rows in registers, as
+// G3.  Warps skip the tiles that causality and seq_len mask entirely for
+// them; the mask applies element by element only on tiles that cross the
+// diagonal or an edge.  Copies are 16, 4 or one element wide by
+// general_plan's rule.
 //
 // Every sum runs in a fixed order without atomics: every result is
 // deterministic.  Numerics follow the plain versions
@@ -69,22 +69,26 @@
 namespace htt {
 
 // ---------------------------------------------------------------------------
-// W1 and W2.
+// W1-W3.
 
 constexpr int kWideTcThreads = 2 * kGenThreads;  // two groups of 4 warps
 // Accumulators of a chunk's f32 sum over D (product_t): one, as each sum
-// over a chunk is short; it saves the registers W2 needs.
+// over a chunk is short; it saves the registers W2 and W3 need.
 constexpr int kWideSets = 1;
 constexpr int kSPart = 16 * kTcKeys;  // f32 of one warp's partial s tile
+constexpr int kW3Keys = 2 * kTcKeys;  // k and v rows of a W3 tile
 
-// W1 and W2: the general family's parameters plus the plan of
+// W1-W3: the general family's parameters plus the plan of
 // ops/_cuda.py:wide_plan.
 template <typename E>
 struct WideTcParams {
   GenParams<E> g;
-  int oc;     // columns of o (W1), dk and dv (W2) a warp group computes
-  int dc;     // columns of a warp group's half of each step over D
-  int q_res;  // W1: the block's 64 q rows are staged whole, once
+  int oc;     // columns of o (W1), dk and dv (W2) or dq (W3) a warp group
+  //             computes
+  int dc;     // half the columns of each step over D (W1, W2: a warp
+  //             group's half)
+  int q_res;  // W1: the block's 64 q rows are staged whole, once; W3: its
+  //             64 q and 64 dO rows
 };
 
 // Column chunks of oc columns (the last may be narrower) over D8, one a
@@ -96,14 +100,17 @@ __host__ __device__ inline int wide_block_chunks(int D, int oc) {
   return (wide_chunks(D, oc) + 1) / 2;
 }
 
-// Dynamic shared memory of W1 (kernel 0) or W2 (1) at head size D,
-// element size es and the plan's oc, dc and q_res; a step's tiles are
+// Dynamic shared memory of W1 (kernel 0), W2 (1) or W3 (2) at head size
+// D, element size es and the plan's oc, dc and q_res; a step's tiles are
 // 2 dc columns wide, the tiles of the block's column chunks 2 oc.  W1:
 // its q rows (64 x D whole, or two buffers of a step's 64 rows), two
 // buffers of a step's 32 k rows, the 8 warps' partial s tiles, the v
 // tile's 32 rows.  W2: two buffers of a step's 64 k and 64 v rows and 32
 // q and 32 dO rows, the q tile's lse and delta, the 8 warps' partial s
-// and dp tiles, the q and dO tiles' 32 rows.  Each then kTcSlack bytes.
+// and dp tiles, the q and dO tiles' 32 rows.  W3: its q and dO rows (64
+// x D each whole, or two buffers of a step's 64 each), two buffers of a
+// step's 64 k and 64 v rows, the 8 warps' ds tiles, the k tile's 64 rows.
+// Each then kTcSlack bytes.
 inline long long wide_tc_smem_bytes(int kernel, int D, int es, int oc,
                                     int dc, int q_res) {
   const long long c = gen_tc_ld(2 * dc, es) * es;
@@ -111,11 +118,14 @@ inline long long wide_tc_smem_bytes(int kernel, int D, int es, int oc,
   if (kernel == 0)
     return (q_res ? kTcRows * gen_tc_ld(D, es) * es : 2 * kTcRows * c) +
            2 * kTcKeys * c + 8 * kSPart * 4 + kTcKeys * o + kTcSlack;
+  if (kernel == 2)
+    return (q_res ? 2 * kTcRows * gen_tc_ld(D, es) * es : 4 * kTcRows * c) +
+           4 * kW3Keys * c + 8 * kSPart * 4 + kW3Keys * o + kTcSlack;
   return 2 * (2 * kTcRows + 2 * kTcQueries) * c + 2 * kTcQueries * 4 +
          2 * 8 * kSPart * 4 + 2 * kTcQueries * o + kTcSlack;
 }
 
-// stage_tile by both warp groups of a W1 or W2 block, each staging half
+// stage_tile by both warp groups of a W1-W3 block, each staging half
 // of the n rows.
 template <typename E>
 __device__ __forceinline__ void stage_halves(E* s, int ld, const E* g,
@@ -149,6 +159,14 @@ __device__ __forceinline__ void add_part(float (&x)[4][4], const float* s) {
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) x[nt][c] += s[(nt * 4 + c) * 32 + lane];
+}
+// The partner warp's tile, as put_part left it (W3's ds).
+__device__ __forceinline__ void get_part(float (&x)[4][4], const float* s) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[nt][c] = s[(nt * 4 + c) * 32 + lane];
 }
 
 // W1: o (two column chunks of it, one a warp group) and lse for 64 query
@@ -430,10 +448,169 @@ __global__ void __launch_bounds__(kWideTcThreads)
                      p.T, D, dv, 1.f, 1.f, g, t);
 }
 
-// Columns of o (W1, kernel 0) or dk and dv (W2, 1) a warp may hold: the
-// instantiations' largest NT.
+// W3: dq (two column chunks of it, one a warp group) for 64 query rows,
+// k and v streamed kW3Keys = 64 rows a tile.  Warps w and w + 4 own the
+// same 16 rows and split the tile's keys: each forms dp = dO.v^T and
+// s = q.k^T for its 32 keys over all of every step's columns, then ds;
+// the two exchange ds through shared memory, and each adds ds.k of both
+// halves to its chunk of dq.  NT: 8-column tiles of dq a warp holds, at
+// least oc / 8.
+template <typename E, int NT>
+__global__ void __launch_bounds__(kWideTcThreads)
+    flash_bwd_dq_wide_kernel(const WideTcParams<E> w) {
+  static_assert(kTcKeys == 32, "a warp's s and dp tiles are 16 x 32");
+  const GenParams<E>& p = w.g;
+  extern __shared__ uint4 wsm_tc[];
+  const int D = p.D, d8 = gen_d8(D);
+  const int ldc = gen_tc_ld(2 * w.dc, sizeof(E));
+  const int ldq = w.q_res ? gen_tc_ld(D, sizeof(E)) : ldc;
+  const int ldk = gen_tc_ld(2 * w.oc, sizeof(E));
+  // q and dO rows: resident, 64 each, or two buffers of a step's 64 q
+  // and 64 dO rows; then two buffers of a step's 64 k and 64 v rows.
+  E* sQ = reinterpret_cast<E*>(wsm_tc);
+  E* sKV = sQ + 2 * kTcRows * (w.q_res ? ldq : 2 * ldc);
+  float* sS = reinterpret_cast<float*>(sKV + 4 * kW3Keys * ldc);  // ds
+  E* sKo = reinterpret_cast<E*>(sS + 8 * kSPart);  // last: ds.k reads past
+  const int n_bc = wide_block_chunks(D, w.oc);
+  const int rb = blockIdx.x / n_bc, bc = blockIdx.x - rb * n_bc;
+  const int q0 = (gridDim.x / n_bc - 1 - rb) * kTcRows;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, gr = warp >> 2;
+  const int cb = 2 * bc * w.oc;  // the block's columns
+  const int cb_cols = min(2 * w.oc, d8 - cb);
+  const int n_ct = max(min(w.oc, d8 - cb - gr * w.oc), 0) / 8;  // own
+  const int wrow = q0 + 16 * (warp & 3);  // the warp's first query row
+  const long long hD = (long long)h * D;
+  const long long bh = (long long)b * p.H + h;
+  const E* gq = p.q.ptr + b * p.q.sb + hD;
+  const E* gk = p.k.ptr + b * p.k.sb + hD;
+  const E* gv = p.v.ptr + b * p.v.sb + hD;
+  const E* go = p.dout.ptr + b * p.dout.sb + hD;
+  int n_kv = q0 < p.lim ? (p.lim + kW3Keys - 1) / kW3Keys : 0;
+  if (p.causal) n_kv = min(n_kv, (q0 + kTcRows - 1) / kW3Keys + 1);
+  const int n_dc = (d8 + 2 * w.dc - 1) / (2 * w.dc);
+  const int n_steps = n_kv * n_dc;
+  // Step i: columns 2 dc (i % n_dc) .. of k and v tile i / n_dc (and of
+  // the q and dO rows unless they are resident), into buffer i & 1.
+  auto stage_step = [&](int i) {
+    const int j = i / n_dc, d0 = (i - j * n_dc) * 2 * w.dc;
+    const int cols = min(2 * w.dc, d8 - d0);
+    if (!w.q_res) {
+      E* s = sQ + (i & 1) * 2 * kTcRows * ldc;
+      stage_halves(s, ldc, gq + d0, p.q.st, q0, kTcRows, p.lim, D - d0,
+                   cols, p.vec);
+      stage_halves(s + kTcRows * ldc, ldc, go + d0, p.dout.st, q0, kTcRows,
+                   p.lim, D - d0, cols, p.vec);
+    }
+    E* s = sKV + (i & 1) * 2 * kW3Keys * ldc;
+    stage_halves(s, ldc, gk + d0, p.k.st, j * kW3Keys, kW3Keys, p.lim,
+                 D - d0, cols, p.vec);
+    stage_halves(s + kW3Keys * ldc, ldc, gv + d0, p.v.st, j * kW3Keys,
+                 kW3Keys, p.lim, D - d0, cols, p.vec);
+  };
+  if (n_steps > 0) {
+    if (w.q_res) {
+      stage_halves(sQ, ldq, gq, p.q.st, q0, kTcRows, p.lim, D, d8, p.vec);
+      stage_halves(sQ + kTcRows * ldq, ldq, go, p.dout.st, q0, kTcRows,
+                   p.lim, D, d8, p.vec);
+    }
+    stage_step(0);
+  }
+  cp_async_commit();
+  // lse and delta of rows g (r 0) and g + 8 (r 1); rows at or past T read
+  // as 0 (the mask hides them).
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    lse[r] = row < p.T ? p.lse[bh * p.T + row] : 0.f;
+    delta[r] = row < p.T ? p.delta[bh * p.T + row] : 0.f;
+  }
+
+  float dq[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[nt][c] = 0.f;
+  const int r = 16 * (warp & 3);
+  for (int j = 0; j < n_kv; ++j) {
+    // The warp's keys: k0 .. k0 + 31; its partner's: k0 ^ 32 .. + 31.
+    const int k0 = j * kW3Keys + kTcKeys * gr, k1 = k0 ^ kTcKeys;
+    const bool busy = wrow < p.lim && k0 < p.lim &&
+                      !(p.causal && k0 > wrow + 15);
+    const bool busy1 = wrow < p.lim && k1 < p.lim &&
+                       !(p.causal && k1 > wrow + 15);
+    // dp = dO.v^T and s = q.k^T: 16 rows x the warp's keys, n-tile nt =
+    // keys k0 + 8 nt .. k0 + 8 nt + 7, step by step over D.
+    float dp[kTcKeys / 8][4] = {}, s[kTcKeys / 8][4] = {};
+    for (int d = 0; d < n_dc; ++d) {
+      const int i = j * n_dc + d;
+      cp_async_wait<0>();
+      __syncthreads();  // step i is in buffer i & 1; every warp is done
+      //                   with step i - 1 and, at d 0, with k tile j - 1
+      //                   and the ds of tile j - 1
+      if (d == 0)
+        stage_halves(sKo, ldk, gk + cb, p.k.st, j * kW3Keys, kW3Keys, p.lim,
+                     D - cb, cb_cols, p.vec);
+      cp_async_commit();
+      if (i + 1 < n_steps) stage_step(i + 1);
+      cp_async_commit();
+      const int nk = min(2 * w.dc, d8 - d * 2 * w.dc) / 8;
+      if (busy) {
+        const E* aq = w.q_res ? sQ + r * ldq + d * 2 * w.dc
+                              : sQ + ((i & 1) * 2 * kTcRows + r) * ldc;
+        const E* kv = sKV + ((i & 1) * 2 * kW3Keys + kTcKeys * gr) * ldc;
+        product_t<E, kTcKeys / 8, true, kWideSets>(
+            dp, aq + kTcRows * ldq, ldq, kv + kW3Keys * ldc, ldc, nk, g, t);
+        product_t<E, kTcKeys / 8, true, kWideSets>(s, aq, ldq, kv, ldc, nk,
+                                                   g, t);
+      }
+    }
+    if (busy) {
+      // p = exp(s scale - lse) (0 where masked), ds = p (dp - delta)
+      // scale rounded to E; dp now holds ds, for the partner too.
+      const bool edge = (p.causal && k0 + kTcKeys - 1 > wrow) ||
+                        k0 + kTcKeys > p.lim || wrow + 16 > p.lim;
+#pragma unroll
+      for (int nt = 0; nt < kTcKeys / 8; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool vis =
+              !edge || visible(wrow + g + (c >> 1) * 8,
+                               k0 + 8 * nt + 2 * t + (c & 1), p.causal,
+                               p.lim);
+          const float pe =
+              vis ? expf(s[nt][c] * p.scale - lse[c >> 1]) : 0.f;
+          dp[nt][c] =
+              round_to<E>(pe * (dp[nt][c] - delta[c >> 1]) * p.scale);
+        }
+      put_part(sS + warp * kSPart, dp);
+    }
+    cp_async_wait<1>();
+    __syncthreads();  // k tile j's columns and both warps' ds are in
+    //                   shared memory
+    // dq += ds.k over the group's columns: the warp's keys, then its
+    // partner's.
+    const E* ko = sKo + gr * w.oc;
+    if (busy)
+      product_rows<E, NT, kTcKeys>(dq, dp, ko + kTcKeys * gr * ldk, ldk,
+                                   n_ct, 1.f, 1.f, g, t);
+    if (busy1) {
+      get_part(s, sS + (warp ^ 4) * kSPart);
+      product_rows<E, NT, kTcKeys>(dq, s, ko + kTcKeys * (gr ^ 1) * ldk,
+                                   ldk, n_ct, 1.f, 1.f, g, t);
+    }
+  }
+
+  store_frags<E, NT>(p.dq.ptr + b * p.dq.sb + hD, p.dq.st, wrow,
+                     cb + gr * w.oc, n_ct, p.T, D, dq, 1.f, 1.f, g, t);
+}
+
+// Columns of o (W1, kernel 0), dk and dv (W2, 1) or dq (W3, 2) a warp may
+// hold: the instantiations' largest NT.
 __host__ __device__ inline int wide_max_oc(int kernel) {
-  return kernel == 0 ? 256 : 128;
+  return kernel == 0 ? 256 : kernel == 1 ? 128 : 192;
 }
 
 template <typename E>
@@ -444,9 +621,12 @@ cudaError_t launch_wide_tc(int kernel, const WideTcParams<E>& w, int B,
     fn = w.oc <= 128   ? flash_fwd_wide_kernel<E, 16>
          : w.oc <= 192 ? flash_fwd_wide_kernel<E, 24>
                        : flash_fwd_wide_kernel<E, 32>;
-  else
+  else if (kernel == 1)
     fn = w.oc <= 64 ? flash_bwd_dkdv_wide_kernel<E, 8>
                     : flash_bwd_dkdv_wide_kernel<E, 16>;
+  else
+    fn = w.oc <= 128 ? flash_bwd_dq_wide_kernel<E, 16>
+                     : flash_bwd_dq_wide_kernel<E, 24>;
   const int blocks =
       (w.g.T + kTcRows - 1) / kTcRows * wide_block_chunks(w.g.D, w.oc);
   cudaError_t err = cudaFuncSetAttribute(
@@ -468,7 +648,7 @@ inline int run_wide_tc(int kernel, int dtype, const void* const* ptrs,
   const int es = dtype == 0 ? 4 : 2;
   if (dtype < 0 || dtype > 2 || D < 1 || T < 1 || oc < 8 || oc % 8 ||
       oc > wide_max_oc(kernel) || dc < 8 || dc % 8 || q_res < 0 ||
-      q_res > (kernel == 0) ||
+      q_res > (kernel != 1) ||
       smem_bytes != wide_tc_smem_bytes(kernel, D, es, oc, dc, q_res) ||
       !copies_fit(kernel, ptrs, strides, D, es, vec))
     return cudaErrorInvalidValue;
@@ -488,128 +668,6 @@ inline int run_wide_tc(int kernel, int dtype, const void* const* ptrs,
           ptrs, strides, lse, delta, H, T, D, seq_len, causal, scale, vec),
           oc, dc, q_res}, B, smem_bytes, s);
   }
-}
-
-// ---------------------------------------------------------------------------
-// W3.
-
-constexpr int kWideThreads = 128;
-constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kWideTile = 32;  // rows of the other side a step
-
-template <typename E>
-struct WideParams {
-  const E* in[4];  // q, k, v, dout
-  long long in_sb[4], in_st[4];
-  E* out;  // dq
-  long long out_sb, out_st;
-  const float* lse;
-  const float* delta;
-  int H, T, D, lim, causal;
-  float scale;
-};
-
-template <typename E>
-__device__ __forceinline__ const E* wide_row(const WideParams<E>& p, int op,
-                                             int b, int t, int h) {
-  return p.in[op] + b * p.in_sb[op] + t * p.in_st[op] +
-         static_cast<long long>(h) * p.D;
-}
-
-// sum over c < D of a[c] * x[c], a in shared memory, x a row in global
-// memory; every lane of the warp gets the same bits.
-template <typename E>
-__device__ __forceinline__ float warp_dot(const float* a, const E* x, int D,
-                                          int lane) {
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(a[c], to_f32(x[c]), acc);
-  for (int off = 16; off; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
-}
-
-template <typename E>
-__device__ __forceinline__ void load_row(float* dst, const E* src, int D) {
-  for (int c = threadIdx.x; c < D; c += kWideThreads)
-    dst[c] = to_f32(src[c]);
-}
-
-// W3: dq of query row blockIdx.x.
-template <typename E>
-__global__ void __launch_bounds__(kWideThreads)
-    flash_bwd_dq_wide_kernel(const WideParams<E> p) {
-  extern __shared__ float wide_smem[];
-  float* sq = wide_smem;     // D: the query row
-  float* sdo = sq + p.D;     // D: its dO row
-  float* sdq = sdo + p.D;    // D: the dq accumulator
-  __shared__ float sds[kWideTile];
-  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  load_row(sq, wide_row(p, 0, b, i, h), p.D);
-  load_row(sdo, wide_row(p, 3, b, i, h), p.D);
-  for (int c = threadIdx.x; c < p.D; c += kWideThreads) sdq[c] = 0.f;
-  __syncthreads();
-  const long long row = (static_cast<long long>(b) * p.H + h) * p.T + i;
-  const float lse = p.lse[row], delta = p.delta[row];
-  // Keys the row sees: none past seq_len, up to the row under causality.
-  const int n = i < p.lim ? (p.causal ? i + 1 : p.lim) : 0;
-  for (int j0 = 0; j0 < n; j0 += kWideTile) {
-    const int nk = min(kWideTile, n - j0);
-    for (int jj = warp; jj < nk; jj += kWideWarps) {
-      const float s = warp_dot(sq, wide_row(p, 1, b, j0 + jj, h), p.D,
-                               lane) * p.scale;
-      const float dp = warp_dot(sdo, wide_row(p, 2, b, j0 + jj, h), p.D,
-                                lane);
-      if (lane == 0)
-        sds[jj] = round_to<E>(expf(s - lse) * (dp - delta) * p.scale);
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < p.D; c += kWideThreads) {
-      float acc = 0.f;
-      for (int jj = 0; jj < nk; ++jj)
-        acc = fmaf(sds[jj], to_f32(wide_row(p, 1, b, j0 + jj, h)[c]), acc);
-      sdq[c] += acc;
-    }
-    __syncthreads();  // every thread is done with sds
-  }
-  E* dq = p.out + b * p.out_sb + i * p.out_st +
-          static_cast<long long>(h) * p.D;
-  for (int c = threadIdx.x; c < p.D; c += kWideThreads)
-    dq[c] = from_f32<E>(sdq[c]);
-}
-
-// W3's dynamic shared memory at head size D: q, dO and dq, D floats each.
-inline long long wide_dq_smem_bytes(int D) { return 12LL * D; }
-
-template <typename E>
-cudaError_t launch_wide_dq(const void* const* ptrs, const long long* strides,
-                           const void* lse, const void* delta, int B, int H,
-                           int T, int D, int seq_len, int causal,
-                           float scale, int smem, cudaStream_t stream) {
-  WideParams<E> p{};
-  for (int i = 0; i < 4; ++i) {
-    p.in[i] = static_cast<const E*>(ptrs[i]);
-    p.in_sb[i] = strides[2 * i];
-    p.in_st[i] = strides[2 * i + 1];
-  }
-  p.out = static_cast<E*>(const_cast<void*>(ptrs[4]));
-  p.out_sb = strides[8];
-  p.out_st = strides[9];
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.H = H;
-  p.T = T;
-  p.D = D;
-  p.lim = seq_len;
-  p.causal = causal;
-  p.scale = scale;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<E>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_wide_kernel<E><<<dim3(T, H, B), kWideThreads, smem, stream>>>(
-      p);
-  return cudaGetLastError();
 }
 
 }  // namespace htt
@@ -652,35 +710,21 @@ extern "C" int htt_flash_bwd_dkdv_wide(
                           smem_bytes, stream);
 }
 
-// W3.  Inputs as W2; dq: a (B, T, H*D) view of the same dtype.
-// smem_bytes is ops/_cuda.py:wide_smem_bytes, checked here.
+// W3.  Inputs as W2; dq: a (B, T, H*D) view of the same dtype, written
+// in full; vec, oc, dc, q_res and smem_bytes as W1's.
 extern "C" int htt_flash_bwd_dq_wide(
     int dtype, const void* q, long long q_sb, long long q_st, const void* k,
     long long k_sb, long long k_st, const void* v, long long v_sb,
     long long v_st, const void* dout, long long do_sb, long long do_st,
     const void* lse, const void* delta, void* dq, long long dq_sb,
     long long dq_st, int B, int H, int T, int D, int seq_len, int causal,
-    float scale, int smem_bytes, void* stream) {
-  const void* ptrs[5] = {q, k, v, dout, dq};
-  const long long strides[10] = {q_sb, q_st, k_sb,  k_st,  v_sb,
-                                 v_st, do_sb, do_st, dq_sb, dq_st};
-  if (dtype < 0 || dtype > 2 || D < 1 || T < 1 ||
-      smem_bytes != htt::wide_dq_smem_bytes(D))
-    return cudaErrorInvalidValue;
-  if (H > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return htt::launch_wide_dq<float>(ptrs, strides, lse, delta, B, H, T,
-                                        D, seq_len, causal, scale,
-                                        smem_bytes, s);
-    case 1:
-      return htt::launch_wide_dq<__half>(ptrs, strides, lse, delta, B, H, T,
-                                         D, seq_len, causal, scale,
-                                         smem_bytes, s);
-    default:
-      return htt::launch_wide_dq<htt::bf16>(ptrs, strides, lse, delta, B, H, T,
-                                       D, seq_len, causal, scale,
-                                       smem_bytes, s);
-  }
+    float scale, int vec, int oc, int dc, int q_res, int smem_bytes,
+    void* stream) {
+  const void* ptrs[8] = {q, k, v, dout, nullptr, dq, nullptr, nullptr};
+  const long long strides[16] = {q_sb, q_st, k_sb, k_st, v_sb, v_st,
+                                 do_sb, do_st, 0, 0, dq_sb, dq_st, 0, 0,
+                                 0, 0};
+  return htt::run_wide_tc(2, dtype, ptrs, strides, lse, delta, B, H, T, D,
+                          seq_len, causal, scale, vec, oc, dc, q_res,
+                          smem_bytes, stream);
 }

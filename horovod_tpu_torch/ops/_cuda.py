@@ -54,8 +54,6 @@ _GEN_TAIL = (_I,) * 6 + (_F, _I, _I, _P)
 # B, H, T, D, seq_len, causal, scale, copy bytes, column chunk, D chunk,
 # q resident, smem bytes, stream
 _WIDE_TC_TAIL = (_I,) * 6 + (_F,) + (_I,) * 5 + (_P,)
-# B, H, T, D, seq_len, causal, scale, smem bytes, stream
-_WIDE_TAIL = (_I,) * 6 + (_F, _I, _P)
 _ARGTYPES = {
     "htt_flash_fwd": _VIEW * 4 + (_P,) + _PLAN_TAIL,
     "htt_flash_bwd_dkdv": _VIEW * 4 + (_P, _P) + _VIEW * 2 + _PLAN_TAIL,
@@ -71,7 +69,7 @@ _ARGTYPES = {
     "htt_flash_bwd_dkdv_wide": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW * 2
     + _WIDE_TC_TAIL,
     "htt_flash_bwd_dq_wide": (_I,) + _VIEW * 4 + (_P, _P) + _VIEW
-    + _WIDE_TAIL,
+    + _WIDE_TC_TAIL,
     "htt_int8_quantize": (_P, _P, _P, _I64, _P),
     "htt_int8_dequantize": (_P, _P, _P, _I64, _P),
 }
@@ -175,20 +173,13 @@ _GEN_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 GENERAL_MAX_D = 256
 # Shared memory a block may have on an H100, static and dynamic together.
 SMEM_LIMIT = 232_448
-# The largest head size of the wide route (csrc/flash_wide.cu), a fixed
-# limit of the route: (SMEM_LIMIT - 256) // 16.  The shared memory of W1
-# and W2 does not grow with D; W3's three rows of D floats, beside its
-# static tile of 32 (WIDE_STATIC_SMEM), fit at this D.
+# The largest head size of the wide route (csrc/flash_wide.cu): the
+# inputs it accepts, fixed when its first dq kernel held rows of D floats
+# in shared memory.  No kernel of the route now needs shared memory that
+# grows with D (W1 and W3 keep their own rows whole only where wide_plan
+# finds that they fit, and stream them in steps otherwise), so nothing
+# but this limit bounds D; chip_smoke.py launches W1-W3 at it.
 WIDE_MAX_D = 14_512
-WIDE_STATIC_SMEM = 32 * 4
-
-
-def wide_smem_bytes(kernel: str, D: int) -> int:
-    """Dynamic shared memory of W3 (``"flash_bwd_dq_wide"``: q, dO and
-    dq) at head size D: D floats a row."""
-    if kernel != "flash_bwd_dq_wide":
-        raise ValueError(f"W1 and W2 take wide_plan, not {kernel!r}")
-    return 12 * D
 
 
 def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
@@ -201,9 +192,9 @@ def flash_family(dtype, D: int, strides, data_ptr: int) -> str:
     ``mma.sync``, three products a term for f32): float32 and float16 at
     any head size up to 256, and bfloat16 at the other head sizes up to
     256, with a unit column stride.  ``"wide"`` (W1-W3,
-    ``csrc/flash_wide.cu``: W1 and W2 on TF32 ``mma.sync`` with D in
-    chunks, :func:`wide_plan`; W3 FFMA, one row a block): every dtype at a
-    head size from 257 to :data:`WIDE_MAX_D`, with a unit column stride.
+    ``csrc/flash_wide.cu``: TF32 ``mma.sync`` with D in steps and the
+    output's columns in chunks, :func:`wide_plan`): every dtype at a head
+    size from 257 to :data:`WIDE_MAX_D`, with a unit column stride.
     A rule on the input, fixed in advance: anything else raises
     ``ValueError`` naming the limit, and nothing falls back from one
     family to another."""
@@ -434,32 +425,47 @@ def general_plan(kernel: str, B: int, H: int, T: int, D: int,
                        (blocks * halves, H, B), _GEN_THREADS, smem)
 
 
-_WIDE_KERNELS = ("flash_fwd_wide", "flash_bwd_dkdv_wide")
-_WIDE_THREADS = 256      # W1, W2: two groups of 4 warps
+_WIDE_KERNELS = ("flash_fwd_wide", "flash_bwd_dkdv_wide",
+                 "flash_bwd_dq_wide")
+_WIDE_THREADS = 256      # W1-W3: two groups of 4 warps
 _WIDE_PART = 16 * 32 * 4  # bytes of one warp's partial s (dp) tile
-# W1 and W2 (csrc/flash_wide.cu): the columns a warp group takes of each
-# step of the products over D (a step stages twice as many); the most
-# columns of o (W1) or of dk and dv (W2) a warp holds (the instantiations
-# take up to 256 and 128); the most shared memory W1 takes to keep its 64
-# q rows whole instead of streaming them.
-WIDE_DCOLS = {"flash_fwd_wide": 64, "flash_bwd_dkdv_wide": 32}
-WIDE_OCOLS = {"flash_fwd_wide": 256, "flash_bwd_dkdv_wide": 128}
+_W3_KEYS = 64            # W3: k and v rows of a streamed tile
+# W1-W3 (csrc/flash_wide.cu): the columns a warp group takes of each step
+# of the products over D (a step stages twice as many); the most columns
+# of o (W1), of dk and dv (W2) or of dq (W3) a warp holds (the
+# instantiations take up to 256, 128 and 192); the most shared memory W1
+# (W3) takes to keep its 64 q rows (and 64 dO rows) whole instead of
+# streaming them.
+WIDE_DCOLS = {"flash_fwd_wide": 64, "flash_bwd_dkdv_wide": 32,
+              "flash_bwd_dq_wide": 24}
+WIDE_OCOLS = {"flash_fwd_wide": 256, "flash_bwd_dkdv_wide": 128,
+              "flash_bwd_dq_wide": 192}
 WIDE_Q_RESIDENT_SMEM = SMEM_LIMIT
 # A grid that would not fill the card (the H100's 132 SMs, one block of
-# W1 or W2 each) takes more column chunks, of at least 64 columns.
+# W1-W3 each) takes more column chunks, of at least 64 columns.
 WIDE_SMS = 132
 WIDE_MIN_OCOLS = 64
+# Products per visible pair, in units of D: those over D a block forms
+# for its two chunks (W1: s; W2: s^T and dp^T; W3: dp and s), the row
+# products over all chunks (p.v; dk and dv; dq), and the least.
+_WIDE_PRODUCTS = {"flash_fwd_wide": (2, 2, 4),
+                  "flash_bwd_dkdv_wide": (4, 4, 8),
+                  "flash_bwd_dq_wide": (4, 2, 6)}
 
 
 class WidePlan(NamedTuple):
-    rows: int            # rows a block owns (query rows: W1; keys: W2)
+    rows: int            # rows a block owns (query rows: W1, W3; keys:
+    #                      W2)
     tile: int            # rows of each streamed tile of the other side
     d8: int              # D rounded up to 8
-    dcols: int           # columns of a warp group's half of a step over D
+    dcols: int           # half the columns of a step over D (W1, W2: a
+    #                      warp group's half)
     n_steps: int         # steps over D8, 2 dcols columns each
-    ocols: int           # columns of o (dk, dv) a warp group computes
+    ocols: int           # columns of o (dk and dv; dq) a warp group
+    #                      computes
     n_ochunks: int       # column chunks over D8, two a block
-    q_resident: bool     # W1 stages its q rows whole, once
+    q_resident: bool     # W1 stages its q rows whole, once; W3 its q and
+    #                      dO rows
     copy_bytes: int      # width of each staging copy (16, 4 or the
     #                      element size)
     grid: Tuple[int, int, int]   # (row blocks x blocks of two column
@@ -467,32 +473,39 @@ class WidePlan(NamedTuple):
     threads: int
     smem_bytes: int
     products: float      # products done over the least (4 D a visible
-    #                      pair for W1, 8 D for W2)
+    #                      pair for W1, 8 D for W2, 6 D for W3)
 
     @property
     def args(self) -> Tuple[int, int, int, int, int]:
-        """The plan's arguments of the W1 and W2 entry points."""
+        """The plan's arguments of the W1-W3 entry points."""
         return (self.copy_bytes, self.ocols, self.dcols,
                 int(self.q_resident), self.smem_bytes)
 
 
 def wide_tc_smem_bytes(kernel: str, D: int, itemsize: int, ocols: int,
                        dcols: int, q_resident: bool) -> int:
-    """Dynamic shared memory of W1 (``"flash_fwd_wide"``) or W2
-    (``"flash_bwd_dkdv_wide"``), rows as G1-G3's
-    (:func:`general_row_stride`); a step's tiles are ``2 dcols`` columns
-    wide, the tiles of a block's column chunks ``2 ocols``.  W1: its 64 q
-    rows whole, or two buffers of a step's; two buffers of a step's 32 k
-    rows; the 8 warps' partial s tiles; the v tile's 32 rows.  W2: two
-    buffers of a step's 64 k and 64 v rows and 32 q and 32 dO rows; the q
-    tile's lse and delta; the 8 warps' partial s and dp tiles; the q and
-    dO tiles' 32 rows.  Each then 1 KiB of slack."""
+    """Dynamic shared memory of W1 (``"flash_fwd_wide"``), W2
+    (``"flash_bwd_dkdv_wide"``) or W3 (``"flash_bwd_dq_wide"``), rows as
+    G1-G3's (:func:`general_row_stride`); a step's tiles are ``2 dcols``
+    columns wide, the tiles of a block's column chunks ``2 ocols``.  W1:
+    its 64 q rows whole, or two buffers of a step's; two buffers of a
+    step's 32 k rows; the 8 warps' partial s tiles; the v tile's 32 rows.
+    W2: two buffers of a step's 64 k and 64 v rows and 32 q and 32 dO
+    rows; the q tile's lse and delta; the 8 warps' partial s and dp tiles;
+    the q and dO tiles' 32 rows.  W3: its 64 q and 64 dO rows whole, or
+    two buffers of a step's; two buffers of a step's 64 k and 64 v rows;
+    the 8 warps' ds tiles; the k tile's 64 rows.  Each then 1 KiB of
+    slack."""
     step = general_row_stride(2 * dcols, itemsize) * itemsize
     cols = general_row_stride(2 * ocols, itemsize) * itemsize
+    whole = _TC_ROWS * general_row_stride(D, itemsize) * itemsize
     if kernel == "flash_fwd_wide":
-        q = (_TC_ROWS * general_row_stride(D, itemsize) * itemsize
-             if q_resident else 2 * _TC_ROWS * step)
+        q = whole if q_resident else 2 * _TC_ROWS * step
         return (q + 2 * _TC_KEYS * step + 8 * _WIDE_PART + _TC_KEYS * cols
+                + _TC_SLACK)
+    if kernel == "flash_bwd_dq_wide":
+        q = 2 * whole if q_resident else 4 * _TC_ROWS * step
+        return (q + 4 * _W3_KEYS * step + 8 * _WIDE_PART + _W3_KEYS * cols
                 + _TC_SLACK)
     return (2 * (2 * _TC_ROWS + 2 * _TC_QUERIES) * step
             + 2 * _TC_QUERIES * 4 + 16 * _WIDE_PART
@@ -501,26 +514,28 @@ def wide_tc_smem_bytes(kernel: str, D: int, itemsize: int, ocols: int,
 
 def wide_plan(kernel: str, B: int, H: int, T: int, D: int,
               dtype=torch.float32, views=None) -> WidePlan:
-    """Launch geometry of W1 (``"flash_fwd_wide"``) or W2
-    (``"flash_bwd_dkdv_wide"``) for a (B, T, H*D) problem of ``dtype``
-    whose operands have ``views`` ((strides, data_ptr) each; None:
-    contiguous tensors at aligned addresses).
+    """Launch geometry of W1 (``"flash_fwd_wide"``), W2
+    (``"flash_bwd_dkdv_wide"``) or W3 (``"flash_bwd_dq_wide"``) for a
+    (B, T, H*D) problem of ``dtype`` whose operands have ``views``
+    ((strides, data_ptr) each; None: contiguous tensors at aligned
+    addresses).
 
-    A block of two groups of 4 warps owns 64 rows of one head (W1: query
-    rows, k and v streamed 32 rows a tile; W2: key rows, q and dO streamed
-    32 rows a tile); warps w and w + 4 own the same 16 rows.  D8 is cut
-    into the fewest column chunks of o (dk and dv) of at most
+    A block of two groups of 4 warps owns 64 rows of one head (W1 and W3:
+    query rows, k and v streamed 32 rows a tile, W3 64; W2: key rows, q
+    and dO streamed 32 rows a tile); warps w and w + 4 own the same 16
+    rows (in W3 they take 32 keys of each tile each).  D8 is cut into the
+    fewest column chunks of o (dk and dv; dq) of at most
     ``WIDE_OCOLS[kernel]`` columns, all of one width (a multiple of 8) but
     the last; a block takes two, one a group.  Where those blocks would
     not fill ``WIDE_SMS`` SMs, D8 is cut into as many more chunks (of at
     least ``WIDE_MIN_OCOLS`` columns) as fill them: each block recomputes
     s (s and dp) for fewer columns, all in one wave.  The products over D
-    run in steps of ``2 WIDE_DCOLS[kernel]`` columns, double-buffered,
-    each group taking one half; the two halves' sums meet in shared
-    memory.  W1 keeps its q rows whole where that takes at most
-    ``WIDE_Q_RESIDENT_SMEM`` bytes of shared memory.  Copy width:
-    :func:`general_copy_bytes`.  A rule on the input, fixed in
-    advance."""
+    run in steps of ``2 WIDE_DCOLS[kernel]`` columns, double-buffered; in
+    W1 and W2 each group takes one half of a step and the two halves' sums
+    meet in shared memory.  W1 keeps its q rows (W3 its q and dO rows)
+    whole where that takes at most ``WIDE_Q_RESIDENT_SMEM`` bytes of
+    shared memory.  Copy width: :func:`general_copy_bytes`.  A rule on the
+    input, fixed in advance."""
     if kernel not in _WIDE_KERNELS:
         raise ValueError(f"no wide launch plan for kernel {kernel!r}")
     es = dtype.itemsize
@@ -534,14 +549,14 @@ def wide_plan(kernel: str, B: int, H: int, T: int, D: int,
     ocols = -(-d8 // chunks // 8) * 8
     n_ochunks = -(-d8 // ocols)
     dcols = WIDE_DCOLS[kernel]
-    q_resident = kernel == "flash_fwd_wide" and wide_tc_smem_bytes(
+    q_resident = kernel != "flash_bwd_dkdv_wide" and wide_tc_smem_bytes(
         kernel, D, es, ocols, dcols, True) <= WIDE_Q_RESIDENT_SMEM
     smem = wide_tc_smem_bytes(kernel, D, es, ocols, dcols, q_resident)
     blocks = -(-n_ochunks // 2)
-    # s (W1; s and dp, W2) over D8 once a block, p.v (dk and dv) once
-    # over D8.
-    products = (blocks + 1) * d8 / (2 * D)
-    tile = _TC_KEYS if kernel == "flash_fwd_wide" else _TC_QUERIES
+    over_d, row_products, least = _WIDE_PRODUCTS[kernel]
+    products = (over_d * blocks + row_products) * d8 / (least * D)
+    tile = {"flash_fwd_wide": _TC_KEYS, "flash_bwd_dkdv_wide": _TC_QUERIES,
+            "flash_bwd_dq_wide": _W3_KEYS}[kernel]
     return WidePlan(_TC_ROWS, tile, d8, dcols, -(-d8 // (2 * dcols)),
                     ocols, n_ochunks, q_resident,
                     general_copy_bytes(es, D, views),
@@ -639,9 +654,8 @@ def _general_bwd(name, geo, args, outs, causal, scale, ins) -> None:
     B, T, C, H, D, lim, dev, family = geo
     if family == "wide":
         name = name.replace("_general", "_wide")
-        plan = (wide_plan(name, B, H, T, D, ins[0].dtype,
-                          _strides_and_ptrs(*ins)).args
-                if name in _WIDE_KERNELS else (wide_smem_bytes(name, D),))
+        plan = wide_plan(name, B, H, T, D, ins[0].dtype,
+                         _strides_and_ptrs(*ins)).args
         _launch(name, "flash_wide", dev, _GEN_DTYPES[ins[0].dtype], *args,
                 *outs, B, H, T, D, lim, int(bool(causal)), float(scale),
                 *plan)

@@ -227,7 +227,7 @@ def test_general_fragment_loads_hit_distinct_banks(dtype, D):
 
 def _csrc_constant(name):
     """An ``int`` constant of ``csrc/flash_general.cu`` or of the
-    tensor-core pieces it shares with W1 and W2, ``csrc/flash_mma.cuh``."""
+    tensor-core pieces it shares with W1-W3, ``csrc/flash_mma.cuh``."""
     text = "".join((_cuda.CSRC / f).read_text()
                    for f in ("flash_general.cu", "flash_mma.cuh"))
     m = re.search(rf"constexpr int {name} = (\d+);", text)
@@ -401,10 +401,10 @@ def test_wrapper_errors_are_unchanged(shape, heads, seq_len, match):
 
 
 def test_ablation_edits_apply_to_the_kernels():
-    """``flash_ablation.py`` times P1, P2, P3, P6, G1-G3 and W1-W2 against
+    """``flash_ablation.py`` times P1, P2, P3, P6, G1-G3 and W1-W3 against
     text edits of their committed sources and the headers beside them;
     each edit must still find its text exactly once in them.  Its plan
-    variants of W1 and W2 name constants of ``ops/_cuda.py`` and give
+    variants of W1-W3 name constants of ``ops/_cuda.py`` and give
     plans that fit the card at both timing cases."""
     spec = importlib.util.spec_from_file_location(
         "flash_ablation", ROOT / "flash_ablation.py")
@@ -435,7 +435,7 @@ def test_ablation_edits_apply_to_the_kernels():
             for n, value in consts.items():
                 setattr(_cuda, n, value)
             for case in (smoke.WIDE_CASE, smoke.WIDE_FULL_CASE):
-                for kernel in WIDE_TC:
+                for kernel in WIDE:
                     plan = _cuda.wide_plan(kernel, case["B"], case["H"],
                                            case["T"], case["D"])
                     assert plan.smem_bytes <= _cuda.SMEM_LIMIT, variant
@@ -445,7 +445,6 @@ def test_ablation_edits_apply_to_the_kernels():
 
 
 WIDE = ("flash_fwd_wide", "flash_bwd_dkdv_wide", "flash_bwd_dq_wide")
-WIDE_TC = WIDE[:2]
 WIDE_SIZES = (257, 384, 1000, _cuda.WIDE_MAX_D)
 
 
@@ -459,48 +458,45 @@ def _wide_tc_smem_from_source():
     consts = {n: _csrc_constant(n)
               for n in ("kTcRows", "kTcKeys", "kTcQueries", "kTcSlack")}
     consts["kSPart"] = 16 * consts["kTcKeys"]
+    consts["kW3Keys"] = 2 * consts["kTcKeys"]
     assert "constexpr int kSPart = 16 * kTcKeys;" in text
+    assert "constexpr int kW3Keys = 2 * kTcKeys;" in text
     src = "def f(kernel, D, es, oc, dc, q_res):\n"
     for stmt in body.split(";"):
         stmt = " ".join(stmt.split()).replace("const long long ", "")
         stmt = re.sub(r"\((\w+) \? (.+?) : (.+?)\)",
                       r"((\2) if \1 else (\3))", stmt)
+        stmt = re.sub(r"if \((kernel == \d)\)", r"if \1:", stmt)
         if stmt:
-            src += " " + stmt.replace("if (kernel == 0)",
-                                      "if kernel == 0:") + "\n"
+            src += " " + stmt + "\n"
     env = dict(consts, gen_tc_ld=_cuda.general_row_stride)
     exec(src, env)
     return env["f"]
 
 
+def _wide_instantiations(kernel):
+    """The NT (8-column tiles a warp holds) of every instantiation of a
+    W1-W3 kernel that ``launch_wide_tc`` in ``flash_wide.cu`` launches."""
+    text = (_cuda.CSRC / "flash_wide.cu").read_text()
+    body = text[text.index("cudaError_t launch_wide_tc("):]
+    body = body[:body.index("\n}\n")]
+    return sorted({int(n) for n in re.findall(
+        rf"{kernel}_kernel<E, (\d+)>", body)})
+
+
 @pytest.mark.parametrize("kernel", WIDE)
 def test_wide_route_fits_shared_memory_up_to_its_limit(kernel):
-    """W1 and W2 stream D in steps, so their shared memory (the plan's
+    """W1-W3 stream D in steps, so their shared memory (the plan's
     ``smem_bytes``, which the entry points check against the same formula
     in ``flash_wide.cu``, read here from the source) fits an H100 block
     at D 257, 384, 1000 and ``WIDE_MAX_D`` in every dtype, with no static
-    ``__shared__`` array beside it.  W3 holds three rows of D floats (its
-    entry point's ``wide_dq_smem_bytes``) beside the static tile it
-    declares: at ``WIDE_MAX_D`` that fits too."""
+    ``__shared__`` array beside it."""
     text = (_cuda.CSRC / "flash_wide.cu").read_text()
-    tile = int(re.search(r"constexpr int kWideTile = (\d+);", text).group(1))
     body = text[text.index(f"{kernel}_kernel(const Wide"):]
     body = body[:body.index("\n}\n")]
-    decls = re.findall(r"(?<!extern )__shared__ float ([^;]+);", body)
-    arrays = [a for d in decls for a in d.split(",")]
-    if kernel == "flash_bwd_dq_wide":
-        assert "return 12LL * D;" in text
-        assert all(a.strip().endswith("[kWideTile]") for a in arrays)
-        static = 4 * tile * len(arrays)
-        assert static == _cuda.WIDE_STATIC_SMEM
-        for D in WIDE_SIZES:
-            assert _cuda.wide_smem_bytes(kernel, D) == 12 * D
-            assert (_cuda.wide_smem_bytes(kernel, D) + static
-                    <= _cuda.SMEM_LIMIT)
-        return
-    assert not arrays
+    assert not re.findall(r"(?<!extern )__shared__", body)
     smem = _wide_tc_smem_from_source()
-    k = WIDE_TC.index(kernel)
+    k = WIDE.index(kernel)
     for dtype in GEN_DTYPES:
         for D in WIDE_SIZES:
             for T in (16, 2048):
@@ -511,17 +507,28 @@ def test_wide_route_fits_shared_memory_up_to_its_limit(kernel):
                 assert plan.smem_bytes <= _cuda.SMEM_LIMIT, (dtype, D, T)
 
 
+# Products a visible pair, in units of D: those over D a block forms for
+# its two chunks, the row products over all chunks, and the least.
+WIDE_PRODUCTS = {"flash_fwd_wide": (2, 2, 4),          # s; p.v
+                 "flash_bwd_dkdv_wide": (4, 4, 8),     # s^T, dp^T; dk, dv
+                 "flash_bwd_dq_wide": (4, 2, 6)}       # dp, s; dq
+
+
 @pytest.mark.parametrize("D", WIDE_SIZES)
 @pytest.mark.parametrize("dtype", GEN_DTYPES)
-@pytest.mark.parametrize("kernel", WIDE_TC)
+@pytest.mark.parametrize("kernel", WIDE)
 def test_wide_plan_covers_the_head_in_chunks(kernel, dtype, D):
-    """W1 and W2's plan (``wide_plan``): the column chunks of o (dk, dv)
-    cover D exactly once, in multiples of 8 columns, two a block; the
-    steps over D cover D8; the grid is (row blocks x blocks of two
-    chunks, H, B); the copy width is G1-G3's rule; the products done
-    against the least (``products``) follow from the chunks; and a grid
-    that would not fill the card takes more chunks, no narrower than
-    ``WIDE_MIN_OCOLS``, where the full-size one takes the fewest."""
+    """W1-W3's plan (``wide_plan``): the column chunks of o (dk and dv;
+    dq) cover D exactly once, in multiples of 8 columns, two a block, and
+    no wider than the kernel's instantiations hold; the steps over D cover
+    D8; the grid is (row blocks x blocks of two chunks, H, B); the copy
+    width is G1-G3's rule; the products done against the least
+    (``products``: 4 D a visible pair for W1, 8 D for W2, 6 D for W3)
+    follow from the chunks; and a grid that would not fill the card takes
+    more chunks, no narrower than ``WIDE_MIN_OCOLS``, where the full-size
+    one takes the fewest."""
+    widest = 8 * _wide_instantiations(kernel)[-1]
+    assert _cuda.WIDE_OCOLS[kernel] <= widest
     for B, H, T in ((4, 8, 2048), (1, 2, 512), (1, 1, 16)):
         plan = _cuda.wide_plan(kernel, B, H, T, D, dtype)
         d8 = -(-D // 8) * 8
@@ -533,21 +540,23 @@ def test_wide_plan_covers_the_head_in_chunks(kernel, dtype, D):
         cols = [c for c0, w in zip(starts, widths) for c in range(c0, c0 + w)
                 if c < D]
         assert cols == list(range(D))
-        assert plan.ocols <= _cuda.WIDE_OCOLS[kernel]
+        assert plan.ocols <= _cuda.WIDE_OCOLS[kernel] <= widest
         assert plan.n_steps * 2 * plan.dcols >= d8 > (plan.n_steps - 1) * \
             2 * plan.dcols
         blocks = -(-plan.n_ochunks // 2)
         row_blocks = -(-T // 64)
         assert plan.grid == (row_blocks * blocks, H, B)
         assert plan.threads == 256 and plan.rows == 64
+        assert plan.tile == (64 if kernel == "flash_bwd_dq_wide" else 32)
         assert plan.copy_bytes == _cuda.general_copy_bytes(
             dtype.itemsize, D, [((T * H * D, H * D, 1), 0)])
-        # Each block forms s (W1: 2 D8 a pair; W2: s and dp, 4 D8) once
-        # for its two chunks; the row products (p.v; dk and dv) cover
-        # each chunk's columns once.
-        least = 4 if kernel == "flash_fwd_wide" else 8
-        done = blocks * least // 2 * d8 + least // 2 * sum(widths)
+        # Each block forms its products over D once for its two chunks;
+        # the row products cover each chunk's columns once.
+        over_d, rows, least = WIDE_PRODUCTS[kernel]
+        done = blocks * over_d * d8 + rows * sum(widths)
         assert plan.products == pytest.approx(done / (least * D), rel=1e-12)
+        if blocks == 1:
+            assert plan.products == pytest.approx(d8 / D, rel=1e-12)
         fewest = -(-d8 // _cuda.WIDE_OCOLS[kernel])
         if row_blocks * H * B * -(-fewest // 2) >= _cuda.WIDE_SMS:
             assert plan.n_ochunks == fewest
@@ -557,19 +566,21 @@ def test_wide_plan_covers_the_head_in_chunks(kernel, dtype, D):
                                      _cuda.WIDE_OCOLS[kernel])
             assert (row_blocks * H * B * blocks <= _cuda.WIDE_SMS
                     or plan.n_ochunks == fewest)
-        if kernel == "flash_fwd_wide":
+        assert plan.args == (plan.copy_bytes, plan.ocols, plan.dcols,
+                             int(plan.q_resident), plan.smem_bytes)
+        if kernel == "flash_bwd_dkdv_wide":
+            assert not plan.q_resident
+        else:
             assert plan.q_resident == (_cuda.wide_tc_smem_bytes(
                 kernel, D, dtype.itemsize, plan.ocols, plan.dcols, True)
                 <= _cuda.WIDE_Q_RESIDENT_SMEM)
-        else:
-            assert not plan.q_resident
 
 
 def test_wide_plan_refuses_other_kernels():
-    """W3 keeps its own plan (``wide_smem_bytes``); the G1-G3 names have
-    ``general_plan``."""
-    for name in ("flash_bwd_dq_wide", "flash_fwd_general", "flash_fwd"):
+    """``wide_plan`` takes W1-W3; the G1-G3 names have ``general_plan``
+    and P1-P3 ``flash_plan``."""
+    for name in WIDE:
+        assert _cuda.wide_plan(name, 1, 1, 64, 384).grid[0] >= 1
+    for name in GENERAL + KERNELS:
         with pytest.raises(ValueError, match="no wide launch plan"):
             _cuda.wide_plan(name, 1, 1, 64, 384)
-    with pytest.raises(ValueError, match="wide_plan"):
-        _cuda.wide_smem_bytes("flash_fwd_wide", 384)
