@@ -149,6 +149,27 @@ the checkout.  Phases, in order; any failure ends the run:
    average floor-divides; a ragged allgather and a broadcast are exact; a
    dtype mismatch raises the coordinator's error on every rank; then the
    phase-18 latency and burst on four cards.
+20. Train, eager: phase 7's model (rebuilt from the same seed) through a
+   plain loop with ``hvd.DistributedOptimizer(SGD momentum, eager=True)``
+   fed by ``hvd.ShardedLoader`` (host tokens copied on its side stream),
+   three times: overlap off, overlap on, and int8 with error feedback
+   under overlap; 2 warm-up and 5 timed steps each, counters zeroed just
+   before and read just after: each flash kernel launches depth x steps
+   times, P4/P5 51 times a step under int8 (none otherwise).  The losses
+   equal phase 7's (phase 12's for int8) bit for bit or within
+   ``TOL_EAGER`` (int8: phase 12's tolerances against phase 7).  Printed:
+   step ms and tokens/s beside phase 7's, peak memory, eager responses,
+   cache hits and buckets a step, the ``overlap.*`` series, one profiled
+   step; ``hvd.observe()`` must show the steps.
+21. Train, eager, NCCL: four processes, one card each, only with four or
+   more cards; otherwise a line says it did not run.  Each rank trains
+   the full-width model on its own seeded batch for 2 + 3 steps through
+   ``make_train_step``, ``eager=True`` and ``eager=True`` with overlap:
+   losses within 1e-5 relative of ``make_train_step``'s.  Integer-valued
+   f32 gradients of the model's leaf shapes through the eager branch
+   (overlap off and on) equal ``dist.all_reduce`` bit for bit, and a
+   sparse ``nn.Embedding(32768, 2048)`` gradient with ragged rows per
+   rank equals the dense mean.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -2106,6 +2127,336 @@ def phase_eager_nccl():
     return got
 
 
+# Phase 20's three runs: label, overlap, int8 with error feedback.
+EAGER_RUNS = (("eager", False, False), ("eager overlap", True, False),
+              ("eager int8", True, True))
+# Every eager loss against phase 7's (phase 12's for int8), relative, if
+# it is not bit-identical: the eager route copies the gradients through
+# the plane, and at size 1 divides them by 1.
+TOL_EAGER = 1e-6
+
+
+def _hist_delta(c0: dict, c1: dict, name: str):
+    """(count, sum) a histogram gained between two snapshots."""
+    h0 = c0["histograms"].get(name, {"count": 0, "sum": 0.0})
+    h1 = c1["histograms"].get(name, {"count": 0, "sum": 0.0})
+    return h1["count"] - h0["count"], h1["sum"] - h0["sum"]
+
+
+def _eager_plane_per_step(c0: dict, c1: dict, steps: int) -> dict:
+    """The eager plane's records over ``steps`` steps: responses, cache
+    hits and buckets a step; the overlapped steps' hidden and exposed
+    seconds and hidden fraction (means)."""
+    out = {k: (c1["counters"].get(name, 0) - c0["counters"].get(name, 0))
+           / steps for k, name in (
+        ("responses", "controller.ops#type=allreduce"),
+        ("cache_hits", "control.cache_hits"),
+        ("buckets", "overlap.buckets"),
+        ("overlap_steps", "overlap.steps"))}
+    for k in ("hidden_seconds", "exposed_seconds", "hidden_fraction"):
+        n, total = _hist_delta(c0, c1, "overlap." + k)
+        out[k] = total / n if n else None
+    return out
+
+
+def phase_train_eager(depth: int, plain: dict, int8: dict) -> dict:
+    """Phase 7's model through a plain loop with
+    ``hvd.DistributedOptimizer(SGD, eager=True)``: overlap off, overlap
+    on, and int8 with error feedback under overlap; 2 warm-up and 5 timed
+    steps each, counters zeroed just before and read just after."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    results = {}
+    hvd.observe.set_enabled(True)
+    try:
+        for label, overlap, lossy in EAGER_RUNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model, tokens, loss_fn = _train_setup(depth)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                eager=True, overlap=overlap,
+                compression=hvd.Compression.int8 if lossy else "none",
+                error_feedback=lossy)
+            leaves = sum(qc.int8_eligible(p.shape, p.dtype)
+                         for p in model.parameters())
+
+            def step(batch):
+                opt.zero_grad()
+                loss = loss_fn(model, batch)
+                loss.backward()
+                opt.step()
+                return loss.detach()
+
+            # The batches come through the loader: host copies of the
+            # tokens, put on the card on its side stream.
+            host = tokens.cpu()
+            loader = hvd.ShardedLoader(
+                lambda: (host for _ in range(WARMUP + TIMED)))
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            c0 = hvd.metrics()
+            losses, times, same_batch = [], [], True
+            for batch in loader:
+                same_batch &= torch.equal(batch, tokens)
+                t0 = time.perf_counter()
+                loss = step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+            launches = dict(_cuda.LAUNCHES)
+            _check(same_batch and len(losses) == WARMUP + TIMED,
+                   f"{label}: the loader's batches differ from the tokens")
+            c1 = hvd.metrics()
+            steps = WARMUP + TIMED
+            step_s = statistics.median(times[WARMUP:])
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            plane = _eager_plane_per_step(c0, c1, steps)
+            want = int8 if lossy else plain
+            same = losses == want["losses"]
+            track = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses, want["losses"]))
+            print(f"{label}: depth {depth}, DistributedOptimizer(SGD "
+                  f"momentum, eager=True, overlap={overlap}"
+                  + (", int8, error feedback" if lossy else "")
+                  + "), losses " + ", ".join(f"{x:.4f}" for x in losses))
+            print(f"{label}: step {step_s * 1e3:.1f} ms against "
+                  f"{plain['step_s'] * 1e3:.1f} ms make_train_step (phase "
+                  f"7) (median of {TIMED}; all "
+                  + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms), "
+                  f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
+                  f"{peak_gb:.2f} GiB; losses vs phase "
+                  f"{12 if lossy else 7} "
+                  f"{'bit-identical' if same else 'DIFFERENT'} "
+                  f"({track:.2e} relative at most); per step: "
+                  f"{plane['responses']:.1f} eager responses, "
+                  f"{plane['cache_hits']:.1f} cache hits, "
+                  f"{plane['buckets']:.1f} buckets; overlap: hidden "
+                  f"{plane['hidden_seconds']} s, exposed "
+                  f"{plane['exposed_seconds']} s, hidden fraction "
+                  f"{plane['hidden_fraction']}; launches {launches}")
+            _check(all(math.isfinite(x) for x in losses),
+                   f"{label}: non-finite loss")
+            _check(losses[-1] < losses[0],
+                   f"{label}: loss did not fall: {losses}")
+            if lossy:
+                first = abs(losses[0] - plain["losses"][0]) / abs(
+                    plain["losses"][0])
+                worst = max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, plain["losses"]))
+                _check(first <= TOL_FIRST_LOSS and worst <= TOL_LOSS_TRACK,
+                       f"{label}: losses {losses} stray from phase 7's "
+                       f"{plain['losses']}")
+            else:
+                _check(track <= TOL_EAGER,
+                       f"{label}: losses {losses} stray from phase 7's "
+                       f"{plain['losses']}")
+            for name in FLASH:
+                _check(launches[name] == depth * steps,
+                       f"{label}: {name} launched {launches[name]} times, "
+                       f"expected {depth * steps}")
+            for name in ("int8_quantize", "int8_dequantize"):
+                want_n = leaves * steps if lossy else 0
+                _check(launches[name] == want_n,
+                       f"{label}: {name} launched {launches[name]} times, "
+                       f"expected {want_n}")
+            _check(plane["responses"] >= 1,
+                   f"{label}: the eager plane served no response")
+            if overlap:
+                _check(plane["overlap_steps"] == 1
+                       and plane["hidden_fraction"] is not None,
+                       f"{label}: no overlap.* series: {plane}")
+            prof = _profile_step(step, tokens)
+            results[label] = {"losses": losses, "step_s": step_s,
+                              "peak_gb": peak_gb, "plane": plane,
+                              "profile": prof, "same": same}
+            del model, opt
+        view = hvd.observe()
+        print(f"eager: hvd.observe() local digest {view['local']}")
+        _check(view["enabled"] and view["local"].get("steps", 0) > 0,
+               f"eager: hvd.observe() shows no step: {view}")
+        hist = hvd.metrics()["histograms"]
+        _check(all(hist.get(f"step.{k}", {}).get("count", 0) > 0
+                   for k in ("seconds", "compute_seconds",
+                             "exposed_comm_seconds")),
+               "eager: no step.* histograms in hvd.metrics()")
+    finally:
+        hvd.observe.set_enabled(False)
+    return results
+
+
+def _eager_train_worker(rank: int, port: int, results) -> None:
+    """Phase 21 on one of four cards: the full-width model on this rank's
+    own batch, three ways; the exactness and sparse checks."""
+    try:
+        os.environ.update({
+            "HOROVOD_TPU_SIZE": "4", "HOROVOD_TPU_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_SIZE": "1",
+            "HOROVOD_TPU_COORD_ADDR": f"127.0.0.1:{port + 1}"})
+        os.environ.pop("HOROVOD_TPU_LOCAL_RANK", None)
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import injit
+        from horovod_tpu_torch.spmd import make_train_step
+        hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        out = {"device": dev.index}
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + rank)
+        tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                               device=dev)
+        for label in ("make_train_step", "eager", "eager overlap"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, _, loss_fn = _train_setup(DEPTH)
+            sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            if label == "make_train_step":
+                step = make_train_step(model, loss_fn, sgd)
+            else:
+                opt = hvd.DistributedOptimizer(
+                    sgd, eager=True, overlap=label == "eager overlap")
+
+                def step(batch, opt=opt, model=model):
+                    # Host time of the forward's launches, of backward
+                    # (the hooks' bucket copies and submissions
+                    # included) and of step() (its wait included).
+                    t0 = time.perf_counter()
+                    opt.zero_grad()
+                    loss = loss_fn(model, batch)
+                    t1 = time.perf_counter()
+                    loss.backward()
+                    t2 = time.perf_counter()
+                    opt.step()
+                    split.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+                    return injit.allreduce(loss.detach(), average=True)
+
+            split = []
+            losses, times = [], []
+            c0 = hvd.metrics()
+            for _ in range(2 + 3):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                loss = step(tokens)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+            out[label] = {"losses": losses,
+                          "step_ms": statistics.median(times[2:]) * 1e3,
+                          "times_ms": [t * 1e3 for t in times],
+                          "plane": _eager_plane_per_step(
+                              c0, hvd.metrics(), 5),
+                          "host_ms": [round(statistics.median(x[2:]) * 1e3,
+                                            1) for x in zip(*split)]
+                          if split else None}
+            # One more step under the profiler on rank 0 (the others run
+            # it plainly, so that the collectives match).
+            dist.barrier()
+            if rank == 0:
+                print(f"eager train nccl rank 0, {label}:", flush=True)
+                out[label]["profile"] = _profile_step(step, tokens)
+                sys.stdout.flush()
+            else:
+                step(tokens)
+                torch.cuda.synchronize()
+            del model, sgd, step
+            if label != "make_train_step":
+                del opt
+        # Exactness: integer-valued f32 gradients of the model's leaf
+        # shapes through the eager branch equal dist.all_reduce leaf for
+        # leaf, bit for bit, overlap off and on.
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, _, _ = _train_setup(DEPTH)
+        shapes = [p.shape for p in model.parameters()]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        grads = [torch.randint(-64, 64, s, generator=gen, device=dev)
+                 .float() for s in shapes]
+        exact = {}
+        for overlap in (False, True):
+            red = hvd.allreduce_gradients(grads, eager=True, overlap=overlap,
+                                          name_prefix=f"exact.{overlap}")
+            same = True
+            for g, r in zip(grads, red):
+                ref = g.clone()
+                dist.all_reduce(ref)
+                same &= _bits_equal(r, ref / 4)
+            exact[overlap] = bool(same)
+            del red
+        out["exact"] = exact
+        del grads
+        # Sparse: an embedding gradient with ragged rows per rank (integer
+        # rows, so that every order of summation is exact) against the
+        # dense mean.
+        gc.collect()
+        torch.cuda.empty_cache()
+        emb = torch.nn.Embedding(VOCAB, DIM, sparse=True, device=dev)
+        ids = torch.randint(0, VOCAB, ((rank + 1) * 512,), generator=gen,
+                            device=dev)
+        w = torch.randint(-4, 4, (ids.numel(), DIM), generator=gen,
+                          device=dev).float()
+        (emb(ids) * w).sum().backward()
+        g = emb.weight.grad
+        red = hvd.allreduce_gradients({"emb": g}, eager=True)["emb"]
+        dense = g.to_dense()
+        dist.all_reduce(dense)
+        out["sparse"] = {"nnz": int(g._nnz()), "gathered": int(red._nnz()),
+                         "same": _bits_equal(red.to_dense(), dense / 4)}
+        torch.cuda.synchronize()
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def phase_eager_train_nccl():
+    """Phase 21: the eager gradient route on four cards over NCCL (only
+    with four or more cards; otherwise a line says it did not run)."""
+    if torch.cuda.device_count() < 4:
+        print("eager train nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    got = _spawn(_eager_train_worker, 4)
+    _check(all(isinstance(got.get(r), dict) for r in range(4)),
+           f"eager train nccl failed: {got}")
+    for r in range(4):
+        o = got[r]
+        base = o["make_train_step"]["losses"]
+        for label in ("make_train_step", "eager", "eager overlap"):
+            run = o[label]
+            track = max(abs(a - b) / abs(b)
+                        for a, b in zip(run["losses"], base))
+            p = run["plane"]
+            print(f"eager train nccl rank {r} (cuda:{o['device']}), "
+                  f"{label}: step {run['step_ms']:.1f} ms (median of 3; "
+                  f"all {[round(t, 1) for t in run['times_ms']]}), losses "
+                  f"{[round(x, 5) for x in run['losses']]}, vs "
+                  f"make_train_step {track:.2e}; per step "
+                  f"{p['responses']:.1f} responses, {p['cache_hits']:.1f} "
+                  f"cache hits, {p['buckets']:.1f} buckets; hidden "
+                  f"{p['hidden_seconds']} s, exposed "
+                  f"{p['exposed_seconds']} s; host ms a step in forward, "
+                  f"backward, step(): {run['host_ms']}")
+            _check(all(math.isfinite(x) for x in run["losses"]),
+                   f"rank {r} {label}: non-finite loss")
+            _check(track <= 1e-5,
+                   f"rank {r} {label}: losses {run['losses']} stray from "
+                   f"make_train_step's {base}")
+        print(f"eager train nccl rank {r}: integer gradients vs "
+              f"dist.all_reduce bit-identical {o['exact']}; sparse "
+              f"{o['sparse']}")
+        _check(all(o["exact"].values()),
+               f"rank {r}: eager gradients differ from dist.all_reduce")
+        _check(o["sparse"]["same"]
+               and o["sparse"]["gathered"] == 512 * (1 + 2 + 3 + 4),
+               f"rank {r}: sparse route {o['sparse']}")
+    return got
+
+
 def _spawn(target, n: int) -> dict:
     """Run ``target(rank, port, results)`` in ``n`` spawned processes;
     {rank: result}, or an "exit"/"timeout" entry when a worker fails or
@@ -2149,6 +2500,8 @@ def _category(name: str) -> str:
         if f"{kernel}_" in name:   # P6's dq cast kernel counts as P6
             return kernel
     low = name.lower()
+    if "nccl" in low:
+        return "NCCL"
     if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass",
                               "cublas")):
         return "matmul (cuBLAS)"
@@ -2260,6 +2613,8 @@ def main() -> None:
     phase_hierarchical_nccl()
     phase_eager()
     phase_eager_nccl()
+    phase_train_eager(DEPTH, plain, int8)
+    phase_eager_train_nccl()
     t, e = k["times"], k["errs"]
     flash = {
         "flash_fwd": (t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],

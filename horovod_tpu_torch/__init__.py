@@ -15,8 +15,12 @@ call, eval, and the two-tier reduction over host groups of
 wire and error feedback (:mod:`.ops.quantized_collectives`), the
 TransformerLM and ResNet models (:mod:`.models`), flash attention
 (:mod:`.ops.flash_attention`), the fused softmax cross-entropy
-(:mod:`.ops.losses`), and the negotiated eager collectives
-(:mod:`.ops.eager` over the controller of :mod:`.core`)::
+(:mod:`.ops.losses`), the negotiated eager collectives
+(:mod:`.ops.eager` over the controller of :mod:`.core`) with the eager
+gradient route through them (``DistributedOptimizer(eager=True)``,
+bucketed overlap by :mod:`.scheduler`'s planner, sparse gradients by
+:mod:`.sparse`), the training callbacks (:mod:`.callbacks`), the
+observatory (:mod:`.observe`) and the input pipeline (:mod:`.data`)::
 
     import horovod_tpu_torch as hvd
     hvd.init()                                   # cuda:local_rank, NCCL
@@ -32,6 +36,10 @@ TransformerLM and ResNet models (:mod:`.models`), flash attention
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt.zero_grad(); loss_fn(model, batch).backward(); opt.step()
 
+    opt = hvd.DistributedOptimizer(sgd, eager=True, overlap=True)
+    for batch in hvd.ShardedLoader(batches):    # on this rank's GPU
+        opt.zero_grad(); loss_fn(model, batch).backward(); opt.step()
+
     h = hvd.allreduce_async(metric, name="metric")   # negotiated, fused
     metric = hvd.synchronize(h)
 """
@@ -46,6 +54,10 @@ from horovod_tpu_torch.basics import (      # noqa: F401
 from horovod_tpu_torch import metrics       # noqa: F401
 from horovod_tpu_torch.compression import Compression   # noqa: F401
 from horovod_tpu_torch import spmd                        # noqa: F401
+# Callable like metrics: hvd.observe() is the observatory's snapshot.
+from horovod_tpu_torch import callbacks, data, observe, sparse  # noqa: F401
+from horovod_tpu_torch.data import ShardedLoader            # noqa: F401
+from horovod_tpu_torch.sparse import IndexedSlices         # noqa: F401
 from horovod_tpu_torch.optimizer import (   # noqa: F401
     DistributedOptimizer, allreduce_, allreduce_gradients,
     broadcast_optimizer_state, broadcast_parameters,

@@ -6,8 +6,9 @@ recorder hooks, :class:`CppMessageTable` (:515), :func:`cpp_plan_fusion`
 (:581), :func:`cpp_plan_tick` (:611), :func:`cpp_resolve_algo` (:632),
 :class:`CppControlPlane` (:1202), :class:`CppTimeline` (:1383), the metrics
 snapshot, CRC32C and the request-list round trip the tests hold frames
-with.  The native bucket planner, the fleet policy, the process-set table
-and the precision and observatory bindings are not ported yet (ROADMAP).
+with; :class:`NativeBucketPlanner` (:644) and the observatory bindings
+(:1086-1135).  The fleet policy, the process-set table and the precision
+bindings are not ported yet (ROADMAP).
 
 The library is the reference's own C++ core, built by the reference's
 Makefile into a path this package owns::
@@ -171,6 +172,37 @@ def _configure(lib) -> None:
     lib.htpu_control_set_xfer_context.restype = None
     lib.htpu_control_set_xfer_context.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p]
+    lib.htpu_sched_create.restype = ctypes.c_void_p
+    lib.htpu_sched_create.argtypes = [ctypes.c_int64]
+    lib.htpu_sched_destroy.restype = None
+    lib.htpu_sched_destroy.argtypes = [ctypes.c_void_p]
+    lib.htpu_sched_register.restype = ctypes.c_int
+    lib.htpu_sched_register.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p]
+    for fn in ("seal", "next_issue", "all_complete"):
+        f = getattr(lib, f"htpu_sched_{fn}")
+        f.restype = ctypes.c_int
+        f.argtypes = [ctypes.c_void_p]
+    for fn in ("bucket_of", "note_ready"):
+        f = getattr(lib, f"htpu_sched_{fn}")
+        f.restype = ctypes.c_int
+        f.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.htpu_sched_bucket_bytes.restype = ctypes.c_int64
+    lib.htpu_sched_bucket_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.htpu_sched_note_complete.restype = None
+    lib.htpu_sched_note_complete.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.htpu_sched_reset.restype = None
+    lib.htpu_sched_reset.argtypes = [ctypes.c_void_p]
+    lib.htpu_observe_enabled.restype = ctypes.c_int
+    lib.htpu_observe_enabled.argtypes = []
+    lib.htpu_observe_set_enabled.restype = None
+    lib.htpu_observe_set_enabled.argtypes = [ctypes.c_int]
+    lib.htpu_observe_note_step.restype = None
+    lib.htpu_observe_note_step.argtypes = [ctypes.c_double] * 5
+    lib.htpu_observe_snapshot.restype = ctypes.c_int
+    lib.htpu_observe_snapshot.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    lib.htpu_observe_reset.restype = None
+    lib.htpu_observe_reset.argtypes = []
 
 
 def _make() -> None:
@@ -380,6 +412,112 @@ def cpp_resolve_algo(pref: str, nbytes: int, num_hosts: int, num_procs: int,
     rc = lib.htpu_resolve_algo(pref.encode("utf-8"), nbytes, num_hosts,
                                num_procs, crossover_bytes, ctypes.byref(out))
     return _take_buffer(lib, out, rc).decode("utf-8")
+
+
+class NativeBucketPlanner:
+    """ctypes wrapper over the C++ backward-overlap bucket planner
+    (``htpu::BucketPlanner``).  Same surface as the pure-Python
+    :class:`horovod_tpu_torch.scheduler.PyBucketPlanner`."""
+
+    def __init__(self, bucket_bytes: int):
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native scheduler not available")
+        self._lib = lib
+        self._ptr = lib.htpu_sched_create(int(bucket_bytes))
+
+    def close(self) -> None:
+        if self._ptr:
+            self._lib.htpu_sched_destroy(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # noqa: BLE001 -- interpreter teardown
+            pass
+
+    def register_leaf(self, name: str, nbytes: int, dtype: str) -> int:
+        return self._lib.htpu_sched_register(
+            self._ptr, name.encode("utf-8"), int(nbytes),
+            dtype.encode("utf-8"))
+
+    def seal(self) -> int:
+        return self._lib.htpu_sched_seal(self._ptr)
+
+    def bucket_of(self, leaf: int) -> int:
+        return self._lib.htpu_sched_bucket_of(self._ptr, int(leaf))
+
+    def bucket_bytes(self, bucket: int) -> int:
+        return self._lib.htpu_sched_bucket_bytes(self._ptr, int(bucket))
+
+    def note_ready(self, leaf: int) -> int:
+        return self._lib.htpu_sched_note_ready(self._ptr, int(leaf))
+
+    def next_issue(self) -> int:
+        return self._lib.htpu_sched_next_issue(self._ptr)
+
+    def note_complete(self, bucket: int) -> None:
+        self._lib.htpu_sched_note_complete(self._ptr, int(bucket))
+
+    def all_complete(self) -> bool:
+        return bool(self._lib.htpu_sched_all_complete(self._ptr))
+
+    def reset(self) -> None:
+        self._lib.htpu_sched_reset(self._ptr)
+
+
+# ------------------------------------------------------------ observatory
+
+def observe_enabled():
+    """Native observatory state: True/False, or ``None`` when the native
+    core is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    return bool(lib.htpu_observe_enabled())
+
+
+def observe_set_enabled(on: bool) -> None:
+    """Flip the native observatory at runtime (A/B runs, tests)."""
+    lib = load()
+    if lib is not None:
+        lib.htpu_observe_set_enabled(1 if on else 0)
+
+
+def observe_note_step(step_s: float, compute_s: float = 0.0,
+                      hidden_s: float = 0.0, exposed_s: float = 0.0,
+                      stall_s: float = 0.0) -> bool:
+    """Feed one step's decomposition to the native observatory; returns
+    False when the native core is unavailable (the caller falls back to
+    the Python registry)."""
+    lib = load()
+    if lib is None:
+        return False
+    lib.htpu_observe_note_step(step_s, compute_s, hidden_s, exposed_s,
+                               stall_s)
+    return True
+
+
+def observe_snapshot() -> dict:
+    """Local telemetry digest (step EWMAs, per-leg bandwidth EWMAs,
+    inflight) as a dict; empty when the native core is unavailable."""
+    import json
+    lib = load()
+    if lib is None:
+        return {}
+    out = ctypes.c_void_p()
+    n = lib.htpu_observe_snapshot(ctypes.byref(out))
+    if n < 0:
+        return {}
+    return json.loads(_take_buffer(lib, out, n).decode("utf-8"))
+
+
+def observe_reset() -> None:
+    """Zero the native observatory's EWMAs and counts (tests, A/B runs)."""
+    lib = load()
+    if lib is not None:
+        lib.htpu_observe_reset()
 
 
 def wire_request_list_roundtrip(frame: bytes):

@@ -2,49 +2,74 @@
 before every update, optionally over the int8 wire with error feedback.
 
 Port of ``horovod_tpu/jax/__init__.py``: ``DistributedOptimizer``
-(:68-173) with the semantics of the SPMD branch of ``allreduce_gradients``
-(:228-276), that branch as :func:`allreduce_gradients`, ``allreduce_``
-(:563), ``broadcast_parameters`` (:519) and ``broadcast_optimizer_state``
-(:537).  The JAX package wraps an optax transformation and reduces over a
-mesh axis; here :func:`DistributedOptimizer` wraps a
-``torch.optim.Optimizer`` and reduces over a ``torch.distributed`` process
-group (``group=None``: the world group), one process per GPU.  Without a
-process group, or in a group of one, every reduction is the identity, as on
-a one-device mesh.
+(:68-173), ``allreduce_gradients`` (:180-337) with both of its branches and
+``_overlapped_allreduce`` (:383-515), ``allreduce_`` (:563),
+``broadcast_parameters`` (:519) and ``broadcast_optimizer_state`` (:537).
+The JAX package wraps an optax transformation; here
+:func:`DistributedOptimizer` wraps a ``torch.optim.Optimizer``, one
+process per GPU.
 
-Per gradient, as in the reference:
+Two branches, as in the reference.  The reference picks one by whether a
+mesh axis is bound when the update is traced; a PyTorch loop is never
+traced, so the caller names it:
 
-* an int8-eligible leaf under ``Compression.int8``
-  (:func:`.ops.quantized_collectives.int8_eligible`) rides its own int8 ring
-  (:func:`.ops.quantized_collectives.quantized_ring_allreduce`), one leaf
-  per ring, so that its block grid is the reference's;
-* every other leaf is averaged raw, cast to the wire dtype of a cast
-  compressor around the collective;
-* with ``error_feedback=True`` each lossy leaf (int8-eligible under int8)
-  adds its residual before the reduction (carry-in) and stores
-  ``g - Q(g)`` after it (carry-out), ``Q`` the local int8 snap.  The
-  residual is f32 and lives in the wrapped optimizer's
-  ``state[p]["residual"]``, so ``state_dict()`` carries it.
+* **SPMD branch** (default, :228-276): every leaf is reduced over a
+  ``torch.distributed`` process group (``group=None``: the world group).
+  Without a process group, or in a group of one, the reduction is the
+  identity, as on a one-device mesh.  An int8-eligible leaf under
+  ``Compression.int8`` (:func:`.ops.quantized_collectives.int8_eligible`)
+  rides its own int8 ring (one leaf per ring, so that its block grid is
+  the reference's); every other leaf is averaged raw, cast to the wire
+  dtype of a cast compressor around the collective.
+* **Eager branch** (``eager=True``, :277-337): every leaf goes through the
+  negotiated plane's ``allreduce_async`` (:mod:`.ops.eager`), named
+  ``f"{name_prefix}.{i}"`` in leaf order, and the results are synchronized
+  in submission order.  float32 leaves hand ``compression`` to the wire
+  (the host ring quantizes per hop; NCCL moves CUDA tensors raw, as the
+  reference's mesh path does); other dtypes are cast by
+  ``compression.compress`` around the collective.  With overlap
+  (``overlap=True`` or ``HOROVOD_TPU_OVERLAP``) the float32 leaves are
+  packed into the bucket planner's buckets (``HOROVOD_TPU_BUCKET_BYTES``),
+  and each bucket -- its leaves concatenated -- is issued as one
+  ``allreduce_async`` named ``f"{name_prefix}.bucket{b}"`` as soon as its
+  last gradient is final; the ``overlap.*`` metrics and
+  :func:`.observe.note_step` record each such step.
 
-Not ported yet: the negotiated eager path and its bucketed overlap
-(``allreduce_gradients`` :277-337, ``_overlapped_allreduce`` :383),
-``callbacks.py``, the sparse allgather route (a sparse gradient raises
-unless ``sparse_as_dense=True``) and the wire-plan metrics.
+Sparse gradients (a sparse COO tensor, as ``nn.Embedding(sparse=True)``
+gives, or an :class:`.sparse.IndexedSlices`) take the allgather route on
+both branches (:mod:`.sparse`) unless ``sparse_as_dense=True`` densifies
+them first.  With ``error_feedback=True`` each lossy leaf (int8-eligible
+under int8) adds its residual before the reduction (carry-in) and stores
+``g - Q(g)`` after it (carry-out), ``Q`` the local int8 snap, on both
+branches.  The residual is f32 and lives in the wrapped optimizer's
+``state[p]["residual"]``, so ``state_dict()`` carries it.
+
+Not ported yet: ``compression="auto"`` (the precision autopilot) and the
+wire-plan metrics.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from horovod_tpu_torch import basics
+from horovod_tpu_torch import observe as _observe
 from horovod_tpu_torch import scheduler as _sched
+from horovod_tpu_torch import sparse as _sparse
 from horovod_tpu_torch.compression import NoneCompressor
+from horovod_tpu_torch.metrics import registry as _metrics
+from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops import injit as _injit
 from horovod_tpu_torch.ops import quantized_collectives as _qc
 from horovod_tpu_torch.spmd import _check_compression as _resolve
+
+DEFAULT_NAME_PREFIX = "DistributedOptimizer.grads"
 
 
 def _world(group) -> int:
@@ -57,22 +82,27 @@ def _global_rank(rank: int, group) -> int:
 
 def _lossy(compression, g) -> bool:
     """Leaves the wire quantizes: the only ones with a residual."""
-    return _qc.is_int8(compression) and _qc.int8_eligible(g.shape, g.dtype)
+    return (isinstance(g, torch.Tensor) and not g.is_sparse
+            and _qc.is_int8(compression)
+            and _qc.int8_eligible(g.shape, g.dtype))
 
 
-def _densify(g: torch.Tensor, sparse_as_dense: bool) -> torch.Tensor:
-    if not g.is_sparse:
-        return g
-    if not sparse_as_dense:
-        raise NotImplementedError(
-            "sparse gradients ride the sparse allgather path, which is not "
-            "ported; pass sparse_as_dense=True")
-    return g.to_dense()
+def _as_leaf(g, sparse_as_dense: bool):
+    """A gradient leaf as the reduction takes it: a sparse COO tensor
+    becomes :class:`.sparse.IndexedSlices` (or dense under
+    ``sparse_as_dense``), slices stay slices."""
+    if isinstance(g, _sparse.IndexedSlices):
+        return g.to_dense() if sparse_as_dense else g
+    if g.is_sparse:
+        return g.to_dense() if sparse_as_dense else \
+            _sparse.IndexedSlices.from_sparse(g)
+    return g
 
 
-def _reduce_leaf(g: torch.Tensor, compression, *, average: bool,
-                 group) -> torch.Tensor:
+def _reduce_leaf(g, compression, *, average: bool, group):
     """One leaf of ``allreduce_gradients``' SPMD branch."""
+    if isinstance(g, _sparse.IndexedSlices):
+        return _sparse.allreduce(g, average=average, group=group)
     if _lossy(compression, g):
         return _qc.quantized_ring_allreduce(g, average=average, group=group)
     leaf_comp = NoneCompressor if _qc.is_int8(compression) else compression
@@ -82,24 +112,220 @@ def _reduce_leaf(g: torch.Tensor, compression, *, average: bool,
     return leaf_comp.decompress(c, ctx)
 
 
+class _EagerReduction:
+    """One call (one optimizer step) of the eager branch: leaves are
+    submitted to the negotiated plane as they become final, in any order,
+    and :meth:`wait` returns the reduced leaves in leaf order.
+
+    With ``bucketed`` (the positions of the float32 dense leaves, in leaf
+    order) the step is ``_overlapped_allreduce``: those leaves are
+    registered with a new bucket planner, and each bucket is issued as
+    soon as its last leaf is submitted.  Every other leaf is submitted on
+    its own."""
+
+    def __init__(self, *, average: bool, compression, name_prefix: str,
+                 bucketed=None):
+        self.average = average
+        self.compression = compression
+        self.name_prefix = name_prefix
+        self.submitted: set = set()
+        self.bucketed: set = set()
+        self._handles: dict = {}      # leaf -> (kind, handle(s), ctx)
+        self._buckets: dict = {}      # bucket -> (handle, its leaves)
+        self._issue_seq: list = []
+        self._t_entry = time.perf_counter()
+        self._t_last = self._t_entry
+        self._planner = None
+        if bucketed is None:
+            return
+        planner = _sched.make_bucket_planner(_sched.bucket_bytes_from_env())
+        self._slot = {}
+        for j, (i, nbytes) in enumerate(bucketed):
+            planner.register_leaf(f"{name_prefix}.{i}", nbytes, "float32")
+            self._slot[i] = j
+        self.bucketed = set(self._slot)
+        self._bucket_leaves = [[] for _ in range(planner.seal())]
+        for i, j in self._slot.items():
+            self._bucket_leaves[planner.bucket_of(j)].append(i)
+        self._planner = planner
+        self._grads: dict = {}        # leaf -> gradient, shape once issued
+        self._t_first_issue = None
+
+    def submit(self, i: int, g) -> None:
+        """Hand leaf ``i`` (a dense tensor or IndexedSlices) to the plane."""
+        self._t_last = time.perf_counter()
+        self.submitted.add(i)
+        name = f"{self.name_prefix}.{i}"
+        if isinstance(g, _sparse.IndexedSlices):
+            self._handles[i] = ("sparse", (
+                _eager.allgather_async(g.values, name=f"{name}.values"),
+                _eager.allgather_async(g.indices, name=f"{name}.indices")),
+                g.dense_shape)
+        elif i in self.bucketed:
+            if g.dtype != torch.float32:
+                raise ValueError(
+                    f"{name}: a bucketed leaf must stay float32, got "
+                    f"{g.dtype}")
+            self._grads[i] = g
+            self._planner.note_ready(self._slot[i])
+            self._drain()
+        elif g.dtype == torch.float32:
+            self._handles[i] = ("dense", _eager.allreduce_async(
+                g, average=self.average, name=name,
+                compression=self.compression), None)
+        else:
+            c, ctx = self.compression.compress(g)
+            self._handles[i] = ("dense", _eager.allreduce_async(
+                c, average=self.average, name=name), ctx)
+
+    def _drain(self) -> None:
+        """Issue every bucket whose leaves are all submitted: the
+        concatenation of its leaves on their device, on the current
+        stream (which is the one that made the gradients)."""
+        while True:
+            b = self._planner.next_issue()
+            if b < 0:
+                return
+            if self._t_first_issue is None:
+                self._t_first_issue = time.perf_counter()
+            leaves = self._bucket_leaves[b]
+            flat = (torch.cat([self._grads[i].reshape(-1) for i in leaves])
+                    if len(leaves) > 1
+                    else self._grads[leaves[0]].reshape(-1))
+            for i in leaves:           # the bucket holds the values now
+                self._grads[i] = self._grads[i].shape
+            self._buckets[b] = (_eager.allreduce_async(
+                flat, average=self.average,
+                name=f"{self.name_prefix}.bucket{b}",
+                compression=self.compression), leaves)
+            self._issue_seq.append(b)
+
+    def wait(self, n: int) -> list:
+        """Synchronize every submission (buckets in issue order, then the
+        other leaves in submission order); the ``n`` reduced leaves in
+        leaf order, sparse ones as IndexedSlices."""
+        outs = [None] * n
+        if self._planner is not None:
+            self._wait_buckets(outs)
+        for i, (kind, h, extra) in self._handles.items():
+            if kind == "sparse":
+                values = _eager.synchronize(h[0])
+                if self.average:
+                    values = values / basics.size()
+                outs[i] = _sparse.IndexedSlices(
+                    values, _eager.synchronize(h[1]), extra)
+            else:
+                outs[i] = self.compression.decompress(
+                    _eager.synchronize(h), extra)
+        return outs
+
+    def _wait_buckets(self, outs: list) -> None:
+        t_backward_done = self._t_last
+        for b in self._issue_seq:
+            h, leaves = self._buckets[b]
+            red = _eager.synchronize(h)
+            self._planner.note_complete(b)
+            off = 0
+            for i in leaves:
+                shape = self._grads[i]
+                n = math.prod(shape)
+                outs[i] = self.compression.decompress(
+                    red[off:off + n].view(shape), None)
+                off += n
+        t_comm_done = time.perf_counter()
+        self._planner.close()
+        if not self._issue_seq:
+            return
+        comm_span = max(0.0, t_comm_done - self._t_first_issue)
+        exposed = max(0.0, t_comm_done - t_backward_done)
+        hidden = max(0.0, comm_span - exposed)
+        _metrics.inc("overlap.steps")
+        _metrics.observe("overlap.hidden_seconds", hidden)
+        _metrics.observe("overlap.exposed_seconds", exposed)
+        if comm_span > 0:
+            _metrics.observe("overlap.hidden_fraction", hidden / comm_span)
+        # The span from entry to backward done is compute (communication
+        # hides under it), the tail after it is exposed communication,
+        # and what neither accounts for is stall.
+        step_s = max(0.0, t_comm_done - self._t_entry)
+        compute_s = max(0.0, t_backward_done - self._t_entry)
+        stall_s = max(0.0, step_s - compute_s - exposed)
+        _observe.note_step(step_s, compute_s, hidden, exposed, stall_s)
+
+    def abandon(self) -> None:
+        """Wait out what was submitted and drop it (``zero_grad`` before
+        ``step``), so that the names are free for the next step."""
+        for b in self._issue_seq:
+            _eager.synchronize(self._buckets[b][0])
+        for kind, h, _ in self._handles.values():
+            for one in (h if kind == "sparse" else (h,)):
+                _eager.synchronize(one)
+        if self._planner is not None:
+            self._planner.close()
+
+
+def _bucketed(leaves) -> list:
+    """(position, bytes) of the leaves the overlapped branch buckets: the
+    dense float32 ones."""
+    return [(i, g.numel() * 4) for i, g in enumerate(leaves)
+            if isinstance(g, torch.Tensor) and g.dtype == torch.float32]
+
+
+def _restore_form(out, like):
+    """A reduced sparse leaf in the form it came in: a sparse COO tensor
+    stays one."""
+    if isinstance(out, _sparse.IndexedSlices) and \
+            isinstance(like, torch.Tensor):
+        return out.to_sparse()
+    return out
+
+
 def allreduce_gradients(grads, *, average: bool = True,
                         compression=NoneCompressor,
-                        sparse_as_dense: bool = False, group=None):
+                        sparse_as_dense: bool = False, group=None,
+                        eager: bool = False, overlap: Optional[bool] = None,
+                        name_prefix: str = DEFAULT_NAME_PREFIX):
     """Average (or sum) a tree of per-rank tensors (a tensor, or lists,
-    tuples and dicts of them) across ``group``, leaf by leaf, with the
-    routing of :func:`DistributedOptimizer` (no error feedback).
-    ``compression`` takes a Compressor class or a wire name;
-    ``HOROVOD_TPU_INJIT_WIRE_DTYPE`` fills in the default."""
+    tuples and dicts of them) across ranks, leaf by leaf, with the routing
+    of :func:`DistributedOptimizer` (no error feedback).
+
+    ``eager=False`` (default): the SPMD branch over ``group``.
+    ``eager=True``: the negotiated plane over the world of ``hvd.init()``
+    (``group`` must be None), with the overlapped bucketing under
+    ``overlap`` (default: ``HOROVOD_TPU_OVERLAP``); every leaf is final at
+    the call, so buckets issue in their order.  Sparse leaves (sparse COO
+    tensors or :class:`.sparse.IndexedSlices`) come back gathered, in the
+    form they came in, unless ``sparse_as_dense``.  ``compression`` takes
+    a Compressor class or a wire name; ``HOROVOD_TPU_INJIT_WIRE_DTYPE``
+    fills in the default."""
     compression = _resolve(compression)
-    leaves, spec = pytree.tree_flatten(grads)
-    out = [_reduce_leaf(_densify(g, sparse_as_dense), compression,
-                        average=average, group=group) for g in leaves]
+    given, spec = pytree.tree_flatten(grads)
+    leaves = [_as_leaf(g, sparse_as_dense) for g in given]
+    if not eager:
+        out = [_reduce_leaf(g, compression, average=average, group=group)
+               for g in leaves]
+    else:
+        if group is not None:
+            raise ValueError(
+                "eager=True reduces over the world of hvd.init(); group= "
+                "belongs to the SPMD branch")
+        red = _EagerReduction(
+            average=average, compression=compression,
+            name_prefix=name_prefix,
+            bucketed=(_bucketed(leaves) if _sched.overlap_enabled(overlap)
+                      else None))
+        for i, g in enumerate(leaves):
+            red.submit(i, g)
+        out = red.wait(len(leaves))
+    out = [_restore_form(o, g) for o, g in zip(out, given)]
     return pytree.tree_unflatten(out, spec)
 
 
-def allreduce_(tree, *, average: bool = True, group=None):
+def allreduce_(tree, *, average: bool = True, group=None,
+               eager: bool = False, name_prefix: str = "allreduce"):
     """Allreduce of an arbitrary tree of tensors (metric averaging)."""
-    return allreduce_gradients(tree, average=average, group=group)
+    return allreduce_gradients(tree, average=average, group=group,
+                               eager=eager, name_prefix=name_prefix)
 
 
 class _DistributedOptimizer:
@@ -107,14 +333,26 @@ class _DistributedOptimizer:
     optimizer's class."""
 
     def _setup(self, *, average, compression, sparse_as_dense,
-               error_feedback, overlap, group) -> None:
+               error_feedback, overlap, group, eager) -> None:
+        if eager and group is not None:
+            raise ValueError(
+                "eager=True reduces over the world of hvd.init(); group= "
+                "belongs to the SPMD branch")
         self.average = average
         self.compression = _resolve(compression)
         self.sparse_as_dense = sparse_as_dense
         self.error_feedback = error_feedback
         self.overlap = _sched.overlap_enabled(overlap)
         self.group = group
+        self.eager = eager
         self._done: set = set()
+        # The eager branch: the step's reduction in flight, and, once the
+        # first step has shown which gradients are sparse, the (position,
+        # bytes) of the leaves the overlapped step buckets.
+        self._reduction: Optional[_EagerReduction] = None
+        self._bucket_plan: Optional[list] = None
+        self._sparse_ids: set = set()
+        self._position = {id(p): i for i, p in enumerate(self._params())}
         for p in self._params():
             if error_feedback and _lossy(self.compression, p):
                 self.state[p]["residual"] = torch.zeros(
@@ -132,32 +370,94 @@ class _DistributedOptimizer:
                 "DistributedOptimizer: a gradient was accumulated twice "
                 "before step(); call step() or zero_grad() between backward "
                 "passes")
-        self._reduce_param(p)
+        if not self.eager:
+            self._reduce_param(p)
+        elif self._bucket_plan is not None:
+            # The first step has no plan yet: step() submits everything.
+            self._submit(self._eager_reduction(), self._position[id(p)], p)
+        self._done.add(id(p))
+
+    def _carried_in(self, p: torch.Tensor, g):
+        """The leaf ``p`` contributes, with its residual added when the
+        wire quantizes it, and the residual's carry-out stored."""
+        if not (self.error_feedback and _lossy(self.compression, g)):
+            return g
+        state = self.state[p]
+        r = state.get("residual")
+        if r is None:
+            r = torch.zeros_like(g, dtype=torch.float32)
+        g = g + r.to(g.dtype)
+        g32 = g.to(torch.float32)
+        state["residual"] = g32 - _qc.snap_to_grid(g32)
+        return g
+
+    def _grad(self, p: torch.Tensor):
+        """``p``'s gradient as a leaf of the reduction: zeros when it has
+        none (an empty slice set where the first step found it sparse),
+        so that every rank issues the same collectives."""
+        g = p.grad
+        if g is not None and g.is_sparse:
+            self._sparse_ids.add(id(p))
+        if g is None:
+            if id(p) in self._sparse_ids:
+                return _sparse.IndexedSlices(
+                    torch.zeros((0,) + tuple(p.shape[1:]), dtype=p.dtype,
+                                device=p.device),
+                    torch.zeros(0, dtype=torch.int64, device=p.device),
+                    tuple(p.shape))
+            g = torch.zeros_like(p)
+        return _as_leaf(g, self.sparse_as_dense)
 
     def _reduce_param(self, p: torch.Tensor) -> None:
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
-        g = _densify(g, self.sparse_as_dense)
-        lossy = self.error_feedback and _lossy(self.compression, g)
-        if lossy:
-            state = self.state[p]
-            r = state.get("residual")
-            if r is None:
-                r = torch.zeros_like(g, dtype=torch.float32)
-            g = g + r.to(g.dtype)
+        """The SPMD branch, one parameter."""
+        g = self._carried_in(p, self._grad(p))
         red = _reduce_leaf(g, self.compression, average=self.average,
                            group=self.group)
-        if lossy:
-            g32 = g.to(torch.float32)
-            state["residual"] = g32 - _qc.snap_to_grid(g32)
-        p.grad = red
+        p.grad = (red.to_dense() if isinstance(red, _sparse.IndexedSlices)
+                  else red)
         self._done.add(id(p))
+
+    def _eager_reduction(self) -> _EagerReduction:
+        if self._reduction is None:
+            self._reduction = _EagerReduction(
+                average=self.average, compression=self.compression,
+                name_prefix=DEFAULT_NAME_PREFIX,
+                bucketed=self._bucket_plan if self.overlap else None)
+        return self._reduction
+
+    def _submit(self, red: _EagerReduction, i: int,
+                p: torch.Tensor) -> None:
+        g = self._carried_in(p, self._grad(p))
+        if isinstance(g, _sparse.IndexedSlices) and i in red.bucketed:
+            raise RuntimeError(
+                f"DistributedOptimizer: the gradient of parameter {i} is "
+                f"sparse, but it was dense in the first step, which fixed "
+                f"the overlap buckets")
+        red.submit(i, g)
 
     def synchronize(self) -> None:
         """Reduce every gradient that no hook has reduced yet, in
-        parameter order."""
-        for p in self._params():
-            if id(p) not in self._done:
-                self._reduce_param(p)
+        parameter order (eager: submit them, then wait for the whole
+        step's reduction)."""
+        params = self._params()
+        self._position = {id(p): i for i, p in enumerate(params)}
+        if not self.eager:
+            for p in params:
+                if id(p) not in self._done:
+                    self._reduce_param(p)
+            self._done.clear()
+            return
+        if self.overlap and self._bucket_plan is None:
+            self._bucket_plan = _bucketed([self._grad(p) for p in params])
+        red = self._eager_reduction()
+        for i, p in enumerate(params):
+            if i not in red.submitted:
+                self._submit(red, i, p)
+        outs = red.wait(len(params))
+        self._reduction = None
+        for p, g in zip(params, outs):
+            p.grad = (g.to_dense() if isinstance(g, _sparse.IndexedSlices)
+                      else g)
         self._done.clear()
 
     def step(self, closure=None):
@@ -185,6 +485,9 @@ class _DistributedOptimizer:
         return loss
 
     def zero_grad(self, set_to_none: bool = True) -> None:
+        if self._reduction is not None:
+            self._reduction.abandon()
+            self._reduction = None
         self._done.clear()
         super().zero_grad(set_to_none)
 
@@ -210,7 +513,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                          average: bool = True, compression=NoneCompressor,
                          sparse_as_dense: bool = False,
                          error_feedback: bool = False,
-                         overlap: Optional[bool] = None, group=None):
+                         overlap: Optional[bool] = None, group=None,
+                         eager: bool = False):
     """Wrap ``optimizer`` so that its updates consume rank-averaged
     gradients.
 
@@ -219,15 +523,23 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     scheduler accepts it) to use in place of ``optimizer``, as
     ``zero_grad()``, ``loss.backward()``, ``step()``.  ``step()`` reduces
     every gradient (see the module docstring), then runs the wrapped
-    class's step.  ``overlap`` (default: the ``HOROVOD_TPU_OVERLAP`` knob)
-    registers a post-accumulate-grad hook on each parameter, so that a
-    leaf's carry-in and reduction start as soon as its gradient is final
-    during backward; ``step()`` then reduces only what the hooks did not.
-    Reductions are per leaf, so overlap on and off give bit-identical
-    results.  A parameter without a gradient contributes zeros, so that
-    every rank issues the same collectives.  Drive it with a plain loop,
-    not through ``spmd.make_train_step``, which reduces the gradients
-    itself.
+    class's step.  ``eager=True`` takes the negotiated eager branch
+    (module docstring) instead of the SPMD branch over ``group``.
+
+    ``overlap`` (default: the ``HOROVOD_TPU_OVERLAP`` knob) registers a
+    post-accumulate-grad hook on each parameter, so that a leaf's carry-in
+    and reduction start as soon as its gradient is final during backward;
+    ``step()`` then reduces what the hooks did not and waits.  On the SPMD
+    branch reductions are per leaf; on the eager branch a hook marks its
+    leaf ready in the bucket planner and issues every bucket that became
+    complete.  The eager branch learns from its first step which
+    gradients are sparse; that step issues its buckets from ``step()``.
+    Overlap changes when a reduction starts, not what it computes.  A
+    parameter without a gradient contributes zeros (an empty slice set if
+    its gradient was sparse), submitted by ``step()`` in parameter order,
+    so that every rank issues the same collectives.  Drive it with a
+    plain loop, not through ``spmd.make_train_step``, which reduces the
+    gradients itself.
 
     ``compression`` is read once, here (class, wire name, or the
     ``HOROVOD_TPU_INJIT_WIRE_DTYPE`` fill-in); ``"auto"`` raises
@@ -241,7 +553,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     wrapped._setup(average=average, compression=compression,
                    sparse_as_dense=sparse_as_dense,
                    error_feedback=error_feedback, overlap=overlap,
-                   group=group)
+                   group=group, eager=eager)
     return wrapped
 
 

@@ -1,11 +1,12 @@
 """Bucket plan and issue order of the gradient collectives.
 
-Port of ``horovod_tpu/scheduler.py:40-128`` in pure Python:
-``overlap_enabled``, ``bucket_bytes_from_env``, ``resolve_algo``,
-``plan_tick`` (the eager plane's per-tick policy), ``pack_buckets`` and
-``issue_order``.  The bucket plan is byte-for-byte the JAX package's.  The
-bucket planners (``PyBucketPlanner``, the native one) are not ported
-yet.
+Port of ``horovod_tpu/scheduler.py:40-247``: ``overlap_enabled``,
+``bucket_bytes_from_env``, ``resolve_algo``, ``plan_tick`` (the eager
+plane's per-tick policy), ``pack_buckets``, ``issue_order``, the
+backward-overlap bucket planner :class:`PyBucketPlanner` and
+:func:`make_bucket_planner`, which prefers the native planner
+(:class:`horovod_tpu_torch.cpp_core.NativeBucketPlanner`).  Plans and issue
+orders are the JAX package's.
 
 Knobs (shared with the JAX package):
 
@@ -110,3 +111,130 @@ def issue_order(num_buckets: int, overlap: bool) -> List[int]:
     order otherwise."""
     order = list(range(num_buckets))
     return order[::-1] if overlap else order
+
+
+class PyBucketPlanner:
+    """Pure-Python backward-overlap bucket planner; same surface and
+    semantics as ``htpu::BucketPlanner`` /
+    :class:`horovod_tpu_torch.cpp_core.NativeBucketPlanner`.
+
+    Leaves are registered in declaration order and packed by
+    :func:`pack_buckets` at :meth:`seal`; :meth:`note_ready` marks a leaf's
+    gradient final and queues its bucket once every leaf of it is;
+    :meth:`next_issue` pops the queue (first ready, first issued)."""
+
+    def __init__(self, bucket_bytes: int):
+        self._bucket_bytes = (int(bucket_bytes) if bucket_bytes > 0
+                              else DEFAULT_BUCKET_BYTES)
+        self._sealed = False
+        self._names: List[str] = []
+        self._sizes: List[int] = []
+        self._dtypes: List[str] = []
+        self._bucket_of: List[int] = []
+        self._buckets: List[List[int]] = []
+        self._leaf_ready: List[bool] = []
+        self._ready_count: List[int] = []
+        self._issued: List[bool] = []
+        self._complete: List[bool] = []
+        self._issue_queue: List[int] = []
+        self._issue_head = 0
+
+    def close(self) -> None:
+        pass
+
+    def register_leaf(self, name: str, nbytes: int, dtype: str) -> int:
+        if self._sealed:
+            return -1
+        self._names.append(name)
+        self._sizes.append(int(nbytes))
+        self._dtypes.append(dtype)
+        return len(self._names) - 1
+
+    def seal(self) -> int:
+        if self._sealed:
+            return len(self._buckets)
+        self._sealed = True
+        self._buckets = pack_buckets(self._sizes, self._dtypes,
+                                     self._bucket_bytes)
+        self._bucket_of = [-1] * len(self._names)
+        for b, leaves in enumerate(self._buckets):
+            for leaf in leaves:
+                self._bucket_of[leaf] = b
+        n = len(self._buckets)
+        self._leaf_ready = [False] * len(self._names)
+        self._ready_count = [0] * n
+        self._issued = [False] * n
+        self._complete = [False] * n
+        from horovod_tpu_torch.metrics import registry
+        registry.inc("overlap.buckets", n)
+        return n
+
+    def bucket_of(self, leaf: int) -> int:
+        if leaf < 0 or leaf >= len(self._bucket_of):
+            return -1
+        return self._bucket_of[leaf]
+
+    def bucket_bytes(self, bucket: int) -> int:
+        if bucket < 0 or bucket >= len(self._buckets):
+            return -1
+        return sum(self._sizes[i] for i in self._buckets[bucket])
+
+    def note_ready(self, leaf: int) -> int:
+        if not self._sealed or leaf < 0 or leaf >= len(self._names):
+            return -1
+        if self._leaf_ready[leaf]:
+            return -1
+        self._leaf_ready[leaf] = True
+        b = self._bucket_of[leaf]
+        self._ready_count[b] += 1
+        if self._ready_count[b] < len(self._buckets[b]):
+            return -1
+        self._issue_queue.append(b)
+        return b
+
+    def next_issue(self) -> int:
+        from horovod_tpu_torch import cpp_core
+        while self._issue_head < len(self._issue_queue):
+            b = self._issue_queue[self._issue_head]
+            self._issue_head += 1
+            if self._issued[b]:
+                continue
+            self._issued[b] = True
+            cpp_core.flight_record("bucket.issue", "", self.bucket_bytes(b),
+                                   b, len(self._buckets[b]))
+            return b
+        return -1
+
+    def note_complete(self, bucket: int) -> None:
+        from horovod_tpu_torch import cpp_core
+        if bucket < 0 or bucket >= len(self._buckets):
+            return
+        if self._complete[bucket]:
+            return
+        self._complete[bucket] = True
+        cpp_core.flight_record("bucket.complete", "",
+                               self.bucket_bytes(bucket), bucket,
+                               len(self._buckets[bucket]))
+
+    def all_complete(self) -> bool:
+        return self._sealed and all(self._complete)
+
+    def reset(self) -> None:
+        self._leaf_ready = [False] * len(self._names)
+        self._ready_count = [0] * len(self._buckets)
+        self._issued = [False] * len(self._buckets)
+        self._complete = [False] * len(self._buckets)
+        self._issue_queue = []
+        self._issue_head = 0
+
+
+def make_bucket_planner(bucket_bytes: int, prefer_native: bool = True):
+    """A bucket planner: the native C++ one when the core library loads,
+    else the pure-Python mirror."""
+    if prefer_native:
+        from horovod_tpu_torch import cpp_core
+        try:
+            return cpp_core.NativeBucketPlanner(bucket_bytes)
+        except (RuntimeError, OSError):
+            pass
+    return PyBucketPlanner(bucket_bytes)

@@ -290,12 +290,20 @@ def test_load_state_dict_keeps_the_residual_f32():
 
 
 def test_sparse_gradients():
+    """A sparse gradient takes the sparse allgather route (the identity at
+    world size one) and reaches the update densified; ``sparse_as_dense``
+    densifies first."""
     emb = torch.nn.Embedding(10, 4, sparse=True)
-    idx = torch.tensor([1, 3])
+    idx = torch.tensor([1, 3, 3])
     opt = hvd.DistributedOptimizer(torch.optim.SGD(emb.parameters(), lr=1.0))
+    before = emb.weight.detach().clone()
     emb(idx).sum().backward()
-    with pytest.raises(NotImplementedError, match="sparse_as_dense"):
-        opt.step()
+    want = emb.weight.grad.to_dense()
+    opt.step()
+    assert not emb.weight.grad.is_sparse
+    assert torch.equal(emb.weight.grad, want)
+    assert torch.equal(emb.weight.detach(), before - want)
+    idx = torch.tensor([1, 3])
     dense = hvd.DistributedOptimizer(
         torch.optim.SGD(emb.parameters(), lr=1.0), sparse_as_dense=True)
     before = emb.weight.detach().clone()

@@ -52,7 +52,8 @@ def test_scan_sees_the_whole_package():
 
 
 EAGER_MODULES = ["cpp_core", "core", "metrics", "timeline", "wire",
-                 "ops/executor", "ops/eager"]
+                 "ops/executor", "ops/eager", "optimizer", "scheduler",
+                 "sparse", "observe", "callbacks", "data"]
 
 
 @pytest.fixture(scope="module")
@@ -71,8 +72,8 @@ def eager_imports():
 
 @pytest.mark.parametrize("name", EAGER_MODULES)
 def test_scan_covers_the_eager_plane(name, eager_imports):
-    """The modules of the eager plane are scanned, and import without
-    JAX or the JAX package."""
+    """The modules of the eager plane and of the gradient route through
+    it are scanned, and import without JAX or the JAX package."""
     assert f"horovod_tpu_torch/{name}.py" in FILES
     assert not FORBIDDEN & set(eager_imports)
 
