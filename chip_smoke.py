@@ -170,6 +170,55 @@ the checkout.  Phases, in order; any failure ends the run:
    (overlap off and on) equal ``dist.all_reduce`` bit for bit, and a
    sparse ``nn.Embedding(32768, 2048)`` gradient with ragged rows per
    rank equals the dense mean.
+22. Parallel, one card (phases 22-26 run right after phase 4, while this
+   process holds little on card 0, which rank 0 of the four-card group
+   shares): on a world of one at small widths (d 256, 2 heads, D 128, 2
+   layers, T 256) in f32 with TF32 off, ``ring``, ``ring_zigzag`` and
+   ``ulysses`` give ``attn="full"``'s loss and gradients and
+   ``ulysses_flash`` ``attn="flash"``'s (1e-5 relative);
+   ``ulysses_flash`` in bf16 launches P1-P3 once a layer.  Then P1-P3
+   against their plain versions at every shape the four-card phases give
+   them: a pipeline stage's (B 1, H 16, T 2048), ``ulysses_flash``'s at
+   batch 1 (B 1, H 4, T 8192) and at batch 8 (B 8, H 4, T 8192, D 128),
+   the last timed beside their bound and
+   ``scaled_dot_product_attention``.
+23. Sequence parallel, NCCL: four processes, one card each, only with
+   four or more cards (phases 23-26 share one group; otherwise a line
+   says each did not run).  ``TransformerLM(attn="ulysses_flash")`` at
+   the headline widths over an ``("sp",)`` mesh: global seq 8192, 2048
+   a card, batch 8, 2 warm-up and 5 timed steps through
+   ``make_train_step``: step ms, tokens/s/GPU, MFU by ``bench.py:425-427``
+   with seq the global 8192, peak memory, one profiled step on rank 0.
+   P1, P2 and P3 each launch depth x steps times; the first loss is
+   within ``TOL_SP_FIRST`` of one card's ``attn="flash"`` forward over
+   all 8192 tokens with the same weights.  Then ``ulysses_flash``,
+   ``ring``, ``ring_zigzag`` (tokens permuted by ``zigzag_indices``) and
+   ``ulysses`` at batch 1, 3 steps each: losses within ``TOL_SP_MODES``
+   of each other, and each mode's first update within ``UPDATE_FLOORS``
+   times the problem's own floor of a one-card ``attn="flash"`` twin's.
+24. Tensor parallel, NCCL: (dp 2, tp 2), ``TransformerLM(tp_axis="tp")``
+   at the headline widths, T 2048, batch 2 a dp shard, SGD momentum
+   through ``tp_value_and_grad``, weights carried from the one-card
+   ``attn="full"`` twin (``weights.dense_to_tp_state``): the first loss
+   within ``TOL_TP_LOSS`` of the twin's on the whole batch, the first
+   update over the gathered slices within ``UPDATE_FLOORS`` times the
+   problem's own floor (the twin's bf16 update against its f32 one,
+   printed beside); then ``matmul_reducescatter`` against
+   ``psum_scatter`` at the MLP's row shape (``TOL_MRS``), timed.
+25. Pipeline, NCCL: 4 stages of ``BlockStack(depth 3, attn="flash")``,
+   8 microbatches of 1 x 2048, embeddings and head replicated: P1
+   launches 3 x (8 + 4 - 1) = 33 times a forward on every rank (and P1-P3
+   99 times in 3 steps); the first loss within ``TOL_PP_FIRST`` of the
+   12-block model's one-card forward with the same weights, each rank's
+   first update (the ends and its stage) within ``UPDATE_FLOORS`` times
+   the floor of that model's; losses and step ms.
+26. Experts, NCCL: ``MoELayer`` (E 4, d 2048, hidden 8192, top-2,
+   capacity factor 1.25, 4,096 tokens a card, bf16): output, aux
+   components and gradients (tokens, experts, router) within ``TOL_MOE``
+   of the same function written out on rank 0 with every expert gathered
+   (routing by ``torch.topk``, the capacity rule written out), whose
+   capacity and dropped shares must equal the layer's; dropped share and
+   forward + backward ms.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -305,6 +354,12 @@ def _max_abs(a, b) -> float:
 def _rel_fro(a, b) -> float:
     d = torch.linalg.vector_norm(a.float() - b.float()).item()
     return d / max(torch.linalg.vector_norm(b.float()).item(), 1e-30)
+
+
+def _free() -> None:
+    """Release what the last phase left on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _visible_pairs(T: int, causal: bool, seq_len) -> int:
@@ -935,8 +990,7 @@ def phase_wide(usage):
               f"scaled_dot_product_attention backward")
         out[key] = {"errs": errs, "times": times, "work": work,
                     "device": device}
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
     return out
 
 
@@ -1019,26 +1073,32 @@ def phase_reference():
     _check(rel <= 5e-2, f"small-model grads rel error {rel}")
 
 
-def _train_setup(depth: int):
-    """The full-width model (random weights from ``SEED``), one batch and
-    the loss of the headline leg."""
+def _lm(attn, depth, max_len, device, dtype=torch.bfloat16, **kw):
+    """The full-width TransformerLM, random weights from ``SEED``."""
     from horovod_tpu_torch.models import TransformerLM
+    return TransformerLM(vocab=VOCAB, dim=DIM, depth=depth, num_heads=HEADS,
+                         max_len=max_len, attn=attn, dtype=dtype,
+                         head_dtype=dtype, ln_dtype=dtype, seed=SEED,
+                         device=device, **kw)
+
+
+def _lm_loss(model, batch):
+    """The headline loss: fused CE of the final hidden states on the head
+    kernel, over an (inputs, labels) pair or a (B, T + 1) token tensor."""
     from horovod_tpu_torch.ops.losses import fused_softmax_xent
-    bf16 = torch.bfloat16
-    model = TransformerLM(vocab=VOCAB, dim=DIM, depth=depth,
-                          num_heads=HEADS, max_len=SEQ, attn="flash",
-                          dtype=bf16, head_dtype=bf16, ln_dtype=bf16,
-                          seed=SEED, device="cuda")
+    inp, lab = ((batch[:, :-1], batch[:, 1:]) if torch.is_tensor(batch)
+                else batch)
+    h = model(inp, return_hidden=True)
+    return fused_softmax_xent(h.reshape(-1, h.shape[-1]), model.head.kernel,
+                              lab.reshape(-1)).mean()
+
+
+def _train_setup(depth: int):
+    """The headline leg's model, one batch of tokens and its loss."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
                            device="cuda")
-
-    def loss_fn(model, batch):
-        h = model(batch[:, :-1], return_hidden=True)
-        return fused_softmax_xent(h.reshape(-1, DIM), model.head.kernel,
-                                  batch[:, 1:].reshape(-1)).mean()
-
-    return model, tokens, loss_fn
+    return _lm("flash", depth, SEQ, "cuda"), tokens, _lm_loss
 
 
 @contextlib.contextmanager
@@ -2171,8 +2231,7 @@ def phase_train_eager(depth: int, plain: dict, int8: dict) -> dict:
     hvd.observe.set_enabled(True)
     try:
         for label, overlap, lossy in EAGER_RUNS:
-            gc.collect()
-            torch.cuda.empty_cache()
+            _free()
             torch.cuda.reset_peak_memory_stats()
             model, tokens, loss_fn = _train_setup(depth)
             opt = hvd.DistributedOptimizer(
@@ -2307,8 +2366,7 @@ def _eager_train_worker(rank: int, port: int, results) -> None:
         tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
                                device=dev)
         for label in ("make_train_step", "eager", "eager overlap"):
-            gc.collect()
-            torch.cuda.empty_cache()
+            _free()
             model, _, loss_fn = _train_setup(DEPTH)
             sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
             if label == "make_train_step":
@@ -2366,13 +2424,11 @@ def _eager_train_worker(rank: int, port: int, results) -> None:
         # Exactness: integer-valued f32 gradients of the model's leaf
         # shapes through the eager branch equal dist.all_reduce leaf for
         # leaf, bit for bit, overlap off and on.
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
         model, _, _ = _train_setup(DEPTH)
         shapes = [p.shape for p in model.parameters()]
         del model
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
         grads = [torch.randint(-64, 64, s, generator=gen, device=dev)
                  .float() for s in shapes]
         exact = {}
@@ -2391,8 +2447,7 @@ def _eager_train_worker(rank: int, port: int, results) -> None:
         # Sparse: an embedding gradient with ragged rows per rank (integer
         # rows, so that every order of summation is exact) against the
         # dense mean.
-        gc.collect()
-        torch.cuda.empty_cache()
+        _free()
         emb = torch.nn.Embedding(VOCAB, DIM, sparse=True, device=dev)
         ids = torch.randint(0, VOCAB, ((rank + 1) * 512,), generator=gen,
                             device=dev)
@@ -2457,10 +2512,802 @@ def phase_eager_train_nccl():
     return got
 
 
-def _spawn(target, n: int) -> dict:
+# ----------------------------------------------------- parallelism library
+
+SP_SEQ = 8192                      # global sequence of the SP phase
+SP_RANKS = 4
+PP_STAGES, PP_DEPTH, PP_MICRO = 4, 3, 8
+MOE_E, MOE_HIDDEN, MOE_TOKENS, MOE_K, MOE_CF = 4, 8192, 4096, 2, 1.25
+# On a world of one, the sequence-parallel paths against attn="full" /
+# "flash" in f32, relative Frobenius (6.2e-7 measured on an H100 80GB
+# HBM3 at 700 W, PERF.md).
+TOL_SP_ONE = 1e-5
+# bf16 checks of the four-card phases, relative, each set from its
+# readings on four H100 80GB HBM3 at 700 W: ulysses_flash's first loss
+# 8.8e-8 from one card's; the batch-1 modes within 1.4e-5 of each other
+# over 3 steps; TP's first loss 1.4e-6 from its twin's;
+# matmul_reducescatter and the pipeline's first loss bit-identical to
+# their twins.  The experts' twin routes on its own (torch.topk, the
+# capacity rule written out) and moves data with the layer's one-hot
+# products, so only the order of f32 sums in the gate gradients can part
+# them; one token routed otherwise moves the outputs by about 1e-2.
+TOL_SP_FIRST = 1e-5      # ulysses_flash's first loss vs one card's
+TOL_SP_MODES = 1e-4      # ring, zigzag, ulysses vs ulysses_flash, batch 1
+TOL_TP_LOSS = 1e-5       # TP first loss vs the one-card twin
+TOL_MRS = 1e-5           # matmul_reducescatter vs psum_scatter, bf16
+TOL_PP_FIRST = 1e-5      # pipeline first loss vs the 12-block model's
+TOL_MOE = 1e-5           # MoE outputs, aux and gradients vs rank 0's twin
+# A parallel path's first update (TP, the pipeline, each SP mode at
+# batch 1) against its one-card bf16 twin's: the path sums its partial
+# gradients (row-parallel products, microbatches, ranks) after rounding
+# each to bf16, so its update is another bf16 approximation of the f32
+# one.  The limit is this many times the problem's own floor, the twin's
+# bf16 update against its f32 update (TP: 9.3e-3 against a floor of
+# 1.1e-2 measured, H100 80GB HBM3 at 700 W).
+UPDATE_FLOORS = 2.0
+
+
+def _first_update(model, batch, device=None):
+    """One SGD-momentum step of ``model`` on ``batch`` under
+    ``_lm_loss``: (the loss, the change of every state-dict entry, on
+    ``device``, else the model's).  The weights before the step wait in
+    host memory."""
+    before = {k: v.to("cpu", copy=True)
+              for k, v in model.state_dict().items()}
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    loss = _lm_loss(model, batch)
+    loss.backward()
+    opt.step()
+    return loss.item(), _change(model, before, device)
+
+
+def _change(model, before: dict, device=None) -> dict:
+    """Each state-dict entry of ``model`` less its value in ``before``
+    (host tensors), on ``device``, else the model's."""
+    return {k: (v.to(device) if device else v) - before[k].to(
+        device or v.device) for k, v in model.state_dict().items()}
+
+
+def _dict_rel(a: dict, b: dict, group=None) -> float:
+    """Relative Frobenius distance of two dicts of tensors over all of
+    ``b``'s entries together; with ``group``, over the entries of all its
+    ranks (the gathered tensors' distance)."""
+    import torch.distributed as dist
+    num = sum(torch.linalg.vector_norm(a[k].float() - b[k].float())
+              .item() ** 2 for k in b)
+    den = sum(torch.linalg.vector_norm(b[k].float()).item() ** 2 for k in b)
+    if group is not None:
+        t = torch.tensor([num, den], dtype=torch.float64,
+                         device=next(iter(b.values())).device)
+        dist.all_reduce(t, group=group)
+        num, den = t.tolist()
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def phase_parallel_one_card():
+    """Phase 22: the sequence-parallel modes on a world of one at small
+    widths in f32 (ring, ring_zigzag, ulysses against attn="full";
+    ulysses_flash against attn="flash"), ulysses_flash in bf16 through
+    P1-P3, and P1-P3 against their plain versions at every shape the
+    four-card phases give them, timed at ulysses_flash's (B 8, H 16 / 4,
+    T 8192, D 128)."""
+    from horovod_tpu_torch.ops import _cuda
+    cfg = dict(vocab=512, dim=256, depth=2, num_heads=2, max_len=256)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    toks = torch.randint(0, 512, (2, 257), generator=gen, device="cuda")
+    batch = (toks[:, :-1], toks[:, 1:])
+    from horovod_tpu_torch.models import TransformerLM
+
+    def run(attn, dtype):
+        model = TransformerLM(**cfg, attn=attn, dtype=dtype,
+                              head_dtype=dtype, ln_dtype=dtype, seed=SEED,
+                              device="cuda")
+        loss = _lm_loss(model, batch)
+        loss.backward()
+        return loss.item(), [p.grad for p in model.parameters()]
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        refs = {a: run(a, torch.float32) for a in ("full", "flash")}
+        for attn, ref in (("ring", "full"), ("ring_zigzag", "full"),
+                          ("ulysses", "full"), ("ulysses_flash", "flash")):
+            loss, grads = run(attn, torch.float32)
+            rl = abs(loss - refs[ref][0]) / abs(refs[ref][0])
+            rg = _dict_rel(dict(enumerate(grads)),
+                           dict(enumerate(refs[ref][1])))
+            print(f"parallel one card: {attn} vs attn={ref!r} (f32): loss "
+                  f"{rl:.2e}, gradients {rg:.2e} (limit {TOL_SP_ONE})")
+            _check(rl <= TOL_SP_ONE and rg <= TOL_SP_ONE,
+                   f"{attn} on one card strays from attn={ref!r}: loss "
+                   f"{rl}, gradients {rg}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    flash_loss, _ = run("flash", torch.bfloat16)
+    _cuda.reset_launches()
+    loss, _ = run("ulysses_flash", torch.bfloat16)
+    launches = {n: _cuda.LAUNCHES[n] for n in FLASH}
+    rl = abs(loss - flash_loss) / abs(flash_loss)
+    print(f"parallel one card: ulysses_flash bf16 launches {launches}, loss "
+          f"vs attn='flash' {rl:.2e}")
+    _check(all(launches[n] == cfg["depth"] for n in FLASH),
+           f"ulysses_flash in bf16 did not run P1-P3 once a layer: "
+           f"{launches}")
+    _check(rl <= TOL_SP_FIRST, f"ulysses_flash bf16 loss strays {rl}")
+    # P1-P3 at every shape the four-card phases give them: a pipeline
+    # stage's (one microbatch, every head), ulysses_flash's at batch 1,
+    # and at batch 8 (one card's heads over the whole sequence, timed).
+    print("kernels at the four-card phases' shapes (bf16):")
+    for b, h, t, label in ((1, HEADS, SEQ, "pipeline stage"),
+                           (1, HEADS // SP_RANKS, SP_SEQ,
+                            "ulysses_flash batch 1")):
+        _run_case(_case(b, h, t, DIM // HEADS, True, None, gen),
+                  f"{label} B={b} H={h} T={t} D={DIM // HEADS} causal")
+    c = _case(BATCH, HEADS // SP_RANKS, SP_SEQ, DIM // HEADS, True, None,
+              gen)
+    errs, times = _run_case(c, "ulysses_flash B=8 H=4 T=8192 D=128 causal",
+                            timing=True)
+    B, H, T, D = BATCH, HEADS // SP_RANKS, SP_SEQ, DIM // HEADS
+    pairs = B * H * _visible_pairs(T, True, None)
+    tensor = B * T * H * D * 2
+    rows = B * H * T * 4
+    work = {"flash_fwd": (4 * D * pairs, 4 * tensor + rows),
+            "flash_bwd_dkdv": (8 * D * pairs, 6 * tensor + 2 * rows),
+            "flash_bwd_dq": (6 * D * pairs, 5 * tensor + 2 * rows)}
+    out = {}
+    for name, key, lib in (("flash_fwd", "fwd", "sdpa_fwd"),
+                           ("flash_bwd_dkdv", "dkdv", "sdpa_bwd"),
+                           ("flash_bwd_dq", "dq", "sdpa_bwd")):
+        flops, nbytes = work[name]
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        out[name] = {"ms": times[key], "plain_ms": times[key + "_plain"],
+                     "bound_ms": bound, "library_ms": times[lib]}
+        print(f"  ulysses_flash shape: {name} {times[key]:.4f} ms, "
+              f"{bound / times[key]:.3f} of its bound ({bound:.4f} ms), "
+              f"plain {times[key + '_plain']:.2f} ms, "
+              f"scaled_dot_product_attention "
+              f"{'forward' if lib == 'sdpa_fwd' else 'backward'} "
+              f"{times[lib]:.4f} ms ({times[key] / times[lib]:.2f}x)")
+    return out
+
+
+def _par_env(rank: int, port: int):
+    os.environ.update({"HOROVOD_TPU_SIZE": "4", "HOROVOD_TPU_RANK": str(rank),
+                       "HOROVOD_TPU_LOCAL_SIZE": "1",
+                       "HOROVOD_TPU_LOCAL_RANK": str(rank)})
+    import horovod_tpu_torch as hvd
+    hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+    return hvd, torch.device("cuda", rank)
+
+
+def _timed_steps(step, batch, n: int):
+    """``n`` steps, each timed between barriers; (losses, seconds)."""
+    import torch.distributed as dist
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return losses, times
+
+
+def _profile_on_rank0(rank: int, label: str, step, batch):
+    """One more ``step(batch)`` under the profiler on rank 0 (the other
+    ranks run it plainly, so that the collectives match)."""
+    import torch.distributed as dist
+    dist.barrier()
+    if rank != 0:
+        step(batch)
+        torch.cuda.synchronize()
+        return None
+    print(f"{label}, rank 0:", flush=True)
+    prof = _profile_step(step, batch)
+    sys.stdout.flush()
+    return prof
+
+
+def _sp_worker_phase(hvd, dev, rank):
+    """Phase 23 on one of four cards."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.parallel.ring_attention import zigzag_indices
+    from horovod_tpu_torch.spmd import make_train_step, shard_batch
+    out = {}
+    mesh = build_mesh(hvd.get_topology(), (SP_RANKS,), ("sp",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    toks = torch.randint(0, VOCAB, (BATCH, SP_SEQ + 1), generator=gen,
+                         device=dev)
+    full = (toks[:, :-1], toks[:, 1:])
+    # One card's attn="flash" forward over the whole sequence, on rank 0.
+    if rank == 0:
+        ref = _lm("flash", DEPTH, SP_SEQ, dev)
+        with torch.no_grad():
+            out["one_card_loss"] = _lm_loss(ref, full).item()
+        del ref
+        _free()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = _lm("ulysses_flash", DEPTH, SP_SEQ, dev, sp_axis="sp",
+                mesh=mesh)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(model, _lm_loss, opt)
+    batch = shard_batch(full, (None, "sp"), mesh=mesh)
+    _cuda.reset_launches()
+    losses, times = _timed_steps(step, batch, WARMUP + TIMED)
+    out["launches"] = {n: _cuda.LAUNCHES[n] for n in FLASH + (FUSED,)}
+    out["losses"], out["times"] = losses, times
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["clocks"] = _clocks()
+    out["profile"] = _profile_on_rank0(rank, "sp nccl, ulysses_flash", step,
+                                       batch)
+    del model, opt, step, batch
+    _free()
+    # Batch 1, 3 steps each: the four modes on the same tokens (zigzag's
+    # permuted by zigzag_indices), each mode's first update (replicated:
+    # make_train_step averages the gradients over the ranks) against a
+    # one-card attn="flash" twin's on rank 0, beside the floor, the twin's
+    # bf16 update against its f32 update.
+    one = (full[0][:1], full[1][:1])
+    if rank == 0:
+        # On the host: rank 0's card also holds the parent's context.
+        twin = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            twin[dtype] = _first_update(_lm("flash", DEPTH, SP_SEQ, dev,
+                                            dtype=dtype), one, "cpu")[1]
+            _free()
+        out["b1_floor"] = _dict_rel(twin[torch.bfloat16],
+                                    twin[torch.float32])
+        twin = twin[torch.bfloat16]
+        _free()
+    dist.barrier()
+    idx = torch.as_tensor(zigzag_indices(SP_RANKS, SP_SEQ), device=dev)
+    for attn in ("ulysses_flash", "ring", "ring_zigzag", "ulysses"):
+        data = (one if attn != "ring_zigzag"
+                else (one[0][:, idx], one[1][:, idx]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = _lm(attn, DEPTH, SP_SEQ, dev, sp_axis="sp", mesh=mesh)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, _lm_loss, opt)
+        data = shard_batch(data, (None, "sp"), mesh=mesh)
+        if rank == 0:
+            before = {k: v.to("cpu", copy=True)
+              for k, v in model.state_dict().items()}
+        losses, times = _timed_steps(step, data, 1)
+        run = {}
+        if rank == 0:
+            run["update_err"] = _dict_rel(_change(model, before, "cpu"),
+                                          twin)
+            del before
+        more, more_t = _timed_steps(step, data, 2)
+        run.update(losses=losses + more, times=times + more_t,
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        out[("b1", attn)] = run
+        if attn == "ulysses_flash":
+            _profile_on_rank0(rank, "sp nccl batch 1, ulysses_flash", step,
+                              data)
+        del model, opt, step, data
+        _free()
+    return out
+
+
+def _sp_flops(depth: int, tokens: int) -> float:
+    """``bench.py:425-427``'s model FLOPs with seq the global SP_SEQ, for
+    ``tokens`` tokens on one card."""
+    n_matmul = 12 * depth * DIM * DIM + VOCAB * DIM
+    return (6 * n_matmul + 12 * depth * SP_SEQ * DIM) * tokens
+
+
+def _check_sp(got: dict) -> None:
+    o0 = got[0]["sp"]
+    steps = WARMUP + TIMED
+    for r in range(SP_RANKS):
+        o = got[r]["sp"]
+        step_s = statistics.median(o["times"][WARMUP:])
+        tokens = BATCH * SP_SEQ // SP_RANKS
+        mfu = _sp_flops(DEPTH, tokens) / step_s / PEAK_BF16_FLOPS
+        print(f"sp nccl rank {r}: ulysses_flash, seq {SP_SEQ} over "
+              f"{SP_RANKS} cards, batch {BATCH}, depth {DEPTH}: step "
+              f"{step_s * 1e3:.1f} ms (median of {TIMED}; all "
+              f"{[round(t * 1e3, 1) for t in o['times']]}), "
+              f"{tokens / step_s:.0f} tokens/s/GPU, MFU {mfu:.3f} at 989 "
+              f"TFLOP/s, peak memory {o['peak_gb']:.2f} GiB, launches "
+              f"{o['launches']}; losses {[round(x, 5) for x in o['losses']]};"
+              f" SM clock, power, temperature {o['clocks']}")
+        for name in FLASH:
+            _check(o["launches"][name] == DEPTH * steps,
+                   f"rank {r}: {name} launched {o['launches'][name]} "
+                   f"times, expected {DEPTH * steps}")
+        _check(o["launches"][FUSED] == 0, f"rank {r}: P6 ran")
+        _check(all(math.isfinite(x) for x in o["losses"]),
+               f"rank {r}: non-finite loss")
+        _check(o["losses"][-1] < o["losses"][0],
+               f"rank {r}: loss did not fall {o['losses']}")
+        _check(o["losses"] == o0["losses"],
+               f"rank {r}: losses differ from rank 0's")
+    ref = o0["one_card_loss"]
+    first = o0["losses"][0]
+    rel = abs(first - ref) / abs(ref)
+    print(f"sp nccl: first loss {first:.6f} vs one card's attn='flash' "
+          f"forward over all {SP_SEQ} tokens {ref:.6f}: {rel:.2e} (limit "
+          f"{TOL_SP_FIRST})")
+    _check(rel <= TOL_SP_FIRST, f"sp first loss strays {rel}")
+    print("sp nccl: cut: batch 8 -> 1 for the four modes side by side "
+          "(the dense ring and ulysses keep f32 (B, H, T_q, T_k) blocks "
+          "for the backward; depth and widths not cut)")
+    base = o0[("b1", "ulysses_flash")]["losses"]
+    floor = o0["b1_floor"]
+    for attn in ("ulysses_flash", "ring", "ring_zigzag", "ulysses"):
+        run = o0[("b1", attn)]
+        track = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
+        print(f"sp nccl: batch 1, {attn}: losses "
+              f"{[round(x, 5) for x in run['losses']]}, vs ulysses_flash "
+              f"{track:.2e} (limit {TOL_SP_MODES}); first update vs the "
+              f"one-card attn='flash' twin's {run['update_err']:.2e} (limit "
+              f"{UPDATE_FLOORS} x the floor, twin bf16 vs f32, "
+              f"{floor:.2e}); steps "
+              f"{[round(t * 1e3, 1) for t in run['times']]} ms, peak memory "
+              f"{run['peak_gb']:.2f} GiB (rank 0, which also holds the "
+              f"twin's update and a copy of the weights)")
+        _check(track <= TOL_SP_MODES,
+               f"{attn} at batch 1 strays from ulysses_flash: {track}")
+        _check(0 < floor and run["update_err"] <= UPDATE_FLOORS * floor,
+               f"{attn} at batch 1: first update strays "
+               f"{run['update_err']}, floor {floor}")
+        _check(all(math.isfinite(x) for x in run["losses"]),
+               f"{attn}: non-finite loss")
+    for a in ("ring", "ring_zigzag", "ulysses"):
+        for b in ("ring", "ring_zigzag", "ulysses"):
+            d = max(abs(x - y) / abs(y) for x, y in zip(
+                o0[("b1", a)]["losses"], o0[("b1", b)]["losses"]))
+            _check(d <= TOL_SP_MODES, f"{a} and {b} disagree: {d}")
+
+
+def _tp_worker_phase(hvd, dev, rank):
+    """Phase 24 on one of four cards: (dp 2, tp 2)."""
+    from horovod_tpu_torch import weights
+    from horovod_tpu_torch.parallel import collectives as coll
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    from horovod_tpu_torch.parallel.tensor_parallel import (
+        matmul_reducescatter, tp_value_and_grad)
+    mesh = build_mesh(hvd.get_topology(), (2, 2), ("dp", "tp"))
+    dp, tp = mesh.axis("dp"), mesh.axis("tp")
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    toks = torch.randint(0, VOCAB, (2 * dp.size, SEQ + 1), generator=gen,
+                         device=dev)
+    full = (toks[:, :-1], toks[:, 1:])
+    mine = tuple(t[2 * dp.index:2 * dp.index + 2] for t in full)
+
+    def my_slices(state):
+        return weights.dense_to_tp_state(state, DEPTH, tp.index, tp.size)
+
+    # The one-card twin (attn="full") from the seed: one SGD step on the
+    # whole batch in bf16, and in f32 for the problem's own floor.
+    twin = {}
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = _lm("full", DEPTH, SEQ, dev, dtype=dtype)
+        if label == "bf16":
+            state0 = my_slices({k: v.clone()
+                                for k, v in model.state_dict().items()})
+        loss, update = _first_update(model, full)
+        twin[label] = (loss, my_slices(update))
+        del model, update
+        _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = _lm("full", DEPTH, SEQ, dev, tp_axis="tp", mesh=mesh)
+    model.load_state_dict(state0)
+    del state0
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+
+    def step(batch):
+        loss, grads = tp_value_and_grad(lambda m: _lm_loss(m, batch), model,
+                                        ("dp",), mesh=mesh)
+        for n, p in model.named_parameters():
+            p.grad = grads[n]
+        opt.step()
+        return loss
+
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    losses, times = _timed_steps(step, mine, 1)
+    after = model.state_dict()
+    update = {k: after[k] - before[k] for k in before}
+    del before
+    more, more_t = _timed_steps(step, mine, 3)
+    out["losses"], out["times"] = losses + more, times + more_t
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    # Errors over this rank's slices, summed over the tp group: the
+    # gathered tensors' relative Frobenius distance.
+    out["update_err"] = _dict_rel(update, twin["bf16"][1], tp.group)
+    out["update_floor"] = _dict_rel(twin["bf16"][1], twin["f32"][1],
+                                    tp.group)
+    out["twin_losses"] = (twin["bf16"][0], twin["f32"][0])
+    del model, opt, update, twin
+    _free()
+    # matmul_reducescatter against psum_scatter of the full product, at
+    # the MLP row shape (tokens of one dp shard, hidden / tp rows).
+    x = torch.randn((2, SEQ, 4 * DIM // tp.size), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k = (torch.randn((4 * DIM // tp.size, DIM), generator=gen, device=dev)
+         / math.sqrt(4 * DIM)).to(torch.bfloat16)
+    ring = matmul_reducescatter(x, k, "tp", mesh=mesh)
+    ref = coll.psum_scatter(x @ k, "tp", 1, mesh=mesh)
+    out["mrs_err"] = _rel_fro(ring, ref)
+    out["mrs_ms"] = _median_ms(
+        lambda: matmul_reducescatter(x, k, "tp", mesh=mesh), runs=5,
+        warmup=2, reps=5)
+    out["psum_ms"] = _median_ms(
+        lambda: coll.psum_scatter(x @ k, "tp", 1, mesh=mesh), runs=5,
+        warmup=2, reps=5)
+    return out
+
+
+def _check_tp(got: dict) -> None:
+    print("tp nccl: cut: batch 8 a card -> 2 a dp shard (the one-card twin "
+          "holds the whole batch in the oracle attention's f32 (B, H, T, T) "
+          "blocks, in bf16 and in f32; depth and widths not cut)")
+    for r in range(4):
+        o = got[r]["tp"]
+        twin_bf16, twin_f32 = o["twin_losses"]
+        rl = abs(o["losses"][0] - twin_bf16) / abs(twin_bf16)
+        floor = abs(twin_bf16 - twin_f32) / abs(twin_f32)
+        print(f"tp nccl rank {r} (dp {r // 2}, tp {r % 2}): depth {DEPTH}, "
+              f"T {SEQ}, batch 2 a dp shard, bf16: losses "
+              f"{[round(x, 5) for x in o['losses']]}, steps "
+              f"{[round(t * 1e3, 1) for t in o['times']]} ms, peak memory "
+              f"{o['peak_gb']:.2f} GiB; first loss vs the one-card twin "
+              f"{rl:.2e} (limit {TOL_TP_LOSS}; floor, twin bf16 vs f32, "
+              f"{floor:.2e}); first update, gathered, vs the twin's "
+              f"{o['update_err']:.2e} (limit {UPDATE_FLOORS} x the "
+              f"floor, twin bf16 vs f32, {o['update_floor']:.2e}); "
+              f"matmul_reducescatter vs "
+              f"psum_scatter {o['mrs_err']:.2e} (limit {TOL_MRS}), "
+              f"{o['mrs_ms']:.3f} ms vs {o['psum_ms']:.3f} ms")
+        _check(all(math.isfinite(x) for x in o["losses"]),
+               f"tp rank {r}: non-finite loss")
+        _check(o["losses"][-1] < o["losses"][0],
+               f"tp rank {r}: loss did not fall {o['losses']}")
+        _check(rl <= TOL_TP_LOSS, f"tp rank {r}: first loss strays {rl}")
+        _check(0 < o["update_floor"]
+               and o["update_err"] <= UPDATE_FLOORS * o["update_floor"],
+               f"tp rank {r}: first update strays {o['update_err']}, "
+               f"floor {o['update_floor']}")
+        _check(o["mrs_err"] <= TOL_MRS,
+               f"tp rank {r}: matmul_reducescatter strays {o['mrs_err']}")
+
+
+def _pp_stage(seed: int, device):
+    from horovod_tpu_torch.models import BlockStack
+    return BlockStack(DIM, HEADS, PP_DEPTH, attn="flash",
+                      dtype=torch.bfloat16, ln_dtype=torch.bfloat16,
+                      seed=seed, device=device)
+
+
+def _pp_worker_phase(hvd, dev, rank):
+    """Phase 25 on one of four cards: one stage of three blocks."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.ops.losses import fused_softmax_xent
+    from horovod_tpu_torch.parallel.mesh import build_mesh, fold_in
+    from horovod_tpu_torch.parallel.pipeline import (
+        microbatch, pipeline_apply, stage_params_init, unmicrobatch)
+    mesh = build_mesh(hvd.get_topology(), (PP_STAGES,), ("pp",))
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    toks = torch.randint(0, VOCAB, (PP_MICRO, SEQ + 1), generator=gen,
+                         device=dev)
+    batch = (toks[:, :-1], toks[:, 1:])
+    # Embeddings, final LayerNorm and head: a TransformerLM of no block,
+    # replicated on every stage.
+    ends = _lm("flash", 0, SEQ, dev)
+    stage = stage_params_init(lambda s: _pp_stage(s, dev), SEED + 1,
+                              axis="pp", mesh=mesh)
+
+    def loss_fn(batch):
+        inp, lab = batch
+        pos = torch.arange(inp.shape[1], device=dev)
+        x = ends.tok_emb(inp) + ends.pos_emb(pos)[None]
+        y = unmicrobatch(pipeline_apply(lambda m, a: m(a), stage,
+                                        microbatch(x, PP_MICRO),
+                                        mesh=mesh))
+        h = ends.ln_f(y)
+        return fused_softmax_xent(h.reshape(-1, DIM), ends.head.kernel,
+                                  lab.reshape(-1)).mean()
+
+    # The 12-block model with the same weights (the ends, then every
+    # stage's blocks in order, each stage rebuilt from its seed): one step
+    # on the whole batch in bf16, and in f32 for the problem's own floor,
+    # on every rank.  Each rank keeps the update of the ends and of its
+    # own stage's blocks, under the names they have here.
+    state = {k: v.cpu() for k, v in ends.state_dict().items()}
+    mine = {k: k for k in state}
+    for s in range(PP_STAGES):
+        for k, v in _pp_stage(fold_in(SEED + 1, s),
+                              dev).state_dict().items():
+            i, rest = k.split(".", 1)
+            name = f"block_{s * PP_DEPTH + int(i[6:])}.{rest}"
+            state[name] = v.cpu()
+            if s == rank:
+                mine[name] = k
+    twin = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = _lm("flash", PP_STAGES * PP_DEPTH, SEQ, dev, dtype=dtype)
+        model.load_state_dict(state)
+        loss, update = _first_update(model, batch)
+        twin[dtype] = (loss, {mine[k]: update[k] for k in mine})
+        del model, update
+        _free()
+    del state
+    out["twin_loss"] = twin[torch.bfloat16][0]
+    out["update_floor"] = _dict_rel(twin[torch.bfloat16][1],
+                                    twin[torch.float32][1])
+    twin = twin[torch.bfloat16][1]
+    params = list(ends.parameters()) + list(stage.parameters())
+    opt = torch.optim.SGD(params, lr=0.01, momentum=0.9)
+
+    def step(batch):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(batch)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launches()
+    with torch.no_grad():
+        loss_fn(batch)
+    out["fwd_launches"] = {n: _cuda.LAUNCHES[n] for n in FLASH}
+    _cuda.reset_launches()
+    before = [{k: v.to("cpu", copy=True)
+               for k, v in m.state_dict().items()} for m in (ends, stage)]
+    losses, times = _timed_steps(step, batch, 1)
+    out["update_err"] = _dict_rel({**_change(ends, before[0]),
+                                   **_change(stage, before[1])}, twin)
+    del before, twin
+    more, more_t = _timed_steps(step, batch, 2)
+    out["launches"] = {n: _cuda.LAUNCHES[n] for n in FLASH}
+    out["losses"], out["times"] = losses + more, times + more_t
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    _profile_on_rank0(rank, "pp nccl", step, batch)
+    del ends, stage, opt, params
+    _free()
+    return out
+
+
+def _check_pp(got: dict) -> None:
+    ticks = PP_MICRO + PP_STAGES - 1
+    for r in range(PP_STAGES):
+        o = got[r]["pp"]
+        print(f"pp nccl rank {r} (stage {r}): {PP_STAGES} stages of "
+              f"BlockStack(depth {PP_DEPTH}, attn='flash'), {PP_MICRO} "
+              f"microbatches of 1 x {SEQ}: a forward launches "
+              f"{o['fwd_launches']}, 3 steps {o['launches']}; losses "
+              f"{[round(x, 5) for x in o['losses']]}, steps "
+              f"{[round(t * 1e3, 1) for t in o['times']]} ms, peak memory "
+              f"{o['peak_gb']:.2f} GiB; first update of the ends and "
+              f"this stage vs the 12-block twin's {o['update_err']:.2e} "
+              f"(limit {UPDATE_FLOORS} x the floor, twin bf16 vs f32, "
+              f"{o['update_floor']:.2e})")
+        _check(0 < o["update_floor"]
+               and o["update_err"] <= UPDATE_FLOORS * o["update_floor"],
+               f"pp rank {r}: first update strays {o['update_err']}, "
+               f"floor {o['update_floor']}")
+        _check(o["fwd_launches"]["flash_fwd"] == PP_DEPTH * ticks,
+               f"pp rank {r}: P1 launched {o['fwd_launches']['flash_fwd']} "
+               f"times in a forward, expected {PP_DEPTH * ticks}")
+        for name in FLASH:
+            _check(o["launches"][name] == 3 * PP_DEPTH * ticks,
+                   f"pp rank {r}: {name} launched {o['launches'][name]} "
+                   f"times in 3 steps, expected {3 * PP_DEPTH * ticks}")
+        _check(all(math.isfinite(x) for x in o["losses"]),
+               f"pp rank {r}: non-finite loss")
+        _check(o["losses"] == got[0]["pp"]["losses"],
+               f"pp rank {r}: losses differ from stage 0's")
+    o0 = got[0]["pp"]
+    rel = abs(o0["losses"][0] - o0["twin_loss"]) / abs(o0["twin_loss"])
+    print(f"pp nccl: first loss {o0['losses'][0]:.6f} vs the 12-block "
+          f"model's on one card {o0['twin_loss']:.6f}: {rel:.2e} "
+          f"(limit {TOL_PP_FIRST})")
+    _check(rel <= TOL_PP_FIRST, f"pp first loss strays {rel}")
+    _check(o0["losses"][-1] < o0["losses"][0],
+           f"pp loss did not fall {o0['losses']}")
+
+
+def _moe_worker_phase(hvd, dev, rank):
+    """Phase 26 on one of four cards: one expert; rank 0 also runs the
+    same function with every expert gathered on its card."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from horovod_tpu_torch.parallel import moe as pm
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(hvd.get_topology(), (MOE_E,), ("ep",))
+    out = {}
+    layer = pm.MoELayer(DIM, MOE_HIDDEN, MOE_CF, "ep", top_k=MOE_K,
+                        router_z_weight=1e-3, dtype=torch.bfloat16,
+                        mesh=mesh, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50 + rank)
+    x = torch.randn((MOE_TOKENS, DIM), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn((MOE_TOKENS, DIM), generator=gen, device=dev)
+
+    def loss_of(y, aux, g):
+        return (y.float() * g).sum() / g.numel() + aux
+
+    y, aux = layer(x)
+    loss_of(y, aux, g).backward()
+    mine = {"y": y.detach(), "aux": aux.detach(),
+            "balance": layer.aux_load_balance.detach(),
+            "z": layer.aux_router_z.detach(), "x_grad": x.grad,
+            "w1_grad": layer.w1.grad, "w2_grad": layer.w2.grad,
+            "router_grad": layer.router.kernel.grad}
+    out["dropped"] = float(layer.dropped)
+    out["capacity"] = layer.capacity(MOE_TOKENS)
+
+    def fwd_bwd():
+        layer.zero_grad(set_to_none=True)
+        x.grad = None
+        y, aux = layer(x)
+        loss_of(y, aux, g).backward()
+
+    out["ms"] = _median_ms(fwd_bwd, runs=5, warmup=2, reps=3)
+    _profile_on_rank0(rank, "moe nccl", lambda _: fwd_bwd(), None)
+
+    def gather(t):
+        parts = [torch.empty_like(t) for _ in range(MOE_E)]
+        dist.all_gather(parts, t.contiguous())
+        return parts
+
+    got = {k: gather(v) for k, v in mine.items()}
+    xs, gs = gather(x.detach()), gather(g)
+    w1s, w2s = gather(layer.w1.detach()), gather(layer.w2.detach())
+    if rank == 0:
+        # The same function written out on rank 0 in plain torch, with
+        # every expert gathered: each shard's tokens routed by torch.topk
+        # on the f32 softmax (gates renormalised over the k choices), the
+        # slots of an expert handed out by choice, then token, up to the
+        # capacity; each expert's FFN over the slots of all shards
+        # (shard-major, as the exchange delivers them), combined per
+        # shard.  Data moves by the layer's one-hot products.
+        E, K, bf16 = MOE_E, MOE_K, torch.bfloat16
+        C = max(1, int(MOE_CF * K * MOE_TOKENS / E))
+        out["twin_capacity"] = C
+        router = layer.router.kernel.detach().clone().requires_grad_()
+        w1 = torch.stack(w1s).requires_grad_()
+        w2 = torch.stack(w2s).requires_grad_()
+        xr = [t.clone().requires_grad_() for t in xs]
+        plans = []
+        for t in xr:
+            logits = t.float() @ router
+            probs = torch.softmax(logits, dim=-1)
+            gate, choice = torch.topk(probs, K, dim=-1)          # (T, K)
+            if K > 1:
+                gate = gate / gate.sum(dim=-1, keepdim=True)
+            disp = torch.zeros((MOE_TOKENS, E, C), device=dev)
+            comb = torch.zeros((MOE_TOKENS, E, C), device=dev)
+            filled = [0] * E
+            for j in range(K):
+                for e in range(E):
+                    tok = torch.nonzero(choice[:, j] == e).flatten()
+                    slot = filled[e] + torch.arange(tok.numel(), device=dev)
+                    filled[e] += tok.numel()
+                    tok, slot = tok[slot < C], slot[slot < C]
+                    disp[tok, e, slot] = 1.0
+                    comb[tok, e, slot] = gate[tok, j]
+            first = F.one_hot(choice[:, 0], E).float()
+            bal = E * torch.sum(first.mean(dim=0) * probs.mean(dim=0))
+            z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+            plans.append((disp, comb, bal, z))
+        out["twin_dropped"] = [1.0 - p[0].sum().item() / (K * MOE_TOKENS)
+                               for p in plans]
+        bufs = torch.stack([torch.einsum("td,tec->ecd", t, p[0].to(bf16))
+                            for t, p in zip(xr, plans)])   # (S, E, C, d)
+        res = torch.stack([
+            (F.gelu(bufs[:, e].reshape(-1, DIM) @ w1[e].to(bf16),
+                    approximate="tanh") @ w2[e].to(bf16))
+            .reshape(MOE_E, C, DIM) for e in range(E)], 1)
+        total = 0.0
+        ref = {"y": [], "aux": [], "balance": [], "z": []}
+        for s, (_, comb, bal, z) in enumerate(plans):
+            ys = torch.einsum("ecd,tec->td", res[s].float(), comb).to(bf16)
+            aux = bal + 1e-3 * z
+            total = total + loss_of(ys, aux, gs[s])
+            for k, v in (("y", ys), ("aux", aux), ("balance", bal),
+                         ("z", z)):
+                ref[k].append(v.detach())
+        total.backward()
+        ref["x_grad"] = [t.grad for t in xr]
+        ref["w1_grad"] = list(w1.grad)
+        ref["w2_grad"] = list(w2.grad)
+        ref["router_grad"] = [router.grad] * E
+        errs = {}
+        for k in ("y", "x_grad", "w1_grad", "w2_grad", "router_grad"):
+            errs[k] = max(_rel_fro(a, b) for a, b in zip(got[k], ref[k]))
+        for k in ("aux", "balance", "z"):
+            errs[k] = max(abs(a.item() - b.item()) / abs(b.item())
+                          for a, b in zip(got[k], ref[k]))
+        out["errs"] = errs
+    del layer, x, g, got
+    _free()
+    return out
+
+
+def _check_moe(got: dict) -> None:
+    for r in range(MOE_E):
+        o = got[r]["moe"]
+        print(f"moe nccl rank {r} (expert {r}): E {MOE_E}, d {DIM}, hidden "
+              f"{MOE_HIDDEN}, top-{MOE_K}, capacity factor {MOE_CF} "
+              f"(C {o['capacity']}), {MOE_TOKENS} tokens, bf16: dropped "
+              f"share {o['dropped']:.4f}, forward + backward "
+              f"{o['ms']:.2f} ms")
+    o0 = got[0]["moe"]
+    errs = o0["errs"]
+    print(f"moe nccl: vs rank 0's twin with every expert gathered, "
+          f"relative: {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} "
+          f"(limit {TOL_MOE}); the twin's capacity {o0['twin_capacity']}, "
+          f"dropped shares {o0['twin_dropped']}")
+    _check(o0["twin_capacity"] == o0["capacity"],
+           f"moe capacity {o0['capacity']}, the twin's {o0['twin_capacity']}")
+    for r in range(MOE_E):
+        _check(abs(got[r]["moe"]["dropped"] - o0["twin_dropped"][r]) < 1e-9,
+               f"moe rank {r} dropped {got[r]['moe']['dropped']}, the "
+               f"twin's shard {o0['twin_dropped'][r]}")
+    for k, v in errs.items():
+        _check(math.isfinite(v) and v <= TOL_MOE,
+               f"moe {k} strays from the gathered twin: {v}")
+
+
+def _parallel_worker(rank: int, port: int, results) -> None:
+    """Phases 23-26 on one of four cards."""
+    try:
+        hvd, dev = _par_env(rank, port)
+        out = {}
+        for name, fn in (("sp", _sp_worker_phase), ("tp", _tp_worker_phase),
+                         ("pp", _pp_worker_phase),
+                         ("moe", _moe_worker_phase)):
+            out[name] = fn(hvd, dev, rank)
+            _free()
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException:   # reported to the parent, which fails
+        import traceback
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def phase_parallel_nccl():
+    """Phases 23-26: sequence, tensor, pipeline and expert parallelism on
+    four cards over NCCL, in one group of four processes (only with four
+    or more cards; otherwise a line says each did not run)."""
+    labels = ("sp nccl", "tp nccl", "pp nccl", "moe nccl")
+    if torch.cuda.device_count() < 4:
+        for label in labels:
+            print(f"{label}: not run (it needs four CUDA devices, this "
+                  f"machine has {torch.cuda.device_count()})")
+        return None
+    # The parent's own footprint on card 0, which rank 0 shares.
+    print(f"parallel nccl: the parent holds "
+          f"{torch.cuda.memory_allocated(0) / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved(0) / 2 ** 30:.2f} GiB reserved on "
+          f"card 0, which has {torch.cuda.mem_get_info(0)[0] / 2 ** 30:.2f} "
+          f"GiB free")
+    got = _spawn(_parallel_worker, 4, timeout=600)
+    _check(all(isinstance(got.get(r), dict) for r in range(4)),
+           f"parallel nccl failed: {got}")
+    _check_sp(got)
+    _check_tp(got)
+    _check_pp(got)
+    _check_moe(got)
+    return got
+
+
+def _spawn(target, n: int, timeout: float = 300) -> dict:
     """Run ``target(rank, port, results)`` in ``n`` spawned processes;
     {rank: result}, or an "exit"/"timeout" entry when a worker fails or
-    300 s pass without every result."""
+    ``timeout`` seconds pass without every result."""
     import queue
     import torch.multiprocessing as mp
     port = _free_port()
@@ -2471,15 +3318,17 @@ def _spawn(target, n: int) -> dict:
     for p in procs:
         p.start()
     got = {}
-    deadline = time.monotonic() + 300
+    deadline = time.monotonic() + timeout
     try:
         while len(got) < len(procs):
             try:
                 rank, ok = results.get(timeout=5)
                 got[rank] = ok
+                if isinstance(ok, str):     # a worker's traceback
+                    break
             except queue.Empty:
                 if time.monotonic() > deadline:
-                    got["timeout"] = "no result within 300 s"
+                    got["timeout"] = f"no result within {timeout} s"
                     break
                 dead = [p.exitcode for p in procs if p.exitcode]
                 if dead:
@@ -2526,10 +3375,14 @@ def _profile_step(step, batch, category=None):
         step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # The profiler also reports each NCCL call's annotation range
+    # ("nccl:all_reduce", ...) as device time spanning its kernel: count
+    # the kernel once.
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("nccl:")]
     busy = sum(ms for _, ms, _ in kernels)
     if not kernels:
         print("profile: the profiler recorded no device time")
@@ -2587,26 +3440,30 @@ def main() -> None:
     phase_fused_kernel(k)
     general = phase_general()
     wide = phase_wide(usage)
+    # Phases 22-26 run here, before this process holds much on card 0,
+    # which rank 0 of the four-card group shares: the ring at batch 1
+    # peaks at 50 GiB there, and after phase 21 this process held about
+    # 30 GiB (four H100 80GB HBM3 at 700 W).
+    _free()
+    ulysses_shape = phase_parallel_one_card()
+    _free()
+    par = phase_parallel_nccl()
+    _free()
     f32_launches = phase_models_f32()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     phase_reference()
     plain = phase_train(DEPTH)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     one = phase_train(DEPTH, one_pass=True)
     check_one_pass(one, plain)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     phase_routing()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     codec = phase_codec()
     phase_ring()
     int8 = phase_train_int8(DEPTH, plain)
     phase_nccl_ring()
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     phase_resnet_steps_per_call()
     phase_resnet_cpu()
     phase_resnet()
@@ -2632,9 +3489,19 @@ def main() -> None:
         if name in flash:
             ms, plain_ms, err, lib, call, launches = flash[name]
             flops, nbytes = k["work"][name]
-            rows.append(_kernel_row(name, rep, SOURCES[name], launches[name],
-                                    err, ms, plain_ms, flops, nbytes, lib,
-                                    call, usage[name]))
+            row = _kernel_row(name, rep, SOURCES[name], launches[name], err,
+                              ms, plain_ms, flops, nbytes, lib, call,
+                              usage[name])
+            if name in ulysses_shape:
+                # The same kernel at the shape ulysses_flash gives it on
+                # four cards, and its launches there (one rank's).
+                row.update({f"{k}_ulysses_flash": v
+                            for k, v in ulysses_shape[name].items()})
+                row["launches_ulysses_flash"] = (
+                    par[0]["sp"]["launches"][name] if par else None)
+                row["launches_pipeline"] = (
+                    par[0]["pp"]["launches"][name] if par else None)
+            rows.append(row)
             continue
         lib, call = None, None
         if name == "int8_dequantize":

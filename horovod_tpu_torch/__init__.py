@@ -20,7 +20,11 @@ TransformerLM and ResNet models (:mod:`.models`), flash attention
 gradient route through them (``DistributedOptimizer(eager=True)``,
 bucketed overlap by :mod:`.scheduler`'s planner, sparse gradients by
 :mod:`.sparse`), the training callbacks (:mod:`.callbacks`), the
-observatory (:mod:`.observe`) and the input pipeline (:mod:`.data`)::
+observatory (:mod:`.observe`), the input pipeline (:mod:`.data`) and the
+parallelism library (:mod:`.parallel`: ``build_mesh``, the collectives
+with JAX's transposes, ring and Ulysses attention, tensor, pipeline and
+expert parallelism, and TransformerLM's sequence- and tensor-parallel
+modes)::
 
     import horovod_tpu_torch as hvd
     hvd.init()                                   # cuda:local_rank, NCCL

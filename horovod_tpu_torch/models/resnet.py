@@ -40,7 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from horovod_tpu_torch.models.transformer import Dense, _trunc_normal
+from horovod_tpu_torch.models.layers import Dense, _trunc_normal
 
 # The reference's BatchNorm settings (``horovod_tpu/models/resnet.py:82``).
 BN_MOMENTUM = 0.9

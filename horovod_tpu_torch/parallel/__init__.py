@@ -1,2 +1,4 @@
-"""Parallelism library of the port: the oracle attention and the two-tier
-(host-group) reduction."""
+"""Parallelism library of the port: the process-group meshes
+(:mod:`.mesh`), the collectives with JAX's transposes
+(:mod:`.collectives`), the two-tier reduction (:mod:`.hierarchical`),
+ring and Ulysses attention, tensor, pipeline and expert parallelism."""

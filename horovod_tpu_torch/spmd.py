@@ -2,8 +2,9 @@
 
 Port of ``horovod_tpu/jax/spmd.py``: ``reduce_gradients`` (:42),
 ``make_train_step`` (:535), ``make_eval_step`` (:785) and ``shard_batch``
-(:802).  The JAX package compiles forward, backward, gradient average and
-optimizer update into one XLA program over a mesh; here the step runs them
+(:802) with ``batch_spec``'s layouts (:544).  The JAX package compiles
+forward, backward, gradient average and optimizer update into one XLA
+program over a mesh; here the step runs them
 eagerly, one process per GPU: ``loss.backward()``, then -- when the world
 group has more than one rank -- a bucketed average of the gradients over
 ``torch.distributed``, then ``optimizer.step()``, then the sync of the
@@ -44,6 +45,7 @@ from horovod_tpu_torch.compression import Compressor, NoneCompressor
 from horovod_tpu_torch.ops import injit as _injit
 from horovod_tpu_torch.ops import quantized_collectives as _qc
 from horovod_tpu_torch.parallel.hierarchical import hierarchical_allreduce
+from horovod_tpu_torch.parallel.mesh import ranks_mesh as _ranks_mesh
 
 
 def _check_compression(compression):
@@ -302,23 +304,35 @@ def make_eval_step(model: torch.nn.Module,
     return step
 
 
-def shard_batch(batch):
-    """This rank's rows of a global batch, on this rank's device (the
+def shard_batch(batch, spec=None, *, mesh=None):
+    """This rank's block of a global batch, on this rank's device (the
     one ``hvd.init`` chose: ``cuda:local_rank``, or the CPU).
 
     Contract (as the reference's): ``batch`` is the GLOBAL batch,
-    identical on every rank; every leaf's leading dimension splits into
-    one contiguous block per rank, in rank order."""
+    identical on every rank.  Without ``spec`` every leaf's leading
+    dimension splits into one contiguous block per rank, in rank order.
+    ``spec`` is the counterpart of ``make_train_step``'s ``batch_spec``
+    (``jax/spmd.py:544,651-653``): one entry per leading dimension of
+    every leaf, each ``None`` (not split), an axis name of ``mesh`` or a
+    tuple of names, e.g. ``(None, "sp")`` or ``("dp", "sp")``; dimension
+    i splits into that axis' size blocks and this rank keeps the block at
+    its index."""
     device = _basics._require_init().device
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    rank = dist.get_rank() if dist.is_initialized() else 0
+    if spec is None:
+        spec, mesh = ("ranks",), None
+    m = mesh if mesh is not None else _ranks_mesh()
+    axes = [None if entry is None else m.axis(entry) for entry in spec]
 
     def one(x):
-        if x.shape[0] % world:
-            raise ValueError(
-                f"shard_batch: leading dimension {x.shape[0]} does not "
-                f"split over {world} ranks")
-        rows = x.shape[0] // world
-        return x[rank * rows:(rank + 1) * rows].to(device)
+        for dim, ax in enumerate(axes):
+            if ax is None:
+                continue
+            if x.shape[dim] % ax.size:
+                raise ValueError(
+                    f"shard_batch: dimension {dim} of {tuple(x.shape)} "
+                    f"does not split over {ax.size} ranks")
+            n = x.shape[dim] // ax.size
+            x = x.narrow(dim, ax.index * n, n)
+        return x.to(device)
 
     return tree_map(one, batch)

@@ -126,11 +126,211 @@ def test_seeded_init_is_reproducible_and_flax_scaled():
     assert abs(a.tok_emb.embedding.std().item() - C ** -0.5) < 0.1 * C ** -0.5
 
 
-@pytest.mark.parametrize("kw", [dict(attn="ring"), dict(attn="ulysses"),
-                                dict(attn="full", tp_axis="tp")])
-def test_unported_attention_paths_raise(kw):
-    with pytest.raises(NotImplementedError):
-        TransformerLM(**CFG, device="cpu", **kw)
+# ----------------------------------------- sequence and tensor parallel
+#
+# Four gloo processes (``_torch_parallel_worker.transformer_worker``,
+# spawned once per session) run the same models as the JAX package does on
+# four of the conftest's CPU devices: the four sequence-parallel modes on
+# an ``('sp',)`` mesh (loss and gradients), a (dp 2, sp 2) ring-attention
+# train step through ``make_train_step`` with Adam (``tests/
+# test_transformer.py:142``'s), and ``tp_axis`` on (dp 2, tp 2) through
+# ``tp_value_and_grad``.  All within 1e-5 relative (Frobenius, f32).
+
+SP_ATTNS = ("ring", "ring_zigzag", "ulysses", "ulysses_flash")
+SP_CFG = dict(vocab=64, dim=64, depth=2, num_heads=4, max_len=64)
+SP_T, SP_N = 16, 4
+DPSP_CFG = dict(vocab=64, dim=32, depth=2, num_heads=4, max_len=32)
+DPSP_STEPS = 3
+TP_CFG = dict(vocab=64, dim=32, depth=2, num_heads=4, max_len=32)
+PAR_TOL = 1e-5
+
+
+def _tokens(batch, seq, vocab, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _xent(logits, labels):
+    import optax
+    return optax.softmax_cross_entropy_with_integer_labels(
+        logits, labels).mean()
+
+
+def _sp_problem(attn):
+    from horovod_tpu.parallel.ring_attention import zigzag_indices
+    twin = JaxLM(**SP_CFG, attn="full", dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, twin.init(
+        jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32))["params"])
+    tokens, labels = _tokens(2, SP_T, SP_CFG["vocab"], 4)
+    if attn == "ring_zigzag":
+        idx = zigzag_indices(SP_N, SP_T)
+        tokens, labels = tokens[:, idx], labels[:, idx]
+    return params, tokens, labels
+
+
+def _jax_sp(attn):
+    from jax.sharding import Mesh, PartitionSpec as P
+    params, tokens, labels = _sp_problem(attn)
+    model = JaxLM(**SP_CFG, attn=attn, sp_axis="sp", dtype=jnp.float32)
+    mesh = Mesh(np.array(jax.devices()[:SP_N]), ("sp",))
+
+    def body(params, tokens, labels):
+        return _xent(model.apply({"params": params}, tokens), labels)[None]
+
+    f = jax.shard_map(body, mesh=mesh,
+                      in_specs=(P(), P(None, "sp"), P(None, "sp")),
+                      out_specs=P("sp"), check_vma=False)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: f(p, tokens, labels).mean()))(params)
+    return float(loss), jax.tree.map(np.asarray, grads)
+
+
+def _dpsp_problem():
+    twin = JaxLM(**DPSP_CFG, attn="full", dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, twin.init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"])
+    steps = [_tokens(4, 8, DPSP_CFG["vocab"], 10 + i)
+             for i in range(DPSP_STEPS)]
+    return params, steps
+
+
+def _jax_dpsp():
+    """The JAX package's dp x sp step (``tests/test_transformer.py:142``):
+    ring attention, gradients pmean'd over (dp, sp), Adam 1e-2."""
+    import optax
+    from jax import lax
+    from jax.sharding import Mesh, PartitionSpec as P
+    params, steps = _dpsp_problem()
+    model = JaxLM(**DPSP_CFG, attn="ring", sp_axis="sp", dtype=jnp.float32)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("dp", "sp"))
+    tx = optax.adam(1e-2)
+
+    def step(params, opt_state, tokens, labels):
+        loss, grads = jax.value_and_grad(lambda p: _xent(
+            model.apply({"params": p}, tokens), labels))(params)
+        grads = jax.tree.map(lambda g: lax.pmean(g, ("dp", "sp")), grads)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return (optax.apply_updates(params, updates), opt_state,
+                lax.pmean(loss, ("dp", "sp")))
+
+    fn = jax.jit(jax.shard_map(
+        step, mesh=mesh, in_specs=(P(), P(), P("dp", "sp"), P("dp", "sp")),
+        out_specs=(P(), P(), P()), check_vma=False))
+    opt_state = tx.init(params)
+    losses = []
+    for tokens, labels in steps:
+        params, opt_state, loss = fn(params, opt_state, tokens, labels)
+        losses.append(float(loss))
+    return losses, jax.tree.map(np.asarray, params)
+
+
+def _jax_tp():
+    """(params, tokens, labels, loss, grads) of the JAX package's
+    ``tp_axis`` model on (dp 2, tp 2), globals laid out by
+    ``tp_spec_tree``."""
+    from jax.sharding import Mesh, PartitionSpec as P
+    from horovod_tpu.parallel.tensor_parallel import (
+        tp_abstract_params, tp_spec_tree, tp_value_and_grad)
+    model = JaxLM(**TP_CFG, tp_axis="tp", dtype=jnp.float32)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("dp", "tp"))
+    tokens, labels = _tokens(4, 8, TP_CFG["vocab"], 21)
+    specs = tp_spec_tree(tp_abstract_params(
+        lambda: model.init(jax.random.PRNGKey(5),
+                           jnp.zeros((2, 8), jnp.int32))["params"], 2))
+
+    def body(tokens, labels):
+        params = model.init(jax.random.PRNGKey(5), tokens)["params"]
+        loss, grads = tp_value_and_grad(lambda p: _xent(
+            model.apply({"params": p}, tokens), labels), params,
+            dp_axes=("dp",))
+        return params, loss, grads
+
+    f = jax.jit(jax.shard_map(body, mesh=mesh,
+                              in_specs=(P("dp"), P("dp")),
+                              out_specs=(specs, P(), specs),
+                              check_vma=True))
+    params, loss, grads = jax.tree.map(np.asarray, f(tokens, labels))
+    return params, tokens, labels, float(loss), grads
+
+
+@pytest.fixture(scope="module")
+def jax_parallel():
+    return {"sp": {a: _jax_sp(a) for a in SP_ATTNS}, "dpsp": _jax_dpsp(),
+            "tp": _jax_tp()}
+
+
+@pytest.fixture(scope="module")
+def torch_parallel(request, tmp_path_factory, jax_parallel):
+    from _torch_parallel_worker import transformer_worker
+    from _torch_spmd_worker import once, run_group
+    sp = {a: (SP_CFG, *_sp_problem(a)) for a in SP_ATTNS}
+    params, steps = _dpsp_problem()
+    tp_params, tokens, labels, _, _ = jax_parallel["tp"]
+    return once(request, tmp_path_factory, "transformer_parallel",
+                lambda: run_group(transformer_worker, 4, sp,
+                                  (DPSP_CFG, params, steps),
+                                  (TP_CFG, tp_params, tokens, labels)))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+
+@pytest.mark.parametrize("attn", SP_ATTNS)
+def test_sequence_parallel_model_matches_jax(torch_parallel, jax_parallel,
+                                             attn):
+    loss, grads = jax_parallel["sp"][attn]
+    want = {k: v.numpy() for k, v in weights.from_flax(grads).items()}
+    for r in range(4):
+        got_loss, got = torch_parallel[r][("sp", attn)]
+        assert got_loss == pytest.approx(loss, rel=PAR_TOL)
+        assert set(got) == set(want)
+        for name, g in got.items():
+            assert _rel(g, want[name]) <= PAR_TOL, (attn, r, name)
+
+
+def test_dp_sp_train_step_matches_jax(torch_parallel, jax_parallel):
+    losses, params = jax_parallel["dpsp"]
+    want = {k: v.numpy() for k, v in weights.from_flax(params).items()}
+    for r in range(4):
+        got_losses, got = torch_parallel[r]["dpsp"]
+        np.testing.assert_allclose(got_losses, losses, rtol=PAR_TOL)
+        for name, p in got.items():
+            assert _rel(p, want[name]) <= PAR_TOL, (r, name)
+
+
+def test_tensor_parallel_model_matches_jax(torch_parallel, jax_parallel):
+    _, _, _, loss, grads = jax_parallel["tp"]
+    for r in range(4):
+        got_loss, got = torch_parallel[r]["tp"]
+        assert got_loss == pytest.approx(loss, rel=PAR_TOL)
+        want = {k: v.numpy() for k, v in weights.from_flax(
+            weights.tp_shard_tree(grads, r % 2, 2)).items()}
+        assert set(got) == set(want)
+        for name, g in got.items():
+            assert _rel(g, want[name]) <= PAR_TOL, (r, name)
+
+
+@pytest.mark.parametrize("attn", ["flash", "ring", "ulysses_flash"])
+def test_tp_with_other_attention_raises_the_reference_error(attn):
+    jmodel = JaxLM(**CFG, attn=attn, tp_axis="tp")
+    with pytest.raises(ValueError) as want:
+        jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    with pytest.raises(ValueError) as got:
+        TransformerLM(**CFG, attn=attn, tp_axis="tp", device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_sequence_parallel_models_share_the_full_tree():
+    """Same names, shapes and draws from the same seed as attn="full"."""
+    full = TransformerLM(**CFG, attn="full", seed=4, device="cpu")
+    for attn in SP_ATTNS:
+        sp = TransformerLM(**CFG, attn=attn, seed=4, device="cpu")
+        for (n, p), (m, q) in zip(full.state_dict().items(),
+                                  sp.state_dict().items()):
+            assert n == m and torch.equal(p, q), (attn, n)
 
 
 def test_unknown_attention_raises():
