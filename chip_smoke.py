@@ -220,6 +220,38 @@ the checkout.  Phases, in order; any failure ends the run:
    capacity and dropped shares must equal the layer's; dropped share and
    forward + backward ms.
 
+27. Checkpoint and resume (one card; phases 27-28 run right after phase
+   26, while this process holds little on card 0): the headline model
+   (phase 7's, SGD momentum 0.9 through ``hvd.DistributedOptimizer``)
+   trains 3 steps, ``hvd.save_model`` commits epoch 3 as a chain base
+   (spec included), 2 more steps give run A; a fresh model with zeroed
+   parameters and ``hvd.load_model`` from the directory alone (optimizer
+   rebuilt from its spec) train the same 2 batches (run B): losses,
+   parameters and momentum bit-identical.  Then
+   ``AsyncCheckpointer(snapshot_every_steps=1, full_every=2)`` over 4
+   steps: each committed epoch's leaves against fingerprints of the live
+   state taken right after its snapshot (before the next in-place step),
+   and the restored tip against the live state, bit for bit.  Printed:
+   the state's bytes, save and load seconds, each snapshot's
+   device->host ms, each commit's epoch, kind, bytes and seconds,
+   restore seconds, step ms with the stream on and off, peak host RSS,
+   free disk.  The directory is removed at the end.
+28. Elastic, NCCL: ``python -m horovod_tpu_torch.run -np 3 --elastic
+   --num-standby 1 --snapshot-every-steps 2 -- python3 chip_smoke.py
+   --elastic-worker`` on four cards (only with four or more; otherwise a
+   line says it did not run), ``HOROVOD_TPU_FAULT=rejoin:rank=0:tick=1``:
+   each rank trains the headline model on its own batch through
+   ``elastic.run_elastic`` and ``DistributedOptimizer(eager=True)``; rank
+   2 kills itself with SIGKILL at step 5, the survivors shrink to 2
+   (generation 1, the NCCL world group aborted and rebuilt), the standby
+   parks and is admitted back to 3 (generation 2), and the job finishes
+   its 10 steps.  No rank aborts; at every re-entry each rank's restored
+   state equals the committed tip read from disk (fingerprints of every
+   leaf); the final states are bit-identical across the ranks.  Printed:
+   ``elastic.downtime_seconds``, ``elastic.resume_seconds``, the NCCL
+   rebuild (``elastic.rebuild_seconds``), rank 0's step ms before and
+   after.
+
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3304,6 +3336,452 @@ def phase_parallel_nccl():
     return got
 
 
+# -------------------------------------------------------------- resilience
+
+# Phases 27-28 write their checkpoints inside the checkout (``build/`` is
+# gitignored) and remove them at their end.
+CKPT_ROOT = Path("build") / "chip_smoke_ckpt"
+CKPT_SAVE_AT, CKPT_RESUME_STEPS, STREAM_STEPS = 3, 2, 4
+ELASTIC_RANKS, ELASTIC_STEPS = 3, 10
+ELASTIC_DIE_RANK, ELASTIC_DIE_STEP = 2, 5
+
+
+def _fingerprint(t: torch.Tensor) -> int:
+    """A position-weighted sum of ``t``'s bit patterns in int64 (which
+    wraps, exactly, in any order of summation): one pass on the card, and
+    equal only for equal bits but for a 2^-64 chance."""
+    flat = t.detach().contiguous().view(-1)
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    v = flat.view(ints[flat.element_size()]).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64)
+    return int((v * (w % 65521 + 1)).sum().item())
+
+
+def _state_fingerprints(tree) -> dict:
+    """{key: fingerprint} of the tensor leaves of a state tree."""
+    from horovod_tpu_torch import checkpoint
+    return {k: _fingerprint(v) for k, v in checkpoint.leaves_with_keys(tree)
+            if isinstance(v, torch.Tensor)}
+
+
+def _flat_fingerprints(flat: dict, keys, device) -> dict:
+    """The same fingerprints of a chain's leaves as read from disk
+    (``checkpoint.read_chain_state``), for ``keys``, on ``device``."""
+    import numpy as np
+    out = {}
+    for k in keys:
+        a = flat[k]
+        if a.dtype == np.dtype("V2"):       # bfloat16 records
+            a = a.view(np.int16)
+        out[k] = _fingerprint(torch.from_numpy(a).to(device))
+    return out
+
+
+def _digest(fps: dict) -> str:
+    import hashlib
+    return hashlib.sha256(json.dumps(sorted(fps.items())).encode()
+                          ).hexdigest()[:16]
+
+
+def _sgd_step(model, opt, tokens) -> float:
+    opt.zero_grad()
+    loss = _lm_loss(model, tokens)
+    loss.backward()
+    opt.step()
+    return loss.item()
+
+
+def _timed_sgd_steps(model, opt, batches):
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_sgd_step(model, opt, b))
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _peak_rss_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def phase_checkpoint(depth: int) -> dict:
+    """Phase 27: the headline model's training state through
+    ``save_model`` / ``load_model`` and the async checkpoint stream on one
+    card; resume bit-identical, the stream's restored tip equal to its
+    snapshot."""
+    import shutil
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, ckpt_stream
+    from horovod_tpu_torch.ops import _cuda
+    root = CKPT_ROOT / "phase27"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free0 = shutil.disk_usage(root).free
+    orig_save_chain = checkpoint.save_chain
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+        batches = [torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                                 device="cuda")
+                   for _ in range(CKPT_SAVE_AT + CKPT_RESUME_STEPS
+                                  + STREAM_STEPS)]
+        resume = batches[CKPT_SAVE_AT:CKPT_SAVE_AT + CKPT_RESUME_STEPS]
+        stream = batches[CKPT_SAVE_AT + CKPT_RESUME_STEPS:]
+        model = _lm("flash", depth, SEQ, "cuda")
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        _timed_sgd_steps(model, opt, batches[:CKPT_SAVE_AT])
+        n_params = sum(p.numel() for p in model.parameters())
+        state_bytes = sum(
+            t.numel() * t.element_size() for _, t in
+            checkpoint.leaves_with_keys(checkpoint.model_state(model, opt))
+            if isinstance(t, torch.Tensor))
+        print(f"checkpoint: depth {depth}, {n_params} f32 parameters; the "
+              f"training state (parameters + SGD momentum) is {state_bytes} "
+              f"bytes ({state_bytes / 2 ** 30:.2f} GiB); free disk "
+              f"{free0 / 2 ** 30:.1f} GiB")
+        d = str(root / "model")
+        t0 = time.perf_counter()
+        hvd.save_model(d, model, opt, CKPT_SAVE_AT, optimizer=opt)
+        save_s = time.perf_counter() - t0
+        saved_bytes = _dir_bytes(d)
+        losses_a, times_a = _timed_sgd_steps(model, opt, resume)
+        fresh = _lm("flash", depth, SEQ, "cuda")
+        with torch.no_grad():
+            for p in fresh.parameters():
+                p.zero_()
+        t0 = time.perf_counter()
+        fresh, opt_b, epoch = hvd.load_model(d, fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        losses_b, times_b = _timed_sgd_steps(fresh, opt_b, resume)
+        same_params = all(torch.equal(p, q) for p, q in
+                          zip(model.parameters(), fresh.parameters()))
+        same_momentum = all(
+            torch.equal(opt.state[p]["momentum_buffer"],
+                        opt_b.state[q]["momentum_buffer"])
+            for p, q in zip(model.parameters(), fresh.parameters()))
+        print(f"checkpoint: save_model (epoch {CKPT_SAVE_AT}, chain base) "
+              f"{save_s:.2f} s, {saved_bytes} bytes on disk; load_model "
+              f"from the directory alone {load_s:.2f} s (epoch {epoch}, "
+              f"{type(opt_b).__name__}); run A losses {losses_a}, run B "
+              f"{losses_b}: {'bit-identical' if losses_a == losses_b else 'DIFFERENT'}"
+              f"; parameters {'bit-identical' if same_params else 'DIFFERENT'}, "
+              f"momentum {'bit-identical' if same_momentum else 'DIFFERENT'}; "
+              f"peak host RSS {_peak_rss_gib():.2f} GiB")
+        _check(epoch == CKPT_SAVE_AT, f"checkpoint: load_model resumed at "
+               f"epoch {epoch}, expected {CKPT_SAVE_AT}")
+        _check(losses_a == losses_b and same_params and same_momentum,
+               f"checkpoint: resume is not bit-identical: {losses_a} vs "
+               f"{losses_b}, parameters {same_params}, momentum "
+               f"{same_momentum}")
+        del fresh, opt_b
+        _free()
+        shutil.rmtree(d)
+        # The stream: one snapshot a step, a base every second commit.
+        commits = []
+
+        def timed_save_chain(directory, flat, epoch, **kw):
+            t0 = time.perf_counter()
+            out = orig_save_chain(directory, flat, epoch, **kw)
+            commits.append(dict(out, seconds=time.perf_counter() - t0))
+            return out
+
+        checkpoint.save_chain = timed_save_chain
+        sd = str(root / "stream")
+        snap_ms, on_ms, fps = [], [], {}
+        ac = ckpt_stream.AsyncCheckpointer(sd, snapshot_every_steps=1,
+                                           full_every=2)
+        try:
+            first = CKPT_SAVE_AT + CKPT_RESUME_STEPS
+            for i, b in enumerate(stream):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _sgd_step(model, opt, b)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state = checkpoint.model_state(model, opt)
+                ac.snapshot(state, first + i + 1)
+                t2 = time.perf_counter()
+                # The live state at snapshot time, before the next step
+                # updates it in place.
+                fps[first + i + 1] = _state_fingerprints(state)
+                snap_ms.append((t2 - t1) * 1e3)
+                on_ms.append((t2 - t0) * 1e3)
+            t0 = time.perf_counter()
+            ac.flush(timeout=600)
+            flush_s = time.perf_counter() - t0
+        finally:
+            ac.close()
+            checkpoint.save_chain = orig_save_chain
+        stream_bytes = _dir_bytes(sd)
+        tip = checkpoint.latest_epoch(sd)
+        like = checkpoint.model_state(model, opt)
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(sd, tip, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        live = dict(checkpoint.leaves_with_keys(like))
+        tip_equal = all(torch.equal(v, live[k]) for k, v in
+                        checkpoint.leaves_with_keys(restored)
+                        if isinstance(v, torch.Tensor))
+        del restored
+        _free()
+        committed_ok = {}
+        for c in commits:
+            e = c["epoch"]
+            flat = checkpoint.read_chain_state(sd, e)
+            committed_ok[e] = (_flat_fingerprints(flat, fps[e], "cuda")
+                               == fps[e])
+            del flat
+        launches = dict(_cuda.LAUNCHES)
+        off_ms = [t * 1e3 for t in times_a + times_b]
+        print(f"checkpoint: stream (snapshot every step, full_every 2) over "
+              f"{STREAM_STEPS} steps: snapshot device->host ms "
+              + ", ".join(f"{x:.1f}" for x in snap_ms)
+              + "; commits " + ", ".join(
+                  f"epoch {c['epoch']} {c['kind']} {c['nbytes']} bytes "
+                  f"{c['seconds']:.2f} s" for c in commits)
+              + f"; flush {flush_s:.2f} s; {stream_bytes} bytes on disk; "
+              f"tip epoch {tip} restored in {restore_s:.2f} s, "
+              f"{'bit-identical to' if tip_equal else 'DIFFERENT from'} the "
+              f"snapshotted state; each commit against its snapshot "
+              f"{committed_ok}")
+        print(f"checkpoint: step ms with the stream on (step + snapshot) "
+              + ", ".join(f"{x:.1f}" for x in on_ms) + " (median "
+              f"{statistics.median(on_ms):.1f}), off "
+              + ", ".join(f"{x:.1f}" for x in off_ms) + " (median "
+              f"{statistics.median(off_ms):.1f}); peak host RSS "
+              f"{_peak_rss_gib():.2f} GiB; free disk "
+              f"{shutil.disk_usage(root).free / 2 ** 30:.1f} GiB; launches "
+              f"{launches}")
+        _check(tip == first + STREAM_STEPS,
+               f"checkpoint: the stream's tip is epoch {tip}, expected "
+               f"{first + STREAM_STEPS}")
+        _check(tip_equal, "checkpoint: the restored tip differs from the "
+               "snapshotted state")
+        _check(commits and all(committed_ok.values()),
+               f"checkpoint: a committed epoch differs from its snapshot: "
+               f"{committed_ok}")
+        steps = CKPT_SAVE_AT + 2 * CKPT_RESUME_STEPS + STREAM_STEPS
+        for name in FLASH:
+            _check(launches[name] == depth * steps,
+                   f"checkpoint: {name} launched {launches[name]} times, "
+                   f"expected {depth * steps}")
+        del model, opt, like, live
+        return {"state_bytes": state_bytes, "save_s": save_s,
+                "load_s": load_s, "snapshot_ms": snap_ms,
+                "commits": commits, "restore_s": restore_s,
+                "on_ms": on_ms, "off_ms": off_ms}
+    finally:
+        checkpoint.save_chain = orig_save_chain
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _elastic_emit(kind: str, **kw) -> None:
+    print("ELASTIC " + json.dumps(dict(kind=kind, **kw)), flush=True)
+
+
+def _elastic_worker() -> None:
+    """Phase 28 in one process of the launcher's job (``chip_smoke.py
+    --elastic-worker``): the headline model through ``run_elastic`` with
+    ``DistributedOptimizer(eager=True)``, each rank on its own batch.
+    Rank ``ELASTIC_DIE_RANK`` kills itself at step ``ELASTIC_DIE_STEP``
+    of generation 0; a smaller generation waits for the standby, which
+    parks only once the survivors have reconfigured.  Lines ``ELASTIC
+    {json}`` report to the parent."""
+    import signal
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint, elastic
+    d = os.environ["CHIP_SMOKE_ELASTIC_DIR"]
+    marker = os.path.join(d, "reconfigured")
+    if elastic.is_standby():
+        deadline = time.monotonic() + 600
+        while not os.path.exists(marker):
+            if time.monotonic() > deadline:
+                sys.exit("elastic worker: the survivors never reconfigured")
+            time.sleep(0.1)
+    elastic.init()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = _lm("flash", DEPTH, SEQ, dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        eager=True)
+    # A zero momentum gives SGD's first update bit for bit, and the state
+    # its whole structure from the start (the restore template).
+    for p in model.parameters():
+        opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
+    like = checkpoint.model_state(model, opt)
+    times = {}
+
+    def train(state, epoch):
+        gen = elastic.generation()
+        checkpoint.load_model_state(model, opt, state)
+        fps = _state_fingerprints(checkpoint.model_state(model, opt))
+        _elastic_emit("reentry", rank=hvd.rank(), size=hvd.size(), gen=gen,
+                      epoch=epoch, fp=_digest(fps), card=dev.index)
+        if hvd.rank() == 0 and epoch >= 0:
+            flat = checkpoint.read_chain_state(d, epoch)
+            _elastic_emit("tip", gen=gen, epoch=epoch,
+                          fp=_digest(_flat_fingerprints(flat, fps, dev)))
+            del flat
+        if gen > 0:
+            open(marker, "w").close()
+        deadline = time.monotonic() + 600
+        # A generation of another size trains no step: it waits for the
+        # next membership change (hvd.size() can move before the
+        # generation does, so the size read at entry decides).
+        size = hvd.size()
+        while size != ELASTIC_RANKS:
+            if elastic.generation() != gen:
+                raise hvd.HorovodRetryableError(
+                    "membership changed while waiting for a standby")
+            if time.monotonic() > deadline:
+                sys.exit("elastic worker: no standby was admitted")
+            time.sleep(0.05)
+        gen_tok = torch.Generator(device=dev).manual_seed(
+            SEED + 40 + hvd.rank())
+        tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen_tok,
+                               device=dev)
+        loss = None
+        for step in range(max(epoch, 0), ELASTIC_STEPS):
+            if elastic.generation() != gen:
+                raise hvd.HorovodRetryableError(
+                    "membership changed between steps")
+            if (gen == 0 and hvd.rank() == ELASTIC_DIE_RANK
+                    and step == ELASTIC_DIE_STEP):
+                torch.cuda.synchronize()
+                _elastic_emit("kill", rank=hvd.rank(), step=step)
+                os.kill(os.getpid(), signal.SIGKILL)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = _sgd_step(model, opt, tokens)
+            times.setdefault(gen, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            elastic.snapshot(checkpoint.model_state(model, opt), step + 1)
+        return loss
+
+    loss = elastic.run_elastic(train, directory=d, like=like)
+    hist = hvd.metrics()["histograms"]
+
+    def h(name):
+        x = hist.get(name, {})
+        return {"count": x.get("count", 0), "sum": x.get("sum", 0.0)}
+
+    _elastic_emit("done", rank=hvd.rank(), size=hvd.size(),
+                  gen=elastic.generation(), loss=loss,
+                  fp=_digest(_state_fingerprints(
+                      checkpoint.model_state(model, opt))),
+                  step_ms={g: [round(t, 1) for t in ts]
+                           for g, ts in times.items()},
+                  downtime=h("elastic.downtime_seconds"),
+                  resume=h("elastic.resume_seconds"),
+                  rebuild=h("elastic.rebuild_seconds"),
+                  snapshot=h("ckpt.snapshot_seconds"),
+                  write=h("ckpt.write_seconds"))
+    hvd.shutdown()
+
+
+def phase_elastic_nccl():
+    """Phase 28: the launcher's elastic job on four cards over NCCL (only
+    with four or more cards; otherwise a line says it did not run)."""
+    import shutil
+    if torch.cuda.device_count() < 4:
+        print("elastic nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    root = (CKPT_ROOT / "phase28").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_"))}
+    # The rejoin action admits a parked standby at the first tick with a
+    # seat open: after the loss has shrunk the world.
+    env.update(CHIP_SMOKE_ELASTIC_DIR=str(root),
+               HOROVOD_TPU_FAULT="rejoin:rank=0:tick=1")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np",
+           str(ELASTIC_RANKS), "--elastic", "--num-standby", "1",
+           "--snapshot-every-steps", "2", "--", sys.executable,
+           os.path.abspath(__file__), "--elastic-worker"]
+    try:
+        t0 = time.perf_counter()
+        # Its own session, so that a job which does not end is stopped
+        # whole: the launcher, its workers and its standbys.
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            out, err = proc.communicate()
+            _fail(f"elastic nccl: no end within 900 s; stderr tail "
+                  f"{err[-3000:]}")
+        wall_s = time.perf_counter() - t0
+        events = [json.loads(line[8:]) for line in out.splitlines()
+                  if line.startswith("ELASTIC ")]
+        notes = [line for line in err.splitlines()
+                 if any(t in line for t in (
+                     "reconfigured to", "standby admitted", "rebuilt the",
+                     "exited with code", "relaunched", "ABORT", "Error",
+                     "FAILED"))]
+        print("elastic nccl: " + "\n  ".join(notes[:40]))
+        for e in events:
+            print(f"elastic nccl: {e}")
+        _check(proc.returncode == 0,
+               f"elastic nccl: the launcher exited {proc.returncode}; "
+               f"stderr tail {err[-3000:]}")
+        _check("ABORTED" not in out + err,
+               "elastic nccl: a rank was aborted")
+        done = [e for e in events if e["kind"] == "done"]
+        reentries = [e for e in events if e["kind"] == "reentry"]
+        tips = {(e["gen"], e["epoch"]): e["fp"] for e in events
+                if e["kind"] == "tip"}
+        _check(len(done) == ELASTIC_RANKS
+               and all(e["gen"] == 2 and e["size"] == ELASTIC_RANKS
+                       for e in done),
+               f"elastic nccl: the job did not end at generation 2 with "
+               f"{ELASTIC_RANKS} ranks: {done}")
+        _check(len({e["fp"] for e in done}) == 1,
+               f"elastic nccl: the final states differ across ranks: "
+               f"{[e['fp'] for e in done]}")
+        gens = sorted({e["gen"] for e in reentries})
+        _check(gens == [0, 1, 2] and {e["size"] for e in reentries
+                                      if e["gen"] == 1} == {2},
+               f"elastic nccl: generations {gens}, not 0 -> 1 (size 2) "
+               f"-> 2")
+        for e in reentries:
+            if e["epoch"] >= 0:
+                want = tips.get((e["gen"], e["epoch"]))
+                _check(e["fp"] == want,
+                       f"elastic nccl: rank {e['rank']} restored "
+                       f"{e['fp']} at generation {e['gen']}, epoch "
+                       f"{e['epoch']}; the committed tip is {want}")
+        r0 = next(e for e in done if e["rank"] == 0)
+        before = r0["step_ms"].get("0", [])
+        after = r0["step_ms"].get("2", [])
+        print(f"elastic nccl: {wall_s:.1f} s; generations 0 -> 1 (size 2) "
+              f"-> 2 (size 3), every re-entry bit-identical to the "
+              f"committed tip, final state bit-identical on "
+              f"{len(done)} ranks; rank 0: step ms before the loss "
+              f"{before}, after {after}; elastic.downtime_seconds "
+              f"{r0['downtime']}, elastic.resume_seconds {r0['resume']}, "
+              f"NCCL rebuild (elastic.rebuild_seconds) {r0['rebuild']}, "
+              f"ckpt.snapshot_seconds {r0['snapshot']}, "
+              f"ckpt.write_seconds {r0['write']}")
+        return {"done": done, "reentries": reentries, "wall_s": wall_s}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _spawn(target, n: int, timeout: float = 300) -> dict:
     """Run ``target(rank, port, results)`` in ``n`` spawned processes;
     {rank: result}, or an "exit"/"timeout" entry when a worker fails or
@@ -3375,14 +3853,15 @@ def _profile_step(step, batch, category=None):
         step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # The profiler also reports each NCCL call's annotation range
-    # ("nccl:all_reduce", ...) as device time spanning its kernel: count
-    # the kernel once.
+    # The profiler also reports annotation ranges as device time spanning
+    # the kernels inside them (each NCCL call's "nccl:all_reduce", the
+    # optimizer's "Optimizer.step#SGD.step", ...): count only kernels.
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0
-               and not e.key.startswith("nccl:")]
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("nccl:", "Optimizer."))]
     busy = sum(ms for _, ms, _ in kernels)
     if not kernels:
         print("profile: the profiler recorded no device time")
@@ -3432,6 +3911,9 @@ SDPA_BWD = "scaled_dot_product_attention backward (dq, dk and dv)"
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this needs a CUDA GPU")
+    if sys.argv[1:] == ["--elastic-worker"]:
+        _elastic_worker()      # one process of phase 28's launched job
+        return
     gpu = _gpu_line()
     usage = phase_device()
     import horovod_tpu_torch as hvd
@@ -3448,6 +3930,13 @@ def main() -> None:
     ulysses_shape = phase_parallel_one_card()
     _free()
     par = phase_parallel_nccl()
+    _free()
+    # Phases 27-28 also run while this process holds little on card 0:
+    # phase 27 keeps two full-width training states there, and rank 0 of
+    # phase 28's job shares the card.
+    phase_checkpoint(DEPTH)
+    _free()
+    phase_elastic_nccl()
     _free()
     f32_launches = phase_models_f32()
     _free()

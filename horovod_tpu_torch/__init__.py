@@ -24,7 +24,10 @@ observatory (:mod:`.observe`), the input pipeline (:mod:`.data`) and the
 parallelism library (:mod:`.parallel`: ``build_mesh``, the collectives
 with JAX's transposes, ring and Ulysses attention, tensor, pipeline and
 expert parallelism, and TransformerLM's sequence- and tensor-parallel
-modes)::
+modes), and resilience: checkpoint chains readable by both packages and
+model save/load (:mod:`.checkpoint`), the async checkpoint stream
+(:mod:`.ckpt_stream`), the launcher (:mod:`.run`) and elastic membership
+(:mod:`.elastic`)::
 
     import horovod_tpu_torch as hvd
     hvd.init()                                   # cuda:local_rank, NCCL
@@ -46,6 +49,12 @@ modes)::
 
     h = hvd.allreduce_async(metric, name="metric")   # negotiated, fused
     metric = hvd.synchronize(h)
+
+    hvd.save_model(ckpt_dir, model, opt, epoch, optimizer=opt)   # rank 0
+    model, opt, epoch = hvd.load_model(ckpt_dir, model)   # from the dir
+    # python -m horovod_tpu_torch.run -np 3 --elastic --num-standby 1 \
+    #     --snapshot-every-steps 2 -- python train.py
+    hvd.elastic.run_elastic(train, directory=ckpt_dir, like=state)
 """
 
 from horovod_tpu_torch.basics import (      # noqa: F401
@@ -72,5 +81,10 @@ from horovod_tpu_torch.ops.eager import (   # noqa: F401
     allgather, allgather_async, allreduce, allreduce_async, broadcast,
     broadcast_async, poll, scatter_ranks, synchronize,
 )
+# Resilience: checkpoint chains and model save/load, the async checkpoint
+# stream and elastic membership (``python -m horovod_tpu_torch.run`` is
+# the launcher).
+from horovod_tpu_torch import checkpoint, ckpt_stream, elastic  # noqa: F401
+from horovod_tpu_torch.checkpoint import load_model, save_model  # noqa: F401
 
 __version__ = "0.1.0"

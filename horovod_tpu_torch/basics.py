@@ -14,13 +14,26 @@ this process's GPU (``cuda:local_rank``) and start the controller.
 ``wire_dtype`` (:209), ``mpi_threads_supported`` (:219),
 ``process_index`` (:154) and ``process_count`` (:158) follow the
 reference.
+
+Elastic membership (``HOROVOD_TPU_ELASTIC=1``): the world group is made
+per membership generation on the rendezvous store that
+``python -m horovod_tpu_torch.run`` hosts (``MASTER_ADDR``,
+``MASTER_PORT``, ``TORCHELASTIC_USE_AGENT_STORE=True``), under the prefix
+``htpu/gen<G>/``, so it outlives any worker; :func:`_rebuild_world`
+aborts the old group and makes the next one when the membership changes.
+A parked standby (``HOROVOD_TPU_STANDBY=1``) makes none until the
+controller adopts the seat it is admitted to.
 """
 
 from __future__ import annotations
 
 import atexit
 import dataclasses
+import datetime
+import os
+import sys
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -45,6 +58,9 @@ class _GlobalState:
         self.device: Optional[torch.device] = None
         self.controller = None          # horovod_tpu_torch.core.Controller
         self.atexit_registered = False
+        self.kind = "cpu"               # the device type of the job
+        self.owns_world = False         # init() made the world group
+        self.store = None               # the launcher's store (elastic)
 
 
 _state = _GlobalState()
@@ -56,6 +72,83 @@ def _require_init() -> _GlobalState:
     return _state
 
 
+def _launcher_store():
+    """A client of the rendezvous store the launcher hosts, made once per
+    process; it outlives every worker, rank 0 included."""
+    if _state.store is None:
+        addr = os.environ.get("MASTER_ADDR", "")
+        port = os.environ.get("MASTER_PORT", "")
+        if (os.environ.get("TORCHELASTIC_USE_AGENT_STORE") != "True"
+                or not addr or not port):
+            raise RuntimeError(
+                "horovod_tpu_torch: elastic membership (HOROVOD_TPU_ELASTIC"
+                "=1) with more than one rank needs a rendezvous store that "
+                "outlives every worker: launch with python -m "
+                "horovod_tpu_torch.run --elastic, which hosts one and "
+                "exports MASTER_ADDR, MASTER_PORT and "
+                "TORCHELASTIC_USE_AGENT_STORE=True")
+        timeout_s = float(os.environ.get("HOROVOD_TPU_CONTROL_TIMEOUT_S",
+                                         "60"))
+        _state.store = dist.TCPStore(
+            addr, int(port), is_master=False,
+            timeout=datetime.timedelta(seconds=timeout_s))
+    return _state.store
+
+
+def _init_world(kind: str, size: int, rank: int, init_method,
+                generation: Optional[int]) -> None:
+    """The world group: on ``init_method`` (default ``env://``), or, for
+    membership ``generation`` of an elastic job, on the launcher's store
+    under ``htpu/gen<generation>/``."""
+    backend = "nccl" if kind == "cuda" else "gloo"
+    if generation is None:
+        dist.init_process_group(backend=backend,
+                                init_method=init_method or "env://",
+                                world_size=size, rank=rank)
+    else:
+        # The old generation's communicators are aborted, never waited
+        # on: the watchdog must not tear the survivor down meanwhile
+        # (torch's abort API asks for its error handling to be off).
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+        store = dist.PrefixStore(f"htpu/gen{generation}/", _launcher_store())
+        dist.init_process_group(backend=backend, store=store,
+                                world_size=size, rank=rank)
+    _state.owns_world = True
+
+
+def _warm_world(device: torch.device) -> None:
+    """One collective on the new world group: NCCL makes its
+    communicators at the first one, so every member meets here."""
+    t = torch.zeros(1, device=device)
+    dist.all_reduce(t)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rebuild_world(generation: int, size: int, rank: int) -> float:
+    """Replace the world group for membership ``generation`` (the
+    controller's reconfigure, before it wakes the training threads):
+    abort the old group's communicators -- a peer of theirs is gone, and
+    may have died inside a collective -- then make and warm the new one
+    (none at size 1).  Returns the seconds it took.  Raises on failure:
+    a CUDA job never goes on over gloo or the host."""
+    t0 = time.perf_counter()
+    if dist.is_initialized() and _state.owns_world:
+        dist.distributed_c10d._abort_process_group()
+    _state.owns_world = False
+    if size > 1:
+        _init_world(_state.kind, size, rank, None, generation)
+        _warm_world(_state.device)
+    seconds = time.perf_counter() - t0
+    from horovod_tpu_torch import metrics as _metrics_mod
+    _metrics_mod.registry.observe("elastic.rebuild_seconds", seconds)
+    print(f"horovod_tpu_torch elastic: rebuilt the "
+          f"{'nccl' if _state.kind == 'cuda' else 'gloo'} world group for "
+          f"generation {generation} (size {size}, rank {rank}) in "
+          f"{seconds * 1e3:.1f} ms", file=sys.stderr)
+    return seconds
+
+
 def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
     """Initialize the framework (later calls are no-ops).
 
@@ -63,10 +156,12 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
     world group; ``"cpu"`` a gloo group.  ``init_method``: rendezvous of the
     world group when the job has more than one rank, e.g.
     ``"tcp://host:port"``; default ``"env://"`` (``MASTER_ADDR`` and
-    ``MASTER_PORT``).  The eager collectives of a job of several ranks also
+    ``MASTER_PORT``; under ``python -m horovod_tpu_torch.run``, the store
+    it hosts).  The eager collectives of a job of several ranks also
     need ``HOROVOD_TPU_COORD_ADDR=<host>:<port>`` (the native control
     plane's coordinator); without it they raise and the in-step path works
-    as before.
+    as before.  An elastic job (``HOROVOD_TPU_ELASTIC=1``) makes its world
+    group on the launcher's store (module docstring).
     """
     with _state.lock:
         if _state.initialized:
@@ -80,15 +175,19 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
         if kind not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got "
                              f"{device!r}")
-        if topo.size > 1:
-            dist.init_process_group(
-                backend="nccl" if kind == "cuda" else "gloo",
-                init_method=init_method or "env://",
-                world_size=topo.size, rank=topo.rank)
+        elastic = os.environ.get("HOROVOD_TPU_ELASTIC", "") == "1"
+        standby = elastic and os.environ.get("HOROVOD_TPU_STANDBY") == "1"
+        _state.kind = kind
+        if topo.size > 1 and not standby:
+            _init_world(kind, topo.size, topo.rank, init_method,
+                        0 if elastic else None)
         from horovod_tpu_torch import core as _core_mod
         controller = None
         try:
             controller = _core_mod.Controller(topo, kind)
+            # An admitted standby's seat (rank, size) is the one the
+            # coordinator assigned; the environment's was a placeholder.
+            topo = controller.topology
             # The controller's host discovery found which processes share
             # this host (reference: the shared-memory comm split,
             # operations.cc:1499-1509); an explicit HOROVOD_TPU_LOCAL_RANK
@@ -97,17 +196,32 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
                     and not _topology_mod.local_rank_is_explicit()):
                 topo = dataclasses.replace(
                     topo, local_rank=controller.host_local_rank)
+            elif (standby and kind == "cuda"
+                  and not _topology_mod.local_rank_is_explicit()):
+                raise RuntimeError(
+                    "horovod_tpu_torch: an admitted standby skips the "
+                    "layout exchange, so it cannot discover its GPU: set "
+                    "HOROVOD_TPU_LOCAL_RANK (python -m horovod_tpu_torch.run "
+                    "does)")
             device = torch.device("cpu")
             if kind == "cuda":
                 torch.cuda.set_device(topo.local_rank)
                 device = torch.device("cuda", topo.local_rank)
+            _state.device = device
             controller.bind_device(device)
+            if standby and topo.size > 1:
+                # The survivors make and warm this generation's group in
+                # their reconfigure; the admitted standby joins it here.
+                _init_world(kind, topo.size, topo.rank, None,
+                            controller.generation)
+                _warm_world(device)
             controller.start()
         except BaseException:
             if controller is not None:
                 controller.stop()
-            if topo.size > 1:
+            if _state.owns_world and dist.is_initialized():
                 dist.destroy_process_group()
+            _state.owns_world = False
             raise
         from horovod_tpu_torch import metrics as _metrics_mod
         _metrics_mod.start_exporters(topo.rank)
@@ -132,9 +246,10 @@ def shutdown() -> None:
             from horovod_tpu_torch import metrics as _metrics_mod
             _metrics_mod.stop_exporters()
             try:
-                if _state.topology.size > 1:
+                if _state.owns_world and dist.is_initialized():
                     dist.destroy_process_group()
             finally:
+                _state.owns_world = False
                 _state.controller = None
                 _state.topology = None
                 _state.device = None

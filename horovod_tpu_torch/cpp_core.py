@@ -145,6 +145,13 @@ def _configure(lib) -> None:
     lib.htpu_control_set_timeline.restype = None
     lib.htpu_control_set_timeline.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p]
+    lib.htpu_control_membership.restype = None
+    lib.htpu_control_membership.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.htpu_control_elastic.restype = ctypes.c_int
+    lib.htpu_control_elastic.argtypes = [ctypes.c_void_p]
     lib.htpu_metrics_snapshot.restype = ctypes.c_int
     lib.htpu_metrics_snapshot.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
     lib.htpu_flight_record.restype = None
@@ -574,13 +581,21 @@ def metrics_snapshot() -> dict:
     return json.loads(_take_buffer(lib, out, n).decode("utf-8"))
 
 
-def crc32c_native(data: bytes):
+def crc32c_native(data):
     """CRC32C (Castagnoli) via the native runtime-dispatched path (SSE4.2
     when available); ``None`` when the native core is unavailable —
-    callers fall back to the pure-Python table in horovod_tpu_torch.wire."""
+    callers fall back to the pure-Python table in horovod_tpu_torch.wire.
+    ``data`` is bytes or a C-contiguous numpy array (a file's ``np.memmap``
+    too), read in place."""
     lib = load()
     if lib is None:
         return None
+    import numpy as np
+    if isinstance(data, np.ndarray):
+        if not data.flags["C_CONTIGUOUS"]:
+            raise ValueError("crc32c_native: the array is not C-contiguous")
+        return int(lib.htpu_crc32c(data.ctypes.data if data.nbytes else None,
+                                   data.nbytes))
     return int(lib.htpu_crc32c(data, len(data)))
 
 
@@ -681,6 +696,25 @@ class CppControlPlane:
         n = self._lib.htpu_control_stalled(self._ptr, age_s,
                                            ctypes.byref(out))
         return _parse_stall_records(_take_buffer(self._lib, out, n))
+
+    def membership(self):
+        """Current elastic membership identity of this process:
+        ``(process_index, process_count, first_rank, generation)``
+        (reference ``cpp_core.py:1314``).  All four change together on a
+        RECONFIGURE; generation is 0 (and the rest Create-time constants)
+        on a non-elastic plane."""
+        pi = ctypes.c_int()
+        pc = ctypes.c_int()
+        fr = ctypes.c_int()
+        gen = ctypes.c_int()
+        self._lib.htpu_control_membership(
+            self._ptr, ctypes.byref(pi), ctypes.byref(pc), ctypes.byref(fr),
+            ctypes.byref(gen))
+        return pi.value, pc.value, fr.value, gen.value
+
+    def elastic(self) -> bool:
+        """True when HOROVOD_TPU_ELASTIC=1 was honoured by this plane."""
+        return bool(self._lib.htpu_control_elastic(self._ptr))
 
     def set_xfer_context(self, tensors: str) -> None:
         """Name the tensors of the collective about to run; a checked

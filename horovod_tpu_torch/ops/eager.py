@@ -57,9 +57,9 @@ class HorovodAbortedError(CollectiveError):
 class HorovodRetryableError(CollectiveError):
     """The collective was quiesced by an elastic membership change: the op
     did NOT run -- restore model state from the latest checkpoint and
-    re-submit under the new membership.  Elastic membership is not ported
-    yet, so the port raises it only for a RETRYABLE status.  Subclasses
-    :class:`CollectiveError` so existing handlers keep working."""
+    re-submit under the new membership (:func:`horovod_tpu_torch.elastic
+    .run_elastic` does both).  Subclasses :class:`CollectiveError` so
+    existing handlers keep working."""
 
 
 _name_counter = [0]
@@ -140,7 +140,7 @@ def _submit(request_type: RequestType, tensor, name: Optional[str],
             process_set=None) -> int:
     if process_set is not None and process_set != 0:
         from horovod_tpu_torch.core import _not_ported
-        raise _not_ported("non-default process sets", "Queue 1 item 4")
+        raise _not_ported("non-default process sets", "Queue 1 item 3")
     ctrl = basics.controller()
     per_rank, resolved = _normalize(tensor, name_prefix, name)
     handle = ctrl.handle_manager.allocate(mesh_hazard=per_rank[0].is_cuda,

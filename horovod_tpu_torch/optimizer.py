@@ -252,6 +252,19 @@ class _EagerReduction:
         stall_s = max(0.0, step_s - compute_s - exposed)
         _observe.note_step(step_s, compute_s, hidden, exposed, stall_s)
 
+    def discard(self) -> None:
+        """Drop every submission unwaited: the step failed (a membership
+        change completed them RETRYABLE, or the job aborted), and the
+        controller has already dropped their entries."""
+        hm = basics.controller().handle_manager
+        for b in self._issue_seq:
+            hm.abandon(self._buckets[b][0])
+        for kind, h, _ in self._handles.values():
+            for one in (h if kind == "sparse" else (h,)):
+                hm.abandon(one)
+        if self._planner is not None:
+            self._planner.close()
+
     def abandon(self) -> None:
         """Wait out what was submitted and drop it (``zero_grad`` before
         ``step``), so that the names are free for the next step."""
@@ -450,11 +463,19 @@ class _DistributedOptimizer:
         if self.overlap and self._bucket_plan is None:
             self._bucket_plan = _bucketed([self._grad(p) for p in params])
         red = self._eager_reduction()
-        for i, p in enumerate(params):
-            if i not in red.submitted:
-                self._submit(red, i, p)
-        outs = red.wait(len(params))
-        self._reduction = None
+        try:
+            for i, p in enumerate(params):
+                if i not in red.submitted:
+                    self._submit(red, i, p)
+            outs = red.wait(len(params))
+        except BaseException:
+            # A failed step (HorovodRetryableError after a membership
+            # change, an abort) leaves nothing for the next one to wait on.
+            red.discard()
+            self._done.clear()
+            raise
+        finally:
+            self._reduction = None
         for p, g in zip(params, outs):
             p.grad = (g.to_dense() if isinstance(g, _sparse.IndexedSlices)
                       else g)

@@ -1,0 +1,484 @@
+"""Job launcher of the port -- the replacement for ``mpirun``.
+
+Port of ``horovod_tpu/run.py`` (:33-433): the same flags, usage errors,
+supervision and ``child_env`` variables, for one process per GPU::
+
+    python -m horovod_tpu_torch.run -np 4 -- python train.py
+    python -m horovod_tpu_torch.run -np 3 --elastic --num-standby 1 \
+        --snapshot-every-steps 2 -- python train.py
+
+Env contract: ``HOROVOD_TPU_COORD_ADDR``, ``HOROVOD_TPU_PROCESS_INDEX``,
+``HOROVOD_TPU_PROCESS_COUNT``, ``HOROVOD_TPU_SIZE``, ``HOROVOD_TPU_RANK``
+and ``HOROVOD_TPU_LOCAL_SIZE``, as the reference, and the knobs its
+options set.  The port adds:
+
+* ``HOROVOD_TPU_LOCAL_RANK``: each child's GPU, given at launch -- the
+  lowest index no running child holds, so a relaunched standby takes the
+  card of the process it replaces.  An admitted standby skips the
+  init-time layout exchange, so host discovery cannot give it one.
+* ``MASTER_ADDR``, ``MASTER_PORT`` and ``TORCHELASTIC_USE_AGENT_STORE=True``:
+  the ``torch.distributed`` store the launcher hosts for the world group's
+  rendezvous (torch's own convention for a store an agent keeps).  It
+  outlives every worker, rank 0 included, so an elastic job makes each
+  membership generation's world group on it.  With ``--coord host:port``
+  (several hosts) the store is at ``host:port+1``, hosted by the launcher
+  whose ``--process-index-base`` is 0.
+
+``--autoscale-script`` is not ported yet (ROADMAP Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import signal
+import socket
+import subprocess
+import sys
+import time
+
+
+class Backoff:
+    """Bounded exponential backoff with jitter for reconnect/poll loops.
+
+    Sleeps start at ``base`` seconds and double per call up to
+    ``HOROVOD_TPU_CONNECT_BACKOFF_MAX_S`` (default 1.0); ±25% jitter
+    keeps a fleet of survivors from hammering a recovering endpoint in
+    lockstep.  Call :meth:`reset` after observed activity so the next
+    wait starts short again.  The native control plane applies the same
+    schedule between failed successor-rendezvous dials."""
+
+    def __init__(self, base: float = 0.05, cap: float = None):
+        if cap is None:
+            cap = float(os.environ.get(
+                "HOROVOD_TPU_CONNECT_BACKOFF_MAX_S", "1.0"))
+        self.base = base
+        self.cap = max(cap, base)
+        self._delay = base
+
+    def reset(self) -> None:
+        self._delay = self.base
+
+    def next_delay(self) -> float:
+        d = self._delay
+        self._delay = min(self._delay * 2.0, self.cap)
+        return d * (0.75 + 0.5 * random.random())
+
+    def sleep(self) -> None:
+        time.sleep(self.next_delay())
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="horovod_tpu_torch.run",
+        usage="python -m horovod_tpu_torch.run -np N [options] -- command ...")
+    p.add_argument("-np", "--num-proc", type=int, required=True,
+                   help="number of processes to launch (this host)")
+    p.add_argument("--ranks-per-process", type=int, default=1,
+                   help="chips driven per process (devices per process)")
+    p.add_argument("--coord", default="",
+                   help="coordinator host:port (default: local ephemeral)")
+    p.add_argument("--process-index-base", type=int, default=0,
+                   help="first process index on this host (multi-host)")
+    p.add_argument("--process-count", type=int, default=0,
+                   help="total processes in the job (default: -np)")
+    p.add_argument("--metrics-every", type=float, default=0.0,
+                   help="emit a metrics snapshot line every N seconds to a "
+                        "per-rank JSONL file (sets "
+                        "HOROVOD_TPU_METRICS_EVERY_S in each child; tail "
+                        "with tools/metrics_watch.py)")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="serve Prometheus text metrics from rank 0 on this "
+                        "port (sets HOROVOD_TPU_METRICS_PORT)")
+    p.add_argument("--kill-on-failure-grace", type=float, default=10.0,
+                   help="seconds survivors get to exit on their own after a "
+                        "process fails (the abort broadcast normally takes "
+                        "them down) before SIGTERM, then SIGKILL")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic membership (sets HOROVOD_TPU_ELASTIC=1 in "
+                        "every child): a lost rank reconfigures the job "
+                        "instead of aborting it, and crashed children are "
+                        "relaunched as parked standbys (docs/elasticity.md)")
+    p.add_argument("--num-standby", type=int, default=0,
+                   help="parked standby processes launched alongside the "
+                        "job (elastic mode only): hold no rank until a "
+                        "reconfiguration admits them")
+    p.add_argument("--elastic-min-ranks", type=int, default=0,
+                   help="floor for elastic shrink (sets "
+                        "HOROVOD_TPU_ELASTIC_MIN_RANKS); a loss that would "
+                        "drop the world below it aborts classically")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="total crashed children relaunched as standbys "
+                        "before the launcher stops replacing them "
+                        "(elastic mode)")
+    p.add_argument("--autoscale-script", default="",
+                   help="scripted elastic autoscaling (elastic mode only): "
+                        "not ported yet (ROADMAP Queue 1 item 3)")
+    p.add_argument("--ckpt-async", action="store_true",
+                   help="async incremental checkpointing (sets "
+                        "HOROVOD_TPU_CKPT_ASYNC=1): run_elastic snapshots "
+                        "device state into a host buffer and a background "
+                        "writer commits base+delta chains")
+    p.add_argument("--snapshot-every-steps", type=int, default=0,
+                   help="async snapshot cadence in steps (sets "
+                        "HOROVOD_TPU_CKPT_EVERY_STEPS and implies "
+                        "--ckpt-async); recovery replays at most this "
+                        "many steps plus the in-flight write")
+    p.add_argument("command", nargs=argparse.REMAINDER,
+                   help="program to run (prefix with --)")
+    args = p.parse_args(argv)
+    if not args.elastic and args.num_standby:
+        p.error("--num-standby requires --elastic")
+    if args.autoscale_script:
+        if not args.elastic:
+            p.error("--autoscale-script requires --elastic")
+        p.error("--autoscale-script: not ported (ROADMAP Queue 1 item 3)")
+
+    cmd = args.command
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+    if not cmd:
+        p.error("no command given")
+
+    nproc_total = args.process_count or args.num_proc
+    coord = args.coord or f"127.0.0.1:{free_port()}"
+    rpp = args.ranks_per_process
+    size = nproc_total * rpp
+    store_host, store_port, store = _rendezvous_store(
+        args.coord, args.process_index_base == 0)
+    cards = _Cards()
+
+    def child_env(pidx: int, standby: bool = False, card: int = 0) -> dict:
+        env = dict(os.environ)
+        env.update({
+            "HOROVOD_TPU_COORD_ADDR": coord,
+            "HOROVOD_TPU_PROCESS_INDEX": str(pidx),
+            "HOROVOD_TPU_PROCESS_COUNT": str(nproc_total),
+            "HOROVOD_TPU_SIZE": str(size),
+            "HOROVOD_TPU_RANK": str(pidx * rpp),
+            "HOROVOD_TPU_LOCAL_SIZE": str(rpp),
+            # The port's additions (module docstring).
+            "HOROVOD_TPU_LOCAL_RANK": str(card),
+            "MASTER_ADDR": store_host,
+            "MASTER_PORT": str(store_port),
+            "TORCHELASTIC_USE_AGENT_STORE": "True",
+        })
+        if args.elastic:
+            env["HOROVOD_TPU_ELASTIC"] = "1"
+            if args.elastic_min_ranks > 0:
+                env["HOROVOD_TPU_ELASTIC_MIN_RANKS"] = str(
+                    args.elastic_min_ranks)
+        if standby:
+            env["HOROVOD_TPU_STANDBY"] = "1"
+        if args.ckpt_async or args.snapshot_every_steps > 0:
+            env["HOROVOD_TPU_CKPT_ASYNC"] = "1"
+        if args.snapshot_every_steps > 0:
+            env["HOROVOD_TPU_CKPT_EVERY_STEPS"] = str(
+                args.snapshot_every_steps)
+        if args.metrics_every > 0:
+            env["HOROVOD_TPU_METRICS_EVERY_S"] = str(args.metrics_every)
+        if args.metrics_port > 0:
+            env["HOROVOD_TPU_METRICS_PORT"] = str(args.metrics_port)
+        if env.get("HOROVOD_TPU_TIMELINE"):
+            # The env value is a per-rank path template; fill it in per
+            # child so every rank writes its own trace (merge afterwards
+            # with tools/trace_merge.py).  The controller's own resolution
+            # is idempotent over an already-filled path.
+            from horovod_tpu_torch.timeline import per_rank_trace_path
+            env["HOROVOD_TPU_TIMELINE"] = per_rank_trace_path(
+                env["HOROVOD_TPU_TIMELINE"], pidx * rpp, size)
+        return env
+
+    def spawn(pidx: int, standby: bool = False):
+        card = cards.free()
+        proc = subprocess.Popen(cmd, env=child_env(pidx, standby, card))
+        cards.hold(proc, card)
+        return proc
+
+    # ``store`` (None unless this launcher hosts it) lives in this frame,
+    # so it serves until every child is gone.
+    return _launch(args, spawn, nproc_total)
+
+
+def _launch(args, spawn, nproc_total: int) -> int:
+    procs = [spawn(args.process_index_base + i)
+             for i in range(args.num_proc)]
+
+    if args.elastic:
+        # Standby process indices live above the worker range so each
+        # spare handshakes with a unique, nonzero index; the coordinator
+        # assigns the real rank at admission.
+        standbys = []
+        next_standby_pidx = [max(nproc_total,
+                                 args.process_index_base + args.num_proc)]
+
+        def spawn_standby():
+            pidx = next_standby_pidx[0]
+            next_standby_pidx[0] += 1
+            sb = spawn(pidx, standby=True)
+            standbys.append(sb)
+            return sb
+
+        for _ in range(args.num_standby):
+            spawn_standby()
+        try:
+            return _supervise_elastic(procs, standbys, spawn_standby,
+                                      args.max_restarts,
+                                      args.kill_on_failure_grace)
+        except KeyboardInterrupt:
+            _reap(procs + standbys, sig=signal.SIGTERM, grace_s=5.0)
+            return 130
+
+    # Fast-fail supervision (mpirun semantics): poll ALL children
+    # concurrently; the moment one exits non-zero, give the survivors a
+    # grace window to raise their own attributed abort (the coordinator's
+    # ABORT broadcast normally takes them down within a heartbeat), then
+    # escalate SIGTERM → SIGKILL so a wedged job can never outlive its
+    # first failure.  The old sequential wait() blocked on child 0 while a
+    # later child's crash left the job running until the control timeout.
+    try:
+        return _supervise(procs, args.kill_on_failure_grace)
+    except KeyboardInterrupt:
+        _reap(procs, sig=signal.SIGTERM, grace_s=5.0)
+        return 130
+
+
+class _Cards:
+    """The GPU of each child (``HOROVOD_TPU_LOCAL_RANK``): the lowest
+    index no running child holds."""
+
+    def __init__(self):
+        self._held = []   # (process, card)
+
+    def free(self) -> int:
+        busy = {card for proc, card in self._held if proc.poll() is None}
+        return next(i for i in range(len(busy) + 1) if i not in busy)
+
+    def hold(self, proc, card: int) -> None:
+        self._held.append((proc, card))
+
+
+def _rendezvous_store(coord: str, hosts_it: bool):
+    """(host, port, store) of the ``torch.distributed`` store of the
+    world group's rendezvous: a fresh local port, or ``host:port+1`` of
+    ``--coord``, served by this launcher when ``hosts_it`` (``store`` is
+    None otherwise)."""
+    import datetime
+    import torch.distributed as dist
+    if coord:
+        host, _, port = coord.rpartition(":")
+        host, port = host or "127.0.0.1", int(port) + 1
+    else:
+        host, port = "127.0.0.1", free_port()
+    store = None
+    if hosts_it:
+        store = dist.TCPStore(host, port, is_master=True,
+                              wait_for_workers=False,
+                              timeout=datetime.timedelta(seconds=300))
+    return host, port, store
+
+
+def _supervise(procs, grace_s: float) -> int:
+    first_rc = 0
+    failed_at = None
+    bo = Backoff(cap=0.25)
+    while True:
+        running = False
+        for i, proc in enumerate(procs):
+            rc = proc.poll()
+            if rc is None:
+                running = True
+            elif rc != 0 and first_rc == 0:
+                first_rc = rc
+                failed_at = time.monotonic()
+                bo.reset()
+                print(f"horovod_tpu_torch.run: process {i} (pid {proc.pid}) "
+                      f"exited with code {rc}; waiting up to {grace_s:.0f}s "
+                      "for the remaining processes before terminating them",
+                      file=sys.stderr)
+        if not running:
+            return first_rc
+        if failed_at is not None and time.monotonic() - failed_at > grace_s:
+            survivors = [p.pid for p in procs if p.poll() is None]
+            if survivors:
+                print("horovod_tpu_torch.run: terminating surviving processes "
+                      f"{survivors} after the "
+                      f"{grace_s:.0f}s --kill-on-failure-grace window",
+                      file=sys.stderr)
+            _reap(procs, sig=signal.SIGTERM, grace_s=5.0)
+            return first_rc
+        bo.sleep()
+
+
+def _supervise_elastic(procs, standbys, spawn_standby, max_restarts: int,
+                       grace_s: float) -> int:
+    """Elastic supervision with coordinator-failover awareness.
+
+    The *lead* is the worker expected to own the coordinator seat:
+    process 0 at launch, shifting to the lowest-indexed surviving worker
+    whenever the lead itself crashes — the survivors elect exactly that
+    process natively (docs/elasticity.md), so the launcher mirrors the
+    election rather than second-guessing it.  A non-lead crash is
+    survivable and the child is relaunched as a parked standby; a dead
+    lead is NOT replaced, because a relaunched spare would dial the
+    stale coordinator address and park out uselessly.  The job's outcome
+    is the FINAL lead's exit code, and standby exits never fail the job:
+    an unused spare exiting 0 is success, a reaped one is teardown."""
+    restarts = 0
+    handled = set()
+    sb_handled = set()
+    sb_bo = Backoff()
+    sb_retry_at = 0.0
+    lead = 0
+    lead_done_at = None
+    bo = Backoff()
+    while True:
+        rcs = [p.poll() for p in procs]
+        # Lead lineage: a crashed lead with live workers means the
+        # survivors are electing (or already serving under) a successor
+        # coordinator — follow them to the lowest-indexed survivor and
+        # judge the job by the new lead, not the corpse.
+        while (rcs[lead] is not None and rcs[lead] != 0
+               and any(rc is None for rc in rcs)):
+            new_lead = min(i for i, rc in enumerate(rcs) if rc is None)
+            print(f"horovod_tpu_torch.run: lead process {lead} "
+                  f"(pid {procs[lead].pid}) exited with code {rcs[lead]}; "
+                  f"elastic failover — process {new_lead} is the new lead",
+                  file=sys.stderr)
+            handled.add(lead)   # never respawned: its seat moved, and a
+            lead = new_lead     # spare would dial the stale address
+            lead_done_at = None
+            bo.reset()
+        workers_running = False
+        for i, proc in enumerate(procs):
+            rc = rcs[i]
+            if rc is None:
+                workers_running = True
+            elif i != lead and rc != 0 and i not in handled:
+                handled.add(i)
+                bo.reset()
+                if restarts < max_restarts:
+                    restarts += 1
+                    sb = spawn_standby()
+                    print(f"horovod_tpu_torch.run: process {i} (pid {proc.pid}) "
+                          f"exited with code {rc}; elastic mode — "
+                          f"relaunched as standby pid {sb.pid} "
+                          f"(restart {restarts}/{max_restarts})",
+                          file=sys.stderr)
+                else:
+                    print(f"horovod_tpu_torch.run: process {i} (pid {proc.pid}) "
+                          f"exited with code {rc}; restart budget "
+                          f"({max_restarts}) exhausted — not replaced",
+                          file=sys.stderr)
+        rc_lead = rcs[lead]
+        if rc_lead is None:
+            # A spare that dies before admission (bad dial, crash while
+            # parked, a relaunch failing on a sick host) used to vanish
+            # silently, quietly shrinking the replacement pool.  Replace
+            # it, paced by the shared Backoff schedule so a standby
+            # crash-looping against an unreachable coordinator cannot
+            # spin-fork, and bounded by the same --max-restarts budget as
+            # worker relaunches.
+            restarts, sb_retry_at = _respawn_failed_standbys(
+                standbys, sb_handled, spawn_standby, restarts,
+                max_restarts, sb_bo, sb_retry_at)
+        else:
+            if lead_done_at is None:
+                lead_done_at = time.monotonic()
+            stragglers = time.monotonic() - lead_done_at > grace_s
+            if not workers_running or stragglers:
+                # Admitted standbys exit through the same shutdown
+                # broadcast as the workers — give them a moment before
+                # reaping the parked (or wedged) remainder.
+                drain = Backoff()
+                deadline = time.monotonic() + 5.0
+                while (time.monotonic() < deadline
+                       and any(p.poll() is None for p in standbys)):
+                    drain.sleep()
+                _reap(procs + standbys, sig=signal.SIGTERM, grace_s=5.0)
+                return rc_lead
+        bo.sleep()
+
+
+def _respawn_failed_standbys(standbys, handled, spawn_standby, restarts,
+                             max_restarts, bo, retry_at, now=None):
+    """Replace standbys that exited non-zero before admission.
+
+    Each replacement is paced by ``bo`` (a :class:`Backoff`): the next
+    failed spare is not replaced until the previous replacement's delay
+    has elapsed, so a spare that dies instantly on spawn backs off
+    instead of fork-spinning.  Replacements draw from the same
+    ``max_restarts`` budget as worker relaunches; an exhausted budget
+    logs once per corpse.  Returns the updated ``(restarts, retry_at)``.
+    """
+    if now is None:
+        now = time.monotonic()
+    for j, sb in enumerate(list(standbys)):
+        if j in handled:
+            continue
+        rc = sb.poll()
+        if rc is None or rc == 0:
+            # Still parked, or a clean post-shutdown exit — not a failure.
+            continue
+        if restarts >= max_restarts:
+            handled.add(j)
+            print(f"horovod_tpu_torch.run: standby pid {sb.pid} exited with "
+                  f"code {rc}; restart budget ({max_restarts}) exhausted "
+                  "— not replaced", file=sys.stderr)
+            continue
+        if now < retry_at:
+            continue   # paced: revisit this corpse on a later poll
+        handled.add(j)
+        restarts += 1
+        nb = spawn_standby()
+        retry_at = now + bo.next_delay()
+        print(f"horovod_tpu_torch.run: standby pid {sb.pid} exited with code "
+              f"{rc} before admission; respawned as standby pid {nb.pid} "
+              f"(restart {restarts}/{max_restarts})", file=sys.stderr)
+    return restarts, retry_at
+
+
+def _reap(procs, sig, grace_s: float):
+    """Signal all still-running children, give them ``grace_s`` to exit,
+    then SIGKILL whatever remains."""
+    # SIGUSR2 first: the native core installs a flight-recorder dump
+    # handler, so a wedged child (e.g. HOROVOD_TPU_FAULT=hang, stuck in a
+    # blocking recv) leaves its last-N-ticks dump on disk before the
+    # terminate below destroys the evidence.  A child without the handler
+    # (never initialized the native core) dies to SIGUSR2's default
+    # disposition — acceptable, since _reap only runs when the job is
+    # being torn down anyway.
+    for proc in procs:
+        if proc.poll() is None:
+            try:
+                proc.send_signal(signal.SIGUSR2)
+            except OSError:
+                pass
+    time.sleep(0.2)
+    for proc in procs:
+        if proc.poll() is None:
+            try:
+                proc.send_signal(sig)
+            except OSError:
+                pass
+    deadline = time.monotonic() + grace_s
+    for proc in procs:
+        if proc.poll() is None:
+            try:
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -76,7 +76,13 @@ def resolve() -> Topology:
     rank = _env_int("HOROVOD_TPU_RANK", 0)
     local_rank = _env_int("HOROVOD_TPU_LOCAL_RANK", 0)
     local_size = _env_int("HOROVOD_TPU_LOCAL_SIZE", 1)
-    if size < 1 or not 0 <= rank < size:
+    # An elastic standby's env-derived rank is a placeholder ABOVE the
+    # live rank space (the launcher hands spares process indices past the
+    # worker range); the controller adopts the real seat at admission
+    # (reference ``topology.py:334-341``).
+    standby = (os.environ.get("HOROVOD_TPU_STANDBY", "") == "1"
+               and os.environ.get("HOROVOD_TPU_ELASTIC", "") == "1")
+    if size < 1 or rank < 0 or (rank >= size and not standby):
         raise RuntimeError(
             f"horovod_tpu_torch: rank {rank} is outside a job of size "
             f"{size}")

@@ -4,10 +4,10 @@ No JAX counterpart.  The port's modules keep flax's parameter names,
 shapes and layouts (Dense kernels (in, out), the raw (C, 3C) qkv kernel,
 LayerNorm and BatchNorm ``scale``/``bias``, Embed ``embedding``, BatchNorm
 ``batch_stats`` ``mean``/``var`` as buffers), so a flax tree maps onto a
-``state_dict`` by joining its keys with dots.  One layout differs: a 4-D
-``kernel`` is a convolution's, HWIO in flax and OIHW in the port, and is
-transposed.  Optimizer state trees have the shape of ``params`` and map
-the same way.
+``state_dict`` by joining its keys with dots, and back by
+:func:`to_flax`.  One layout differs: a 4-D ``kernel`` is a
+convolution's, HWIO in flax and OIHW in the port, and is transposed.
+Optimizer state trees have the shape of ``params`` and map the same way.
 
 The model-parallel layouts: :func:`load_flax_tp_params` slices a
 tensor-parallel tree by ``tp_spec_tree``'s classification (the
@@ -31,7 +31,8 @@ import torch
 
 def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a flax ``params`` tree (nested mappings of
-    arrays): ``params["block_0"]["attn"]["qkv"]["kernel"]`` becomes
+    arrays, or of tensors, which stay on their device):
+    ``params["block_0"]["attn"]["qkv"]["kernel"]`` becomes
     ``"block_0.attn.qkv.kernel"``; a 4-D ``kernel`` (HWIO) becomes OIHW."""
     out: Dict[str, torch.Tensor] = {}
 
@@ -41,12 +42,31 @@ def from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, name + ".")
             else:
-                t = torch.from_numpy(np.array(value))
+                t = (value if isinstance(value, torch.Tensor)
+                     else torch.from_numpy(np.array(value)))
                 if key == "kernel" and t.dim() == 4:
                     t = t.permute(3, 2, 0, 1).contiguous()
                 out[name] = t
 
     walk(params, "")
+    return out
+
+
+def to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`from_flax`: the flax-shaped tree of a
+    ``state_dict`` (or of ``named_parameters()``), its leaves the tensors
+    themselves: ``"block_0.attn.qkv.kernel"`` becomes
+    ``tree["block_0"]["attn"]["qkv"]["kernel"]``; a 4-D ``kernel`` (OIHW)
+    becomes HWIO, a copy."""
+    out: Dict = {}
+    for name, t in state.items():
+        *path, key = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        if key == "kernel" and t.dim() == 4:
+            t = t.permute(2, 3, 1, 0).contiguous()
+        node[key] = t
     return out
 
 

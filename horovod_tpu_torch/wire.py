@@ -173,12 +173,20 @@ def crc32c_py(data: bytes, crc: int = 0) -> int:
     return c ^ 0xFFFFFFFF
 
 
-def crc32c(data: bytes) -> int:
+def crc32c(data) -> int:
     """CRC32C via the native dispatched path when the core is loaded
-    (SSE4.2 at memory bandwidth), the Python table otherwise."""
+    (SSE4.2 at memory bandwidth), the Python table otherwise.  A numpy
+    array (a checkpoint shard's ``np.memmap``) is read in place, with no
+    copy."""
+    import numpy as np
     from horovod_tpu_torch import cpp_core   # lazy: cpp_core imports this module
-    native = cpp_core.crc32c_native(bytes(data))
-    return native if native is not None else crc32c_py(data)
+    if not isinstance(data, np.ndarray):
+        data = bytes(data)
+    native = cpp_core.crc32c_native(data)
+    if native is not None:
+        return native
+    return crc32c_py(data.tobytes() if isinstance(data, np.ndarray)
+                     else data)
 
 
 def integrity_enabled() -> bool:

@@ -254,7 +254,6 @@ def test_synchronize_timeout_abandons_the_handle(size1):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("HOROVOD_TPU_ELASTIC", "1"), ("HOROVOD_TPU_STANDBY", "1"),
     ("HOROVOD_TPU_PROCESS_SETS", "a:0"), ("HOROVOD_TPU_PRECISION", "auto")])
 def test_unported_modes_raise_at_init(monkeypatch, knob, value):
     for var in ("SIZE", "RANK", "LOCAL_RANK", "LOCAL_SIZE"):
@@ -264,6 +263,35 @@ def test_unported_modes_raise_at_init(monkeypatch, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("knob", ["HOROVOD_TPU_ELASTIC",
+                                  "HOROVOD_TPU_STANDBY"])
+def test_elastic_knobs_at_init(monkeypatch, knob):
+    """The elastic knobs, once refused at init, now do what the
+    reference's do for the same environment: a job of one process
+    initializes, and ``elastic``'s queries (mode, standby, shrink floor,
+    generation -1 without a control plane) equal the JAX package's."""
+    import horovod_tpu as ref
+    from horovod_tpu import elastic as ref_elastic
+    from horovod_tpu_torch import elastic
+    for var in ("SIZE", "RANK", "LOCAL_RANK", "LOCAL_SIZE", "COORD_ADDR",
+                "ELASTIC", "STANDBY", "ELASTIC_MIN_RANKS"):
+        monkeypatch.delenv("HOROVOD_TPU_" + var, raising=False)
+    monkeypatch.setenv(knob, "1")
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        ref.init()
+        assert hvd.is_initialized() and hvd.size() == 1
+        got = (elastic.enabled(), elastic.is_standby(), elastic.min_ranks(),
+               elastic.generation())
+        want = (ref_elastic.enabled(), ref_elastic.is_standby(),
+                ref_elastic.min_ranks(), ref_elastic.generation())
+        assert got == want
+        assert got[0] == (knob == "HOROVOD_TPU_ELASTIC") and got[3] == -1
+    finally:
+        hvd.shutdown()
 
 
 def test_process_set_argument_raises(size1):
