@@ -251,6 +251,52 @@ the checkout.  Phases, in order; any failure ends the run:
    ``elastic.downtime_seconds``, ``elastic.resume_seconds``, the NCCL
    rebuild (``elastic.rebuild_seconds``), rank 0's step ms before and
    after.
+29. InceptionV3 against the CPU (after phase 16): the full-width model
+   with every BatchNorm scale drawn from U(0.05, 0.15) and 4 random 299 x
+   299 images.  In train mode the whole model is chaotic at this batch
+   (the CPU against itself on inputs moved by 1e-6 moves its f32
+   gradients by 5e-2), so each of its 17 units (stem ConvBN with the
+   pools, blocks, the head with the mean) runs one train-mode forward and
+   backward on the CPU's own input to it under a seeded cotangent, on the
+   card and on the CPU from the same state, at phase 15's limits: in f32
+   (TF32 off) each output within 1e-4 relative, all gradients together
+   within 1e-2, every gradient, input gradient and new buffer within
+   5e-2; in bf16 each output within 2e-2; the floor from inputs moved by
+   1e-6 printed.  The whole model's eval-mode logits (BatchNorm scales
+   from U(0.5, 1.5)) within 1e-4 (f32) and 2e-2 (bf16); its train-mode
+   loss and logits printed.
+30. InceptionV3 and VGG16 training at full width (``ZOO``, after
+   ``bench.py:159-210``): bf16, batch 32 of 299 x 299 and batch 64 of
+   224 x 224, zero labels, SGD lr 0.01 momentum 0.9,
+   ``make_train_step(steps_per_call=5)``, ``sync_aux_state`` for
+   InceptionV3 only.  Every module's 4-D output stays in channels_last
+   (forward hooks on the card); for InceptionV3 ``ConvBN_0``'s running
+   mean and var after the first step against 0.1 x the f32 batch mean
+   (and 0.9 + 0.1 x the biased variance) of its convolution's output,
+   1e-3 relative; 1 warm-up and 3 timed calls; losses finite and
+   falling, an eval step's logits finite, no port kernel launched.
+   Printed: images/s per GPU, ms per step, MFU from ``FlopCounterMode``'s
+   FLOPs of one step (2 a multiply-add, against 989 TFLOP/s; phase 16
+   counts multiply-adds), peak memory, clocks, one profiled step by
+   category and its layout-conversion kernels.  Between the two models,
+   VGG16 against the CPU as in phase 29 on 2 images of 224 x 224
+   (``fc1``'s flatten order at the real width).
+31. CE schedules (after phase 8): phase 7's model, rebuilt from the same
+   seed, 2 warm-up and 5 timed steps under ``HOROVOD_TPU_XENT_MODE=
+   recompute`` and under ``save2``: every loss within ``TOL_XENT`` (1e-5)
+   relative of phase 7's, P1, P2 and P3 each launched depth x steps
+   times; step ms and peak memory beside phase 7's.  The knob is unset
+   after each.
+32. Profiler (last): ``profiling.capture`` of two headline steps after
+   two warm-up and three event-timed ones: ``device_time_ms(per=2)``
+   between the kernel time a step and 1.2 x the event-timed step, the
+   span of both never above the capture's wall time; the top rows of
+   ``per_op_rooflines``, whose cuBLAS rows report FLOPs.  Then
+   ``python -m horovod_tpu_torch.examples.mnist --epochs 1`` on the card
+   (test accuracy above 0.9) and ``synthetic_benchmark --num-iters 2
+   --num-batches-per-iter 2`` (its throughput lines).  Every profiled
+   step of the script reads its kernel rows through
+   ``horovod_tpu_torch.profiling``.  Phases 29-32 print their seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1134,6 +1180,19 @@ def _train_setup(depth: int):
 
 
 @contextlib.contextmanager
+def _xent_mode(mode):
+    """Within the block, ``HOROVOD_TPU_XENT_MODE=mode`` when ``mode`` is
+    given: the fused CE then runs that schedule."""
+    if mode:
+        os.environ.update(HOROVOD_TPU_XENT_MODE=mode)
+    try:
+        yield
+    finally:
+        if mode:
+            os.environ.pop("HOROVOD_TPU_XENT_MODE", None)
+
+
+@contextlib.contextmanager
 def _one_pass(on: bool):
     """Within the block, ``HOROVOD_TPU_FLASH_BWD=fullunroll`` when ``on``:
     the backward of every layer is then P6."""
@@ -1153,18 +1212,20 @@ def _model_flops(depth: int) -> int:
     return (6 * n_matmul + 12 * depth * SEQ * DIM) * (BATCH * SEQ)
 
 
-def phase_train(depth: int, one_pass: bool = False):
+def phase_train(depth: int, one_pass: bool = False, xent=None):
     """The headline step; with ``one_pass``, under
-    ``HOROVOD_TPU_FLASH_BWD=fullunroll``."""
+    ``HOROVOD_TPU_FLASH_BWD=fullunroll``; with ``xent``, under
+    ``HOROVOD_TPU_XENT_MODE=xent``."""
     from horovod_tpu_torch.ops import _cuda
     from horovod_tpu_torch.spmd import make_train_step
-    label = "train one-pass" if one_pass else "train"
+    label = ("train one-pass" if one_pass
+             else f"train {xent}" if xent else "train")
     torch.cuda.reset_peak_memory_stats()
     model, tokens, loss_fn = _train_setup(depth)
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     step = make_train_step(model, loss_fn, opt)
     torch.cuda.synchronize()
-    with _one_pass(one_pass):
+    with _one_pass(one_pass), _xent_mode(xent):
         _cuda.reset_launches()
         losses, times = [], []
         for i in range(WARMUP + TIMED):
@@ -1196,9 +1257,10 @@ def phase_train(depth: int, one_pass: bool = False):
         _check(launches[name] == want,
                f"{label}: {name} launched {launches[name]} times, expected "
                f"{want}")
-    with _one_pass(one_pass):
+    with _one_pass(one_pass), _xent_mode(xent):
         _profile_step(step, tokens)
-    return {"launches": launches, "losses": losses, "step_s": step_s}
+    return {"launches": launches, "losses": losses, "step_s": step_s,
+            "peak_gb": peak_gb}
 
 
 def check_one_pass(one: dict, plain: dict) -> None:
@@ -1217,6 +1279,45 @@ def check_one_pass(one: dict, plain: dict) -> None:
     _check(track <= TOL_ONE_PASS,
            f"one-pass losses {one['losses']} stray from the split phase's "
            f"{plain['losses']}")
+
+
+# Phase 31: every loss under the recompute and save2 schedules against
+# phase 7's (unroll2), relative.  The forward is the same; one cuBLAS
+# product over N rows may round differently from two over N/2, and save2's
+# backward reads bf16 logits, whose rounding moves the softmax by ~2e-3
+# relative against a gradient the one-hot term dominates.  Measured
+# 5.81e-6 (recompute) and 7.63e-6 (save2) on an H100 80GB HBM3 at 700 W,
+# in two runs alike (PERF.md).
+TOL_XENT = 1e-5
+XENT_MODES = ("recompute", "save2")
+
+
+def phase_xent(depth: int, plain: dict) -> dict:
+    """Phase 31: the headline step under each of ``XENT_MODES`` (model
+    rebuilt from the same seed, 2 warm-up and 5 timed steps): P1, P2 and
+    P3 each launch depth x steps times (``phase_train`` checks it), every
+    loss within ``TOL_XENT`` of phase 7's; step ms and peak memory beside
+    phase 7's.  The knob is unset after each."""
+    out = {}
+    for mode in XENT_MODES:
+        t0 = time.perf_counter()
+        run = phase_train(depth, xent=mode)
+        _check("HOROVOD_TPU_XENT_MODE" not in os.environ,
+               "HOROVOD_TPU_XENT_MODE left set")
+        track = max(abs(a - b) / abs(b)
+                    for a, b in zip(run["losses"], plain["losses"]))
+        print(f"train {mode}: step {run['step_s'] * 1e3:.1f} ms, peak "
+              f"memory {run['peak_gb']:.2f} GiB against "
+              f"{plain['step_s'] * 1e3:.1f} ms and "
+              f"{plain['peak_gb']:.2f} GiB under unroll2 (phase 7); every "
+              f"loss vs phase 7's {track:.2e} relative at most; phase "
+              f"{time.perf_counter() - t0:.1f} s")
+        _check(track <= TOL_XENT,
+               f"train {mode}: losses {run['losses']} stray from phase "
+               f"7's {plain['losses']} by {track} > {TOL_XENT}")
+        out[mode] = run
+        _free()
+    return out
 
 
 def phase_routing():
@@ -1691,25 +1792,35 @@ def phase_resnet_cpu():
     ``TOL_RESNET_TENSOR``; in bf16 the loss and the logits within
     ``TOL_RESNET_BF16``."""
     from horovod_tpu_torch.models import ResNet50
+    _card_vs_cpu("resnet50", lambda dtype, device: ResNet50(
+        num_classes=1000, dtype=dtype, seed=SEED, device=device),
+        RESNET_CHECK, RESNET_SIZE, SEED + 5,
+        lambda n: n.endswith("BatchNorm_2.scale"))
+
+
+def _card_vs_cpu(label, make, n_images, size, seed, small_scale):
+    """The card against the CPU on one train-mode forward and backward of
+    ``make(dtype, device)`` (see :func:`phase_resnet_cpu`): the parameters
+    named by ``small_scale`` drawn from U(0.05, 0.15), ``n_images`` random
+    ``size`` x ``size`` images with random labels, f32 (TF32 off) and
+    bf16, the floor from inputs moved by 1e-6, the same limits."""
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 on the card
     torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator().manual_seed(SEED + 5)
-    images = torch.randn(RESNET_CHECK, RESNET_SIZE, RESNET_SIZE, 3,
-                         generator=gen)
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randn(n_images, size, size, 3, generator=gen)
     moved = images * (1 + 1e-6 * torch.randn(images.shape, generator=gen))
-    labels = torch.randint(0, 1000, (RESNET_CHECK,), generator=gen)
+    labels = torch.randint(0, 1000, (n_images,), generator=gen)
     state = None
     errs, floor, cpu_s = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         got = {}
         for device, x in (("cpu", images), ("cpu moved", moved),
                           ("cuda", images)):
-            model = ResNet50(num_classes=1000, dtype=dtype, seed=SEED,
-                             device=device.split()[0])
+            model = make(dtype, device.split()[0])
             if state is None:
                 with torch.no_grad():
                     for n, p in model.named_parameters():
-                        if n.endswith("BatchNorm_2.scale"):
+                        if small_scale(n):
                             p.uniform_(0.05, 0.15, generator=gen)
                 state = {k: v.clone() for k, v in model.state_dict().items()}
             model.load_state_dict(state)
@@ -1726,14 +1837,14 @@ def phase_resnet_cpu():
     for dtype, e in errs.items():
         w = max(e, key=e.get)
         fl = floor[dtype]
-        print(f"resnet50 card vs CPU, {str(dtype)[6:]} ({RESNET_CHECK} "
+        print(f"{label} card vs CPU, {str(dtype)[6:]} ({n_images} "
               f"images, {len(e) - 1} tensors): loss {e['loss']:.2e}, "
               f"logits {e['logits']:.2e}, all gradients "
               f"{e['all gradients']:.2e}, worst {w} {e[w]:.2e}; CPU vs "
               f"CPU on inputs moved by 1e-6: logits {fl['logits']:.2e}, "
               f"all gradients {fl['all gradients']:.2e}, worst "
               f"{max(fl.values()):.2e}")
-    print(f"resnet50 card vs CPU: one CPU pass {cpu_s[torch.float32]:.1f} "
+    print(f"{label} card vs CPU: one CPU pass {cpu_s[torch.float32]:.1f} "
           f"s; held: f32 loss and logits within {TOL_RESNET_FWD}, all "
           f"gradients within {TOL_RESNET_GRADS}, every tensor within "
           f"{TOL_RESNET_TENSOR}; bf16 loss and logits within "
@@ -1742,10 +1853,10 @@ def phase_resnet_cpu():
                      ("all gradients", TOL_RESNET_GRADS),
                      (worst, TOL_RESNET_TENSOR)):
         _check(f32[key] <= tol,
-               f"resnet50: f32 card vs CPU, {key} {f32[key]} > {tol}")
+               f"{label}: f32 card vs CPU, {key} {f32[key]} > {tol}")
     for key in ("loss", "logits"):
         _check(bf16[key] <= TOL_RESNET_BF16,
-               f"resnet50: bf16 card vs CPU, {key} {bf16[key]} > "
+               f"{label}: bf16 card vs CPU, {key} {bf16[key]} > "
                f"{TOL_RESNET_BF16}")
 
 
@@ -1838,6 +1949,340 @@ def phase_resnet():
         _profile_step(one, (images, labels), _resnet_category)
     return {"images_s": images_s, "step_s": step_s, "mfu": mfu,
             "peak_gb": peak_gb}
+
+
+# The image leg's other two models (bench.py:159-210): InceptionV3 in bf16
+# at batch 32 of 299 x 299, VGG16 in bf16 at batch 64 of 224 x 224, zero
+# labels, SGD lr 0.01 momentum 0.9, steps_per_call 5; sync_aux_state for
+# InceptionV3 only (VGG16 has no buffers, bench.py:229).
+ZOO = {
+    "inception_v3": dict(batch=32, size=299, sync_aux_state=True),
+    "vgg16": dict(batch=64, size=224, sync_aux_state=False),
+}
+INCEPTION_CHECK, VGG_CHECK = 4, 2      # images of the card-vs-CPU checks
+# Kernels cuDNN runs to change a tensor's layout: none of them should run
+# while every layer keeps channels_last.
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "transpose")
+
+
+def _zoo_model(name, dtype=torch.bfloat16, device="cuda"):
+    from horovod_tpu_torch.models import VGG16, InceptionV3
+    if name == "inception_v3":
+        return InceptionV3(num_classes=1000, dtype=dtype, seed=SEED,
+                           device=device)
+    return VGG16(num_classes=1000, dtype=dtype, seed=SEED, device=device,
+                 image_size=ZOO["vgg16"]["size"])
+
+
+def phase_vgg16_cpu():
+    """VGG16 at full width on the card against the CPU (in phase 30), as
+    phase 15 holds ResNet-50, on ``VGG_CHECK`` images of 224 x 224: this
+    holds ``fc1``'s flatten order at the real width."""
+    t0 = time.perf_counter()
+    _card_vs_cpu("vgg16", lambda dtype, device: _zoo_model("vgg16", dtype,
+                                                           device),
+                 VGG_CHECK, ZOO["vgg16"]["size"], SEED + 7, lambda p: False)
+    print(f"vgg16 card vs CPU: {time.perf_counter() - t0:.1f} s")
+
+
+# InceptionV3's top-level units, in the order its forward runs them.
+INCEPTION_UNITS = (
+    ["ConvBN_%d" % i for i in range(5)]
+    + ["InceptionA_%d" % i for i in range(3)] + ["InceptionB_0"]
+    + ["InceptionC_%d" % i for i in range(4)] + ["InceptionD_0"]
+    + ["InceptionE_0", "InceptionE_1", "head"])
+# A unit's cotangent is zero where the CPU's output lies within this of
+# the ReLU's kink: an output that rounds to the other side of 0 on one
+# device would move every gradient below it (tests/test_torch_models_zoo).
+KINK = 1e-4
+
+
+def _inception_unit(model, name):
+    """A copy of ``model``'s unit ``name`` and the function it computes in
+    the forward from the previous unit's output (the stem's pools before
+    ``ConvBN_3`` and ``InceptionA_0``, the spatial mean before the
+    head)."""
+    import copy
+    from horovod_tpu_torch.models.resnet import max_pool
+    unit = copy.deepcopy(getattr(model, name))
+    if name in ("ConvBN_3", "InceptionA_0"):
+        return unit, lambda x: unit(max_pool(x, (3, 3), (2, 2)))
+    if name == "head":
+        return unit, lambda x: unit(x.float().mean(dim=(2, 3)).to(
+            model.dtype))
+    return unit, unit
+
+
+def _unit_pass(model, name, x, g) -> dict:
+    """One train-mode forward and backward of ``model``'s unit ``name``
+    (a copy) on ``x`` under the cotangent ``g``: output, input gradient,
+    every parameter's gradient and every buffer after the forward, as f64
+    on the CPU."""
+    unit, fn = _inception_unit(model, name)
+    x = x.detach().clone().requires_grad_()
+    y = fn(x)
+    y.backward(g.to(y.dtype))
+    out = {"output": y.detach(), "input gradient": x.grad}
+    out.update({"grad " + n: p.grad for n, p in unit.named_parameters()})
+    out.update({"buffer " + n: b for n, b in unit.named_buffers()})
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+def phase_inception_cpu():
+    """Phase 29: InceptionV3 at full width on the card against the CPU on
+    ``INCEPTION_CHECK`` images of 299 x 299, every BatchNorm scale drawn
+    from U(0.05, 0.15).  The whole model in train mode is chaotic at
+    this batch (on an H100 80GB HBM3 host, the CPU against itself on
+    inputs moved by 1e-6 moved the f32 gradients by 5.1e-2 together and
+    the bf16 logits by 1.3e-1, above phase 15's limits; PERF.md), so the
+    train-mode forward and backward is held unit by unit: each of the 17
+    units (stem ConvBN, blocks, head, each with the pool or mean before
+    it) on the CPU's own f32 input to it, with a seeded cotangent, in f32
+    (TF32 off) and bf16, with phase 15's limits (f32: each output within
+    ``TOL_RESNET_FWD``, all gradients together within
+    ``TOL_RESNET_GRADS``, every gradient, input gradient and new buffer
+    within ``TOL_RESNET_TENSOR``; bf16: each output within
+    ``TOL_RESNET_BF16``); the floor from inputs moved by 1e-6 printed.
+    The whole model's eval-mode logits within ``TOL_RESNET_FWD`` (f32)
+    and ``TOL_RESNET_BF16`` (bf16), with the BatchNorm scales drawn from
+    U(0.5, 1.5) for that check (scales of 0.1 on the running statistics
+    at init shrink the activations to 0 before the head); its train-mode
+    loss and logits are printed beside their floor."""
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 on the card
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 6)
+    size = ZOO["inception_v3"]["size"]
+    images = torch.randn(INCEPTION_CHECK, size, size, 3, generator=gen)
+    labels = torch.randint(0, 1000, (INCEPTION_CHECK,), generator=gen)
+    cpu = _zoo_model("inception_v3", torch.float32, "cpu")
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("BatchNorm_0.scale"):
+                p.uniform_(0.05, 0.15, generator=gen)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    eval_state = {k: (torch.rand(v.shape, generator=gen) + 0.5
+                      if k.endswith("BatchNorm_0.scale") else v)
+                  for k, v in state.items()}
+    # Each unit's input in the CPU's f32 train-mode forward: the previous
+    # unit's output.
+    inputs, hooks = {"ConvBN_0": images.permute(0, 3, 1, 2)}, []
+    for prev, n in zip(INCEPTION_UNITS, INCEPTION_UNITS[1:]):
+        hooks.append(getattr(cpu, prev).register_forward_hook(
+            lambda m, a, out, n=n: inputs.__setitem__(n, out.detach())))
+    with torch.no_grad():
+        cpu(images)
+    for h in hooks:
+        h.remove()
+    errs, floor, whole = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        models = {}
+        for device in ("cpu", "cuda"):
+            models[device] = _zoo_model("inception_v3", dtype, device)
+            models[device].load_state_dict(state)
+        e, f = {}, {}
+        for n in INCEPTION_UNITS:
+            x = inputs[n].to(dtype)
+            moved = x * (1 + 1e-6 * torch.randn(x.shape, generator=gen,
+                                                 dtype=torch.float32)
+                         ).to(dtype)
+            with torch.no_grad():
+                ref = _inception_unit(models["cpu"], n)[1](x).float()
+            g = torch.randn(ref.shape, generator=gen)
+            g[ref.abs() < KINK] = 0.0
+            g = g.to(memory_format=torch.channels_last) if g.dim() == 4 \
+                else g
+            got = {}
+            for label, dev, xin in (("cpu", "cpu", x),
+                                    ("cpu moved", "cpu", moved),
+                                    ("cuda", "cuda", x)):
+                got[label] = _unit_pass(models[dev], n, xin.to(dev),
+                                        g.to(dev))
+            for k in got["cpu"]:
+                e[f"{n} {k}"] = _rel_fro(got["cuda"][k], got["cpu"][k])
+                f[f"{n} {k}"] = _rel_fro(got["cpu moved"][k], got["cpu"][k])
+            grads = [k for k in got["cpu"] if k.startswith("grad ")]
+            for d, src in ((e, "cuda"), (f, "cpu moved")):
+                d.setdefault("_grads", []).append(
+                    (torch.cat([got[src][k].reshape(-1) for k in grads]),
+                     torch.cat([got["cpu"][k].reshape(-1) for k in grads])))
+        for d in (e, f):
+            pairs = d.pop("_grads")
+            d["all gradients"] = _rel_fro(torch.cat([a for a, _ in pairs]),
+                                          torch.cat([b for _, b in pairs]))
+        errs[dtype], floor[dtype] = e, f
+        # The whole model: eval-mode logits, train-mode loss and logits.
+        out = {}
+        for device in ("cpu", "cuda"):
+            m = models[device]
+            with torch.no_grad():
+                m.load_state_dict(eval_state)
+                m.eval()
+                ev = m(images.to(device)).double().cpu()
+                m.load_state_dict(state)
+                m.train()
+                tr = m(images.to(device)).double().cpu()
+            out[device] = (ev, tr, torch.nn.functional.cross_entropy(
+                tr, labels).reshape(1))
+        whole[dtype] = tuple(_rel_fro(a, b) for a, b in zip(out["cuda"],
+                                                             out["cpu"]))
+        del models
+    for dtype in (torch.float32, torch.bfloat16):
+        e, f = errs[dtype], floor[dtype]
+        outs = {k: v for k, v in e.items() if k.endswith(" output")}
+        wo, wt = max(outs, key=outs.get), max(e, key=e.get)
+        ev, tr, loss = whole[dtype]
+        print(f"inception_v3 card vs CPU, {str(dtype)[6:]}, unit by unit "
+              f"({len(INCEPTION_UNITS)} units, {len(e) - 1} tensors): "
+              f"worst output {wo} {outs[wo]:.2e}, all gradients "
+              f"{e['all gradients']:.2e}, worst tensor {wt} {e[wt]:.2e}; "
+              f"CPU vs CPU on inputs moved by 1e-6: all gradients "
+              f"{f['all gradients']:.2e}, worst {max(f.values()):.2e}; "
+              f"whole model: eval logits {ev:.2e}, train logits {tr:.2e} "
+              f"and loss {loss:.2e} (not held: chaotic at this batch)")
+    f32, bf16 = errs[torch.float32], errs[torch.bfloat16]
+    print(f"inception_v3 card vs CPU: held: f32 unit outputs and eval "
+          f"logits within {TOL_RESNET_FWD}, all unit gradients within "
+          f"{TOL_RESNET_GRADS}, every tensor within {TOL_RESNET_TENSOR}; "
+          f"bf16 unit outputs and eval logits within {TOL_RESNET_BF16}; "
+          f"phase {time.perf_counter() - t_start:.1f} s")
+    for key, v in f32.items():
+        tol = (TOL_RESNET_FWD if key.endswith(" output")
+               else TOL_RESNET_GRADS if key == "all gradients"
+               else TOL_RESNET_TENSOR)
+        _check(v <= tol, f"inception_v3: f32 card vs CPU, {key} {v} > {tol}")
+    for key, v in bf16.items():
+        if key.endswith(" output"):
+            _check(v <= TOL_RESNET_BF16, f"inception_v3: bf16 card vs CPU, "
+                   f"{key} {v} > {TOL_RESNET_BF16}")
+    _check(whole[torch.float32][0] <= TOL_RESNET_FWD,
+           f"inception_v3: f32 eval logits {whole[torch.float32][0]}")
+    _check(whole[torch.bfloat16][0] <= TOL_RESNET_BF16,
+           f"inception_v3: bf16 eval logits {whole[torch.bfloat16][0]}")
+
+
+def _channels_last_outputs(model, size) -> list:
+    """The modules whose 4-D output is not in channels_last memory, from
+    one eval forward of two images on the card."""
+    bad, hooks = [], []
+    for n, m in model.named_modules():
+        hooks.append(m.register_forward_hook(
+            lambda m, a, out, n=n: bad.append(n) if (
+                torch.is_tensor(out) and out.dim() == 4
+                and not out.is_contiguous(
+                    memory_format=torch.channels_last)) else None))
+    model.eval()
+    with torch.no_grad():
+        model(torch.randn(2, size, size, 3, device="cuda"))
+    model.train()
+    for h in hooks:
+        h.remove()
+    return bad
+
+
+def _step_flops(step, batch) -> int:
+    """FLOPs of one training step as ``FlopCounterMode`` counts them (two a
+    multiply-add, forward and backward)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        step(batch)
+    return counter.get_total_flops()
+
+
+def phase_zoo_train(name: str) -> dict:
+    """Phase 30: ``name`` at the bench's full width (``ZOO``): channels_last
+    kept by every layer; for InceptionV3 the first step's ``ConvBN_0``
+    running statistics against a direct computation; 1 warm-up call and
+    3 timed calls of 5 steps, an eval step, a profiled step, the MFU from
+    ``FlopCounterMode``; no port kernel launched."""
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.spmd import make_eval_step, make_train_step
+    cfg = ZOO[name]
+    batch, size = cfg["batch"], cfg["size"]
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = _zoo_model(name)
+    bad = _channels_last_outputs(model, size)
+    print(f"{name}: modules whose output left channels_last: {bad}")
+    _check(not bad, f"{name}: outputs not channels_last: {bad[:5]}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    images = torch.randn(batch, size, size, 3, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    labels = torch.zeros(batch, dtype=torch.long, device="cuda")
+    stacked = (images.expand(RESNET_SPC, *images.shape),
+               labels.expand(RESNET_SPC, *labels.shape))
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    sync = cfg["sync_aux_state"]
+    one = make_train_step(model, _resnet_loss, opt, sync_aux_state=sync)
+    call = make_train_step(model, _resnet_loss, opt, sync_aux_state=sync,
+                           steps_per_call=RESNET_SPC)
+    want = None
+    if name == "inception_v3":
+        with torch.no_grad():
+            y = model.ConvBN_0.Conv_0(images.permute(0, 3, 1, 2)).float()
+            want = (0.1 * y.mean(dim=(0, 2, 3)),
+                    0.9 + 0.1 * y.var(dim=(0, 2, 3), unbiased=False))
+            del y
+    _cuda.reset_launches()
+    first = one((images, labels)).item()
+    if want is not None:
+        bn = model.ConvBN_0.BatchNorm_0
+        errs = (_rel_fro(bn.mean, want[0]), _rel_fro(bn.var, want[1]))
+        print(f"{name}: first step loss {first:.4f}; ConvBN_0 running mean "
+              f"and var against 0.1 x the batch's (and 0.9 + 0.1 x): "
+              f"{errs[0]:.2e}, {errs[1]:.2e} relative")
+        _check(max(errs) <= TOL_BN_STATS,
+               f"{name}: ConvBN_0 statistics {errs} > {TOL_BN_STATS}")
+    losses, times = [first], []
+    for _ in range(1 + RESNET_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = call(stacked)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(_cuda.LAUNCHES)
+    step_s = statistics.median(times[1:]) / RESNET_SPC
+    images_s = batch / step_s
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = _step_flops(one, (images, labels))
+    mfu = flops / step_s / PEAK_BF16_FLOPS
+    print(f"{name}: batch {batch} x {size}^2 bf16, steps_per_call "
+          f"{RESNET_SPC}, losses (first step, then the mean of each call) "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"{name}: {images_s:.1f} images/s per GPU, {step_s * 1e3:.2f} ms "
+          f"per step (median of {RESNET_TIMED} calls; calls "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms, the first "
+          f"a warm-up), {flops / 1e9:.1f} GFLOP a step (FlopCounterMode, "
+          f"2 a multiply-add), MFU {mfu:.4f} at 989 TFLOP/s (phase 16's "
+          f"ResNet-50 MFU counts multiply-adds, bench.py:270-281, so the "
+          f"two differ by that factor 2), peak memory {peak_gb:.2f} GiB, "
+          f"port kernels launched {sum(launches.values())}")
+    print(f"{name}: after the timed calls, SM clock, power, temperature: "
+          f"{_clocks()}")
+    _check(all(math.isfinite(x) for x in losses), f"{name}: non-finite loss")
+    _check(losses[-1] < losses[0],
+           f"{name}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    # The leg runs no Pallas kernel in the JAX package either.
+    _check(not any(launches.values()),
+           f"{name}: port kernels launched: {launches}")
+    logits = make_eval_step(model, lambda m, b: m(b))(images)
+    _check(tuple(logits.shape) == (batch, 1000)
+           and bool(torch.isfinite(logits).all()),
+           f"{name}: eval logits {tuple(logits.shape)} not finite")
+    print(f"{name}: eval step on the running statistics: logits "
+          f"{tuple(logits.shape)}, finite, mean {logits.mean().item():.4f}")
+    kernels = []
+    _profile_step(one, (images, labels), _resnet_category, kernels=kernels)
+    layout = [(k, ms, n) for k, ms, n in kernels
+              if any(t in k for t in LAYOUT_KERNELS)]
+    print(f"{name}: layout-conversion kernels in the profiled step: "
+          f"{sum(n for _, _, n in layout)} launches, "
+          f"{sum(ms for _, ms, _ in layout):.2f} ms"
+          + "".join(f"; {ms:.2f} ms x{n} {k[:60]}" for k, ms, n in layout))
+    print(f"{name}: phase {time.perf_counter() - t_start:.1f} s")
+    return {"images_s": images_s, "step_s": step_s, "mfu": mfu,
+            "peak_gb": peak_gb, "flops": flops}
 
 
 HIER_HOSTS = ("A", "A", "B", "B")
@@ -3840,43 +4285,150 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _profile_step(step, batch, category=None):
-    """One more step under torch.profiler: device time by kernel and
-    category (``_category`` unless given), and the device's busy share of
-    the (profiled) step.  Returns (wall ms, kernel ms), None when the
-    profiler recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile_step(step, batch, category=None, kernels=None):
+    """One more step under the port's profiler (``profiling.capture``):
+    device time by kernel and category (``_category`` unless given), and
+    the device's busy share of the (profiled) step.  The kernel rows are
+    ``profiling.device_events``: kernels and copies, never the annotation
+    ranges that span them (each NCCL call's "nccl:all_reduce", the
+    optimizer's "Optimizer.step#SGD.step", ...).  ``kernels``, a list,
+    receives (name, ms, launches) of every kernel.  Returns (wall ms,
+    kernel ms), None when the profiler recorded no device time."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import profiling
     category = category or _category
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def run():
         t0 = time.perf_counter()
         step(batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # The profiler also reports annotation ranges as device time spanning
-    # the kernels inside them (each NCCL call's "nccl:all_reduce", the
-    # optimizer's "Optimizer.step#SGD.step", ...): count only kernels.
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith(("nccl:", "Optimizer."))]
-    busy = sum(ms for _, ms, _ in kernels)
-    if not kernels:
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    log_dir = profiling.capture(run, warmup=0, iters=1,
+                                log_dir=tempfile.mkdtemp(prefix="smoke"))
+    table: dict = {}
+    for e in profiling.device_events(profiling.load_trace_events(log_dir)):
+        ms, n = table.get(e["name"], (0.0, 0))
+        table[e["name"]] = (ms + float(e.get("dur", 0.0)) / 1e3, n + 1)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    rows = [(name, ms, n) for name, (ms, n) in table.items()]
+    if kernels is not None:
+        kernels.extend(rows)
+    wall_ms, busy = walls[0], sum(ms for _, ms, _ in rows)
+    if not rows:
         print("profile: the profiler recorded no device time")
         return None
     print(f"profile: one step {wall_ms:.1f} ms wall under the profiler, "
           f"{busy:.1f} ms of kernels, device busy "
           f"{busy / wall_ms:.3f}")
     cats: dict = {}
-    for name, ms, _ in kernels:
+    for name, ms, _ in rows:
         cats[category(name)] = cats.get(category(name), 0.0) + ms
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"  {cat}: {ms:.2f} ms ({ms / busy:.3f} of kernel time)")
-    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]:
+    for name, ms, n in sorted(rows, key=lambda k: -k[1])[:12]:
         print(f"  top: {ms:8.2f} ms x{n:<4d} {name[:90]}")
     return wall_ms, busy
+
+
+# Phase 32: the device span of two captured headline steps must lie
+# between their kernel time and 1.2 x the event-timed step (the profiler's
+# own cost stretches the captured steps a little).
+PROFILE_SLACK = 1.2
+# Ops whose FLOPs torch.profiler counts: the cuBLAS kernels they launch
+# must report FLOPs.
+FLOP_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _run_example(args, timeout: float = 300) -> str:
+    """``python -m horovod_tpu_torch.examples.<args>`` from the checkout,
+    on the card; its standard output (the phase fails on a non-zero
+    exit)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.examples." + args[0],
+         *args[1:]], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=timeout)
+    _check(proc.returncode == 0,
+           f"example {args}: exit {proc.returncode}\n{proc.stdout[-2000:]}"
+           f"\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_profiler(depth: int):
+    """Phase 32: ``profiling.capture`` of two headline steps (after two
+    warm-up steps and three event-timed ones), ``device_time_ms(per=2)``
+    between the kernel time a step and ``PROFILE_SLACK`` x the
+    event-timed step and the span of both never above the capture's wall
+    time; the top roofline rows, cuBLAS rows with FLOPs; then the mnist
+    and synthetic-benchmark example twins on the card."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import profiling
+    from horovod_tpu_torch.spmd import make_train_step
+    t_start = time.perf_counter()
+    model, tokens, loss_fn = _train_setup(depth)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(model, loss_fn, opt)
+    for _ in range(2):
+        step(tokens)
+    torch.cuda.synchronize()
+    event_ms = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        step(tokens)
+        b.record()
+        b.synchronize()
+        event_ms.append(a.elapsed_time(b))
+    step_ms = statistics.median(event_ms)
+    log_dir = tempfile.mkdtemp(prefix="smoke_profile")
+    t0 = time.perf_counter()
+    profiling.capture(lambda: step(tokens), warmup=0, iters=2,
+                      log_dir=log_dir)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    span = profiling.device_time_ms(log_dir)
+    dev_ms = profiling.device_time_ms(log_dir, per=2)
+    kernel_ms = sum(float(e.get("dur", 0.0)) for e in profiling.device_events(
+        profiling.load_trace_events(log_dir))) / 1e3 / 2
+    rows = profiling.per_op_rooflines(log_dir)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _check(dev_ms is not None, "profiler: the trace has no device events")
+    print(f"profiler: device_time_ms(per=2) {dev_ms:.2f} ms, kernels "
+          f"{kernel_ms:.2f} ms a step, event-timed step {step_ms:.2f} ms "
+          f"(median of 3: " + ", ".join(f"{x:.2f}" for x in event_ms)
+          + f"), capture wall {wall_ms:.1f} ms for two steps (span "
+          f"{span:.2f} ms)")
+    profiling.print_rooflines(rows, top=12)
+    cublas = [r for r in rows if _category(r["op"]) == "matmul (cuBLAS)"]
+    flops_rows = [r for r in cublas if r["tflops_per_sec"] > 0]
+    print(f"profiler: {len(cublas)} cuBLAS rows, {len(flops_rows)} with "
+          f"FLOPs, holding {sum(r['ms'] for r in flops_rows):.2f} of "
+          f"{sum(r['ms'] for r in cublas):.2f} ms; their sources "
+          f"{sorted({r['source'] for r in cublas})}")
+    _check(kernel_ms <= dev_ms + 1e-6
+           and dev_ms <= step_ms * PROFILE_SLACK,
+           f"profiler: device time {dev_ms} ms a step outside [kernels "
+           f"{kernel_ms}, {PROFILE_SLACK} x step {step_ms}]")
+    _check(span <= wall_ms, f"profiler: span {span} ms > wall {wall_ms} ms")
+    _check(bool(flops_rows) and all(r["tflops_per_sec"] > 0 for r in cublas
+                                    if r["source"] in FLOP_OPS),
+           f"profiler: cuBLAS rows without FLOPs: {cublas}")
+    del model, opt, step
+    _free()
+    out = _run_example(["mnist", "--epochs", "1"])
+    acc = float(re.search(r"test accuracy: ([0-9.]+)", out).group(1))
+    print(f"profiler: examples.mnist --epochs 1 on the card: test accuracy "
+          f"{acc:.4f}")
+    _check(acc > 0.9, f"examples.mnist: accuracy {acc} <= 0.9")
+    out = _run_example(["synthetic_benchmark", "--num-iters", "2",
+                        "--num-batches-per-iter", "2"])
+    line = [x for x in out.splitlines() if x.startswith("Img/sec per rank")]
+    print(f"profiler: examples.synthetic_benchmark: "
+          + " | ".join(out.strip().splitlines()[-3:]))
+    _check(bool(line), f"examples.synthetic_benchmark printed {out!r}")
+    print(f"profiler: phase {time.perf_counter() - t_start:.1f} s")
 
 
 # Every TPU kernel of the JAX package (each function that reaches
@@ -3946,6 +4498,7 @@ def main() -> None:
     one = phase_train(DEPTH, one_pass=True)
     check_one_pass(one, plain)
     _free()
+    phase_xent(DEPTH, plain)
     phase_routing()
     _free()
     codec = phase_codec()
@@ -3956,11 +4509,22 @@ def main() -> None:
     phase_resnet_steps_per_call()
     phase_resnet_cpu()
     phase_resnet()
+    _free()
+    phase_inception_cpu()
+    _free()
+    phase_zoo_train("inception_v3")
+    _free()
+    phase_vgg16_cpu()
+    _free()
+    phase_zoo_train("vgg16")
+    _free()
     phase_hierarchical_nccl()
     phase_eager()
     phase_eager_nccl()
     phase_train_eager(DEPTH, plain, int8)
     phase_eager_train_nccl()
+    _free()
+    phase_profiler(DEPTH)
     t, e = k["times"], k["errs"]
     flash = {
         "flash_fwd": (t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],

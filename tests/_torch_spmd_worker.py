@@ -1,7 +1,7 @@
-"""Torch-only helpers of ``test_torch_train_step.py`` and
-``test_torch_hierarchical.py``: process groups over gloo and their
-workers.  Kept apart from the test files so that a spawned worker imports
-PyTorch and the port, not JAX."""
+"""Torch-only helpers of ``test_torch_train_step.py``,
+``test_torch_hierarchical.py`` and ``test_torch_models_zoo.py``: process
+groups over gloo and their workers.  Kept apart from the test files so
+that a spawned worker imports PyTorch and the port, not JAX."""
 
 import fcntl
 import os
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import weights
-from horovod_tpu_torch.models import ResNet
+from horovod_tpu_torch.models import InceptionV3, ResNet
 from horovod_tpu_torch.ops import injit
 from horovod_tpu_torch.parallel.hierarchical import hierarchical_allreduce
 from horovod_tpu_torch.spmd import (make_eval_step, make_train_step,
@@ -223,3 +223,21 @@ def hier_worker(rank, variables, images, labels):
     out["step_mesh"] = train(small_resnet(variables), batches, mesh=mesh)
     out["step_flat"] = train(small_resnet(variables), batches)
     return out
+
+
+# ------------------------------------------------ two ranks, InceptionV3
+
+
+def inception_worker(rank, variables, images, labels):
+    """One ``make_train_step(sync_aux_state=True)`` step of the f32
+    InceptionV3 (10 classes) on this rank's half of the global batch: the
+    loss and the state after it (parameters and BatchNorm buffers,
+    numpy)."""
+    half = images.shape[0] // 2
+    rows = slice(rank * half, (rank + 1) * half)
+    model = InceptionV3(num_classes=10, dtype=torch.float32, device="cpu")
+    weights.load_flax_variables(model, variables)
+    losses, state = train(model, [(torch.from_numpy(images[rows]),
+                                   torch.from_numpy(labels[rows]).long())],
+                          sync_aux_state=True)
+    return {"loss": losses[0], "state": state}
