@@ -287,7 +287,7 @@ the checkout.  Phases, in order; any failure ends the run:
    relative of phase 7's, P1, P2 and P3 each launched depth x steps
    times; step ms and peak memory beside phase 7's.  The knob is unset
    after each.
-32. Profiler (last): ``profiling.capture`` of two headline steps after
+32. Profiler: ``profiling.capture`` of two headline steps after
    two warm-up and three event-timed ones: ``device_time_ms(per=2)``
    between the kernel time a step and 1.2 x the event-timed step, the
    span of both never above the capture's wall time; the top rows of
@@ -297,6 +297,50 @@ the checkout.  Phases, in order; any failure ends the run:
    --num-batches-per-iter 2`` (its throughput lines).  Every profiled
    step of the script reads its kernel rows through
    ``horovod_tpu_torch.profiling``.  Phases 29-32 print their seconds.
+33. Precision autopilot, one card (after phase 32): phase 7's model,
+   rebuilt from the same seed, through ``make_train_step(compression=
+   "auto")`` under ``HOROVOD_TPU_PRECISION=auto`` and
+   ``HOROVOD_TPU_PRECISION_TICKS=2``, counters zeroed just before.  After
+   the first step the ladder is warmed as ``bench.py:_injit_auto_leg``
+   does: 4 reports of each eligible f32 leaf's int8-grid residual of its
+   gradient, measured by the port's ``optimizer._note_auto_residual``
+   (one P4 and one P5 launch through ``snap_to_grid``, held against the
+   plain codec on the same leaf, bit for bit, outside the counts).  Then
+   6 more steps.  At world size 1 ``make_train_step`` reduces nothing,
+   so this phase holds the ladder, the route and its rebuilds, not the
+   reduction (phase 34 does): every leaf's rung equals that of a
+   ``policy.FleetPolicy`` twin fed the plain codec's residuals, no leaf
+   stands at bf16 for the timed steps, the losses equal phase 7's bit
+   for bit (the route adds no work on one card), the step rebuilt its
+   route twice and P1-P3 launched depth x steps.  Then one residual
+   spike (0.9) demotes its leaf to fp32 on that report and the next call
+   rebuilds.  Printed: buckets by wire, promotions, demotions, rebuilds,
+   ``plan_version``, P4/P5 launches a measurement, step ms and peak
+   memory beside phase 7's.
+34. Precision autopilot, NCCL (runs right after phase 28): four
+   processes, one card each, only with four or more cards (otherwise a
+   line says it did not run), under
+   ``HOROVOD_TPU_PRECISION=auto``.  Each rank trains the headline model on
+   its own batch through ``make_train_step`` with the static fp32, bf16
+   and int8 wires (error feedback off) and with ``"auto"``, 2 + 3 steps
+   each: step ms, tokens/s per GPU, MFU (``bench.py:425-427``) and
+   ``auto_vs_best_static`` (printed, not gated).  Before the auto leg a
+   twin takes the same first step with each leaf reduced by the route its
+   rung names (``quantized_ring_allreduce`` on the leaf alone; the raw
+   leaves, and the bf16 casts, each rung's in one flat
+   ``dist.all_reduce``, as the step packs them into one scheduler
+   bucket), its reduced gradients warming the ladder first (measured by
+   ``optimizer._note_auto_residual``); the auto leg's first update must
+   equal the twin's bit for bit, its first loss the fp32 leg's, and
+   every rank hold one plan.  The auto leg's P4/P5 launches are the
+   kernels line's ``launches_auto``.  Then its reduction alone, timed on
+   the last step's gradients: the per-leaf int8 rings, the same leaves
+   through the static int8 leg's bucketed rings, and the fused rest.
+   Then ``DistributedOptimizer(eager=True, overlap=True)`` raw and with
+   ``compression="auto"``, 5 steps each: the residual reports ride the
+   request frames, every rank sees the same ``wire_dtype`` on each
+   response (counted by wire dtype), and, NCCL moving the buckets raw,
+   the auto losses equal the raw ones bit for bit.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -4431,6 +4475,501 @@ def phase_profiler(depth: int):
     print(f"profiler: phase {time.perf_counter() - t_start:.1f} s")
 
 
+# ------------------------------------------------- the precision autopilot
+
+# Phases 33-34 arm the autopilot with HOROVOD_TPU_PRECISION_TICKS=2: each
+# eligible leaf gets AUTO_REPORTS healthy reports, two rungs (fp32 ->
+# bf16 -> int8), as bench.py's _injit_auto_leg feeds it.  AUTO_SPIKE is
+# far above HOROVOD_TPU_PRECISION_THRESHOLD's default 0.05: one such
+# report demotes its bucket to fp32.
+AUTO_TICKS, AUTO_REPORTS, AUTO_SPIKE = 2, 4, 0.9
+AUTO_RANKS = 4
+
+
+@contextlib.contextmanager
+def _autopilot():
+    """Within the block, ``HOROVOD_TPU_PRECISION=auto`` with
+    ``AUTO_TICKS`` and a fresh process-local autopilot (yielded)."""
+    from horovod_tpu_torch import precision
+    os.environ.update(HOROVOD_TPU_PRECISION="auto",
+                      HOROVOD_TPU_PRECISION_TICKS=str(AUTO_TICKS))
+    precision.reset_autopilot()
+    try:
+        yield precision.get_autopilot()
+    finally:
+        for knob in ("HOROVOD_TPU_PRECISION", "HOROVOD_TPU_PRECISION_TICKS"):
+            os.environ.pop(knob, None)
+        precision.reset_autopilot()
+
+
+def _auto_leaves(model):
+    """(bucket name, parameter) of every trainable parameter, named as
+    ``make_train_step(compression="auto")`` names them, and the names of
+    the f32 int8-eligible ones (the leaves whose residual is measured)."""
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    from horovod_tpu_torch.spmd import bucket_names
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    leaves = list(zip(bucket_names([n for n, _ in named]),
+                      [p for _, p in named]))
+    eligible = [n for n, p in leaves if p.dtype == torch.float32
+                and qc.int8_eligible(p.shape, p.dtype)]
+    return leaves, eligible
+
+
+def _plain_residual(g) -> float:
+    """The int8-grid residual ``||g - Q(g)|| / ||g||`` of one f32 leaf, Q
+    on the plain codec (no kernel launch), as
+    ``optimizer._note_auto_residual`` measures it on P4 and P5."""
+    g = g.reshape(-1)
+    denom = float(torch.linalg.vector_norm(g))
+    if denom <= 0.0:
+        return 0.0
+    return float(torch.linalg.vector_norm(g - _snap_plain(g))) / denom
+
+
+def _uncounted(fn):
+    """``fn()`` with the kernels' launch counts left as they were: for
+    launches that compare a kernel with its plain version."""
+    from horovod_tpu_torch.ops import _cuda
+    saved = dict(_cuda.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        _cuda.LAUNCHES.update(saved)
+
+
+def _feed_ladder(eligible, grads, twin, label) -> int:
+    """``AUTO_REPORTS`` residual reports of each eligible leaf's gradient
+    (``grads[name]``): the autopilot's measured by the port
+    (``optimizer._note_auto_residual``, one P4 and one P5 launch through
+    ``snap_to_grid``), its ``policy.FleetPolicy`` twin's on the plain
+    codec.  Each leaf's ``snap_to_grid`` is held against the plain codec
+    bit for bit, outside the launch counts.  The number of port
+    measurements."""
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    from horovod_tpu_torch.optimizer import _note_auto_residual
+    measured = 0
+    for name in eligible:
+        g = grads[name].reshape(-1)
+        _check(_uncounted(lambda: _bits_equal(qc.snap_to_grid(g),
+                                              _snap_plain(g))),
+               f"{label} {name}: snap_to_grid on P4/P5 differs from the "
+               "plain codec")
+        rel = _plain_residual(g)
+        for _ in range(AUTO_REPORTS):
+            _note_auto_residual(name, grads[name])
+            twin.observe_precision(name, rel)
+            measured += 1
+    return measured
+
+
+def _by_wire(route) -> dict:
+    out = {}
+    for wire in route:
+        key = wire or "fp32"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def phase_train_auto(depth: int, plain: dict) -> dict:
+    """Phase 33: the headline step through ``make_train_step(compression=
+    "auto")`` under ``HOROVOD_TPU_PRECISION=auto``; the ladder warmed
+    from the first step's gradients, a residual spike at the end.  At
+    world size 1 the step reduces nothing, so this phase holds the
+    ladder, the route and its rebuilds; the P4/P5 launches it counts are
+    the port's residual measurements, and phase 34 holds the reduction."""
+    from horovod_tpu_torch import policy
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.spmd import make_train_step
+    label = "train auto"
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2 ** 30
+    with _autopilot() as pilot:
+        twin = policy.FleetPolicy()
+        model, tokens, loss_fn = _train_setup(depth)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, loss_fn, opt, compression="auto")
+        leaves, eligible = _auto_leaves(model)
+        _check(len(eligible) == 3 + 4 * depth,
+               f"{label}: {len(eligible)} eligible f32 leaves, expected "
+               f"{3 + 4 * depth}")
+        losses, times = [], []
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            loss = step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        timed(tokens)                        # warm-up 1, on the fp32 plan
+        grads = {n: p.grad for n, p in leaves}
+        measured = _feed_ladder(eligible, grads, twin, label)
+        del grads
+        warm = {n: pilot.level_for(n) for n, _ in leaves}
+        for _ in range(WARMUP + TIMED - 1):
+            timed(tokens)
+        launches = dict(_cuda.LAUNCHES)
+        route = dict(step.route)
+        rebuilds, version = step.rebuilds, pilot.plan_version
+        promotions, demotions = pilot.promotions, pilot.demotions
+        mismatched = [n for n, _ in leaves
+                      if pilot.level_for(n) != twin.precision_level(n)
+                      or route[n] != twin.precision_wire(n)]
+        # The spike: one report far over the threshold demotes the leaf
+        # on that report; the next call rebuilds its route.
+        spiked = eligible[0]
+        level_before = pilot.level_for(spiked)
+        pilot.note_residual(spiked, AUTO_SPIKE)
+        twin.observe_precision(spiked, AUTO_SPIKE)
+        level_after = pilot.level_for(spiked)
+        step(tokens)
+        torch.cuda.synchronize()
+        spike = {"leaf": spiked, "level": (level_before, level_after),
+                 "demotions": pilot.demotions - demotions,
+                 "rebuilt": step.rebuilds - rebuilds,
+                 "wire": step.route[spiked],
+                 "twin_level": twin.precision_level(spiked)}
+    step_s = statistics.median(times[WARMUP:])
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = WARMUP + TIMED
+    per = {k: launches[k] / measured for k in ("int8_quantize",
+                                               "int8_dequantize")}
+    print(f"{label}: depth {depth}, make_train_step(compression='auto'), "
+          f"HOROVOD_TPU_PRECISION=auto, TICKS {AUTO_TICKS}; losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + " (phase 7: " + ", ".join(f"{x:.4f}" for x in plain["losses"])
+          + ")")
+    print(f"{label}: buckets by wire {_by_wire(route.values())} of "
+          f"{len(route)}; promotions {promotions}, demotions {demotions}, "
+          f"rebuilds {rebuilds}, plan_version {version}; {measured} "
+          f"residual measurements ({AUTO_REPORTS} of each of "
+          f"{len(eligible)} eligible f32 leaves), P4/P5 launches a "
+          f"measurement {per}")
+    print(f"{label}: step {step_s * 1e3:.1f} ms against "
+          f"{plain['step_s'] * 1e3:.1f} ms (phase 7; median of {TIMED}; "
+          f"all " + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms), "
+          f"{BATCH * SEQ / step_s:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GiB ({held_gb:.2f} of it held by earlier "
+          f"phases) against {plain['peak_gb']:.2f}, launches {launches}")
+    print(f"{label}: spike {AUTO_SPIKE} on {spike['leaf']}: level "
+          f"{spike['level'][0]} -> {spike['level'][1]} (twin "
+          f"{spike['twin_level']}), demotions +{spike['demotions']}, next "
+          f"call rebuilt {spike['rebuilt']} time(s), its wire "
+          f"{spike['wire'] or 'fp32'}; {_clocks()}")
+    _check(not mismatched, f"{label}: rungs differ from the FleetPolicy "
+           f"twin's: {mismatched[:5]}")
+    _check(1 not in warm.values(),
+           f"{label}: a leaf stands at bf16 for the timed steps")
+    _check(losses == plain["losses"],
+           f"{label}: losses {losses} differ from phase 7's "
+           f"{plain['losses']}")
+    _check(rebuilds == 2 and version == promotions,
+           f"{label}: rebuilds {rebuilds}, plan_version {version}, "
+           f"promotions {promotions}")
+    for name in FLASH:
+        _check(launches[name] == depth * steps,
+               f"{label}: {name} launched {launches[name]} times, expected "
+               f"{depth * steps}")
+    for name in ("int8_quantize", "int8_dequantize"):
+        _check(launches[name] == measured,
+               f"{label}: {name} launched {launches[name]} times, expected "
+               f"one a measurement ({measured})")
+    _check(spike["level"][1] == 0 and spike["twin_level"] == 0
+           and spike["demotions"] == 1 and spike["rebuilt"] == 1
+           and spike["wire"] == "",
+           f"{label}: the spike did not demote and rebuild: {spike}")
+    del model, opt, step
+    return {"launches": launches, "losses": losses, "step_s": step_s,
+            "measured": measured, "route": route}
+
+
+def _auto_reduce_ms(grads, route) -> dict:
+    """The auto leg's reduction alone on ``grads``, ms (median of the last
+    3 of 4): the int8 leaves through ``_reduce_auto``'s per-leaf rings and
+    through the static int8 leg's bucketed rings, the other leaves
+    through its fused casts, and the whole."""
+    import torch.distributed as dist
+    from horovod_tpu_torch import scheduler, spmd
+    from horovod_tpu_torch.ops import quantized_collectives as qc
+    ring = [i for i, (g, w) in enumerate(zip(grads, route))
+            if w == "int8" and qc.int8_eligible(g.shape, g.dtype)]
+    rest = [i for i in range(len(grads)) if i not in set(ring)]
+
+    def auto(idx):
+        return lambda: spmd._reduce_auto(
+            [grads[i] for i in idx], [route[i] for i in idx], average=True,
+            fuse=True, bucket_bytes=scheduler.bucket_bytes_from_env(),
+            overlap=False, group=None, mesh=None)
+
+    def timed(fn):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return round(statistics.median(times[1:]) * 1e3, 2)
+
+    return {"int8 per leaf": timed(auto(ring)),
+            "int8 bucketed": timed(lambda: spmd.reduce_gradients(
+                [grads[i] for i in ring], compression="int8")),
+            "rest fused": timed(auto(rest)),
+            "whole": timed(auto(range(len(grads)))),
+            "leaves": {"int8": len(ring), "rest": len(rest)}}
+
+
+def _auto_nccl_worker(rank: int, port: int, results) -> None:
+    """Phase 34 on one of four cards: the headline model on this rank's
+    own batch through the static wires and "auto", the auto leg's first
+    update against its per-leaf twin, then the eager route under
+    "auto" against the raw eager route."""
+    try:
+        os.environ.update({
+            "HOROVOD_TPU_SIZE": str(AUTO_RANKS),
+            "HOROVOD_TPU_RANK": str(rank), "HOROVOD_TPU_LOCAL_SIZE": "1",
+            "HOROVOD_TPU_COORD_ADDR": f"127.0.0.1:{port + 1}",
+            "HOROVOD_TPU_PRECISION": "auto",
+            "HOROVOD_TPU_PRECISION_TICKS": str(AUTO_TICKS)})
+        os.environ.pop("HOROVOD_TPU_LOCAL_RANK", None)
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import basics, policy, precision, scheduler
+        from horovod_tpu_torch import spmd
+        from horovod_tpu_torch.core import ResponseType
+        from horovod_tpu_torch.ops import _cuda, injit
+        from horovod_tpu_torch.ops import quantized_collectives as qc
+        from horovod_tpu_torch.spmd import make_train_step
+        hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40 + rank)
+        tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                               device=dev)
+        out = {"device": dev.index}
+        pilot = precision.get_autopilot()
+
+        def run(step, n, after_first=None):
+            losses, times = [], []
+            for i in range(n):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                loss = step(tokens)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+                if i == 0 and after_first is not None:
+                    after_first()
+            return {"losses": losses, "times_ms": [t * 1e3 for t in times],
+                    "step_ms": statistics.median(times[2:]) * 1e3}
+
+        for wire in ("fp32", "bf16", "int8"):
+            _free()
+            model, _, loss_fn = _train_setup(DEPTH)
+            sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            step = make_train_step(model, loss_fn, sgd,
+                                   compression="none" if wire == "fp32"
+                                   else wire)
+            out[wire] = run(step, 5)
+            del model, sgd, step
+        # The auto leg's twin: the same first step, each leaf reduced by
+        # the route its rung names through the port's per-leaf functions.
+        # Its gradients warm the ladder first: the residual of each
+        # eligible leaf's reduced (rank-equal) gradient.
+        _free()
+        twin_model, _, loss_fn = _train_setup(DEPTH)
+        twin_sgd = torch.optim.SGD(twin_model.parameters(), lr=0.01,
+                                   momentum=0.9)
+        loss_fn(twin_model, tokens).backward()
+        leaves, eligible = _auto_leaves(twin_model)
+        fleet = policy.FleetPolicy()
+        _cuda.reset_launches()
+        reduced = {n: injit.allreduce(p.grad, average=True)
+                   for n, p in leaves if n in eligible}
+        measured = _feed_ladder(eligible, reduced, fleet,
+                                f"auto nccl rank {rank}")
+        del reduced
+        codec = {k: _cuda.LAUNCHES[k] for k in ("int8_quantize",
+                                                "int8_dequantize")}
+        route = {n: pilot.wire_dtype_for(n) for n, _ in leaves}
+        casts = {}
+        with torch.no_grad():
+            for n, p in leaves:
+                g, wire = p.grad, route[n]
+                if wire == "int8" and qc.int8_eligible(g.shape, g.dtype):
+                    p.grad = qc.quantized_ring_allreduce(
+                        g.reshape(-1).to(torch.float32), average=True
+                    ).reshape(g.shape).to(g.dtype)
+                else:
+                    dtype = torch.bfloat16 if wire == "bf16" else g.dtype
+                    casts.setdefault(dtype, []).append(p)
+            # The other leaves, each cast dtype's in one flat all-reduce
+            # in parameter order: the scheduler's one bucket for them.
+            for dtype, ps in casts.items():
+                flat = torch.cat([p.grad.reshape(-1).to(dtype) for p in ps])
+                _check(flat.numel() * flat.element_size()
+                       <= scheduler.bucket_bytes_from_env(),
+                       f"auto nccl rank {rank}: the {dtype} casts fill more "
+                       "than one bucket")
+                dist.all_reduce(flat)
+                flat.div_(AUTO_RANKS)
+                off = 0
+                for p in ps:
+                    k = p.grad.numel()
+                    p.grad = flat[off:off + k].view(p.grad.shape).to(
+                        p.grad.dtype)
+                    off += k
+        twin_sgd.step()
+        _free()
+        model, _, loss_fn = _train_setup(DEPTH)
+        sgd = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, loss_fn, sgd, compression="auto")
+        first = {}
+
+        def compare():
+            first["same"] = all(
+                _bits_equal(a.detach(), b.detach()) for a, b in
+                zip(model.parameters(), twin_model.parameters()))
+
+        _cuda.reset_launches()
+        auto = run(step, 5, compare)
+        auto["launches"] = dict(_cuda.LAUNCHES)
+        del twin_model, twin_sgd
+        auto["reduce_ms"] = _auto_reduce_ms(
+            [p.grad.detach().clone() for p in model.parameters()
+             if p.requires_grad], [step.route[n] for n, _ in leaves])
+        plans = [None] * AUTO_RANKS
+        dist.all_gather_object(plans, step.route)
+        out["auto"] = dict(
+            auto, first_update_same=first["same"],
+            plan_same=all(pl == plans[0] for pl in plans),
+            buckets_by_wire=_by_wire(step.route.values()),
+            rebuilds=step.rebuilds, promotions=pilot.promotions,
+            demotions=pilot.demotions, plan_version=pilot.plan_version,
+            rungs_match=all(pilot.level_for(n) == fleet.precision_level(n)
+                            for n, _ in leaves),
+            measured=measured, codec_launches=codec)
+        del model, sgd, step
+        # The eager route with overlap, raw and then under "auto": the
+        # residual reports ride the request frames, the coordinator stamps
+        # each response, and NCCL moves the buckets raw all the same.
+        ex = basics.controller()._executor
+        plain_execute = ex.execute
+        for label, comp in (("eager raw", "none"), ("eager auto", "auto")):
+            _free()
+            model, _, loss_fn = _train_setup(DEPTH)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                eager=True, overlap=True, compression=comp)
+            seen = []
+
+            def execute(resp, entries, seen=seen):
+                if resp.response_type == ResponseType.ALLREDUCE:
+                    seen.append((tuple(resp.tensor_names), resp.wire_dtype))
+                return plain_execute(resp, entries)
+
+            ex.execute = execute
+
+            def eager_step(batch, opt=opt, model=model):
+                opt.zero_grad()
+                loss = loss_fn(model, batch)
+                loss.backward()
+                opt.step()
+                return injit.allreduce(loss.detach(), average=True)
+
+            _cuda.reset_launches()
+            run_ = run(eager_step, 5)
+            ex.execute = plain_execute
+            views = [None] * AUTO_RANKS
+            dist.all_gather_object(views, seen)
+            out[label] = dict(run_, responses=_by_wire(w for _, w in seen),
+                              stamps_same=all(v == views[0] for v in views),
+                              launches=dict(_cuda.LAUNCHES))
+            del model, opt, eager_step
+        torch.cuda.synchronize()
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def phase_auto_nccl():
+    """Phase 34: the precision autopilot on four cards (only with four or
+    more; otherwise a line says it did not run)."""
+    if torch.cuda.device_count() < AUTO_RANKS:
+        print("auto nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    got = _spawn(_auto_nccl_worker, AUTO_RANKS, timeout=900)
+    _check(all(isinstance(got.get(r), dict) for r in range(AUTO_RANKS)),
+           f"auto nccl failed: {got}")
+    flops = _model_flops(DEPTH)
+    for r in range(AUTO_RANKS):
+        o = got[r]
+        for leg in ("fp32", "bf16", "int8", "auto", "eager raw",
+                    "eager auto"):
+            run = o[leg]
+            step_s = run["step_ms"] / 1e3
+            extra = ""
+            if leg == "auto":
+                extra = (f"; buckets by wire {run['buckets_by_wire']}, "
+                         f"promotions {run['promotions']}, demotions "
+                         f"{run['demotions']}, rebuilds {run['rebuilds']}, "
+                         f"plan_version {run['plan_version']}, "
+                         f"{run['measured']} measurements, codec launches "
+                         f"{run['codec_launches']}; first update vs the "
+                         f"per-leaf twin bit-identical "
+                         f"{run['first_update_same']}; one plan on every "
+                         f"rank {run['plan_same']}; launches "
+                         f"{run['launches']}; the reduction alone, ms "
+                         f"{run['reduce_ms']}")
+            elif leg.startswith("eager"):
+                extra = (f"; responses by wire dtype {run['responses']}, "
+                         f"the same stamps on every rank "
+                         f"{run['stamps_same']}; launches {run['launches']}")
+            print(f"auto nccl rank {r} (cuda:{o['device']}), {leg}: step "
+                  f"{run['step_ms']:.1f} ms (median of 3; all "
+                  f"{[round(t, 1) for t in run['times_ms']]}), "
+                  f"{BATCH * SEQ / step_s:.0f} tokens/s/GPU, MFU "
+                  f"{flops / step_s / PEAK_BF16_FLOPS:.3f}, losses "
+                  f"{[round(x, 5) for x in run['losses']]}{extra}")
+        a = o["auto"]
+        _check(a["first_update_same"], f"rank {r}: the auto leg's first "
+               "update differs from its per-leaf twin's")
+        _check(min(a["launches"][k] for k in ("int8_quantize",
+                                              "int8_dequantize")) > 0,
+               f"rank {r}: the auto leg launched no P4/P5: "
+               f"{a['launches']}")
+        _check(a["losses"][0] == o["fp32"]["losses"][0],
+               f"rank {r}: auto first loss {a['losses'][0]} vs fp32 "
+               f"{o['fp32']['losses'][0]}")
+        _check(a["plan_same"] and a["rungs_match"],
+               f"rank {r}: plan not the same on every rank, or rungs "
+               "differ from the FleetPolicy twin's")
+        _check(all(math.isfinite(x) for leg in ("fp32", "bf16", "int8",
+                                                "auto")
+                   for x in o[leg]["losses"]), f"rank {r}: non-finite loss")
+        _check(o["eager auto"]["losses"] == o["eager raw"]["losses"],
+               f"rank {r}: eager auto losses {o['eager auto']['losses']} "
+               f"differ from the raw eager route's "
+               f"{o['eager raw']['losses']}")
+        _check(o["eager auto"]["stamps_same"] and o["eager raw"][
+            "stamps_same"], f"rank {r}: ranks saw different wire stamps")
+        _check(o["eager auto"]["launches"]["int8_quantize"] > 0,
+               f"rank {r}: the eager auto route measured no residual")
+    best = min(got[0][w]["step_ms"] for w in ("fp32", "bf16", "int8"))
+    print(f"auto nccl: auto_vs_best_static "
+          f"{got[0]['auto']['step_ms'] / best:.4f} (rank 0: auto "
+          f"{got[0]['auto']['step_ms']:.1f} ms, best static {best:.1f} ms; "
+          "printed, not gated)")
+    return got
+
+
 # Every TPU kernel of the JAX package (each function that reaches
 # pl.pallas_call), in PERF.md's order, with the port kernel that replaces
 # it.
@@ -4483,12 +5022,17 @@ def main() -> None:
     _free()
     par = phase_parallel_nccl()
     _free()
-    # Phases 27-28 also run while this process holds little on card 0:
-    # phase 27 keeps two full-width training states there, and rank 0 of
-    # phase 28's job shares the card.
+    # Phases 27-28 and 34 also run while this process holds little on
+    # card 0: phase 27 keeps two full-width training states there, and
+    # rank 0 of phase 28's and phase 34's jobs shares the card (run last,
+    # after this process held ~19 GiB there, phase 34's int8 and auto
+    # legs took 454 and 687 ms a step against 255 and 300 alone; four
+    # H100 80GB HBM3 at 700.00 W).
     phase_checkpoint(DEPTH)
     _free()
     phase_elastic_nccl()
+    _free()
+    auto_nccl = phase_auto_nccl()
     _free()
     f32_launches = phase_models_f32()
     _free()
@@ -4525,6 +5069,8 @@ def main() -> None:
     phase_eager_train_nccl()
     _free()
     phase_profiler(DEPTH)
+    _free()
+    phase_train_auto(DEPTH, plain)
     t, e = k["times"], k["errs"]
     flash = {
         "flash_fwd": (t["fwd"], t["fwd_plain"], e["o"], t["sdpa_fwd"],
@@ -4561,10 +5107,16 @@ def main() -> None:
             lib = codec["times"]["int8_dequantize_library"]
             call = "torch.mul (int8 x f32 promotion)"
         flops, nbytes = codec["work"][name]
-        rows.append(_kernel_row(
+        rows.append(dict(_kernel_row(
             name, rep, SOURCES[name], int8["launches"][name], codec["err"],
             codec["times"][name], codec["times"][name + "_plain"], flops,
-            nbytes, lib, call, usage[name], peak_flops=PEAK_F32_FLOPS))
+            nbytes, lib, call, usage[name], peak_flops=PEAK_F32_FLOPS),
+            # Under "auto", phase 34's auto leg and its eager route
+            # (rank 0, 5 steps; null on fewer than four cards).
+            launches_auto=(auto_nccl[0]["auto"]["launches"][name]
+                           if auto_nccl else None),
+            launches_auto_eager=(auto_nccl[0]["eager auto"]["launches"][name]
+                                 if auto_nccl else None)))
     # The general family: the same TPU kernels, for the inputs P1-P3 do
     # not take; timed in f32 at the training shape, launched by the f32
     # models.

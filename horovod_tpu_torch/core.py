@@ -28,8 +28,12 @@ TCP control plane (``HOROVOD_TPU_COORD_ADDR``).  Elastic membership
 the seat it is admitted to, and a RECONFIGURE re-ranks the controller,
 rebuilds the world group of the CUDA data plane
 (:func:`horovod_tpu_torch.basics._rebuild_world`) and completes every
-in-flight entry RETRYABLE.  Non-default process sets and the precision
-autopilot's frame extension are not ported yet: they raise
+in-flight entry RETRYABLE.  Under the precision autopilot
+(``HOROVOD_TPU_PRECISION=auto``) each request frame carries the residual
+reports queued since the last tick (``FLAG_PRECISION_EXT``), and the
+coordinator's stamped ``wire_dtype`` reaches the host data plane through
+the response.  Non-default process sets and the fleet policy's eviction
+and autoscaling are not ported yet: their knobs raise
 ``NotImplementedError`` (ROADMAP Queue 1).
 """
 
@@ -1061,6 +1065,21 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
         f"horovod_tpu_torch: {what} is not ported yet (ROADMAP {where})")
 
 
+def _refuse_fleet_actuators() -> None:
+    """The fleet policy's straggler eviction and autoscaling are not wired
+    into this controller: refuse the knobs that arm them (the native
+    coordinator would otherwise act on them on its own).  The precision
+    ladder, the policy's third actuator, is wired."""
+    from horovod_tpu_torch import policy
+    pol = policy.FleetPolicy()
+    if pol.evict_enabled():
+        raise _not_ported("straggler eviction "
+                          "(HOROVOD_TPU_EVICT_THRESHOLD)", "Queue 1 item 3")
+    if pol.autoscale_enabled():
+        raise _not_ported("scripted autoscaling (HOROVOD_TPU_AUTOSCALE, "
+                          "HOROVOD_TPU_AUTOSCALE_FILE)", "Queue 1 item 3")
+
+
 class Controller:
     """Per-process background controller.
 
@@ -1091,10 +1110,7 @@ class Controller:
         for knob, what, where in _UNPORTED_KNOBS:
             if env_flag(knob):
                 raise _not_ported(f"{what} ({knob})", where)
-        if os.environ.get("HOROVOD_TPU_PRECISION", "").strip() == "auto":
-            raise _not_ported("the precision autopilot "
-                              "(HOROVOD_TPU_PRECISION=auto)",
-                              "Queue 1 item 3")
+        _refuse_fleet_actuators()
 
         # Fail fast on malformed fault specs: the native core parses the
         # same variable leniently (warn + ignore), which would make a typo'd
@@ -1537,9 +1553,22 @@ class Controller:
                 names += f",+{len(pending) - 4}"
             cpp_core.flight_record("negotiate.pending", names,
                                    0, len(pending))
+        precision_ext = None
+        if not shutting:
+            # Adaptive-precision autopilot: piggyback the residual-norm
+            # reports measured since the last tick onto this request frame
+            # (FLAG_PRECISION_EXT).  Off (the default) contributes no
+            # bytes: frames stay byte-identical.
+            from horovod_tpu_torch import precision as _precision
+            pilot = _precision.get_autopilot()
+            if pilot.enabled:
+                reports = pilot.drain_reports()
+                if reports:
+                    precision_ext = wire.RequestPrecisionExt(reports=reports)
         blob = wire.serialize_request_list(
             pending, shutdown=shutting,
-            abort_rank=abort_rank, abort_reason=abort_reason)
+            abort_rank=abort_rank, abort_reason=abort_reason,
+            precision_ext=precision_ext)
         resp_blob = self._control.tick(blob, self.fusion_threshold)
         (responses, remote_shutdown, abort, _cache_ext,
          elastic_ext) = wire.parse_response_list_elastic(resp_blob)

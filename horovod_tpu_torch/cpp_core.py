@@ -7,8 +7,9 @@ recorder hooks, :class:`CppMessageTable` (:515), :func:`cpp_plan_fusion`
 :class:`CppControlPlane` (:1202), :class:`CppTimeline` (:1383), the metrics
 snapshot, CRC32C and the request-list round trip the tests hold frames
 with; :class:`NativeBucketPlanner` (:644) and the observatory bindings
-(:1086-1135).  The fleet policy, the process-set table and the precision
-bindings are not ported yet (ROADMAP).
+(:1086-1135); the fleet policy's bindings (:275-337) and
+:class:`NativeFleetPolicy` (:705) with its precision ladder (:787-835).
+The process-set table is not ported yet (ROADMAP Queue 1 item 3).
 
 The library is the reference's own C++ core, built by the reference's
 Makefile into a path this package owns::
@@ -210,6 +211,34 @@ def _configure(lib) -> None:
     lib.htpu_observe_snapshot.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
     lib.htpu_observe_reset.restype = None
     lib.htpu_observe_reset.argtypes = []
+    # The fleet policy (htpu::FleetPolicy): straggler state, per-set
+    # state and the precision ladder.
+    vp, ci, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    counts = ctypes.POINTER(ctypes.c_longlong)
+    for fn, res, args in (
+            ("create", vp, []),
+            ("destroy", None, [vp]),
+            ("active", ci, [vp]),
+            ("observe", None, [vp, ctypes.c_int64, ctypes.POINTER(dbl), ci]),
+            ("next_eviction", ci, [vp, ci, ci]),
+            ("rerank", None, [vp, ctypes.POINTER(ci), ci]),
+            ("autoscale_target", ci, [vp, ctypes.c_int64]),
+            ("ewma", dbl, [vp, ci]),
+            ("consecutive_slow", ci, [vp, ci]),
+            ("observe_set", None, [vp, ci, ctypes.POINTER(dbl), ci]),
+            ("ewma_set", dbl, [vp, ci, ci]),
+            ("consecutive_slow_set", ci, [vp, ci, ci]),
+            ("next_eviction_set", ci, [vp, ci, ci, ci]),
+            ("precision_auto", ci, [vp]),
+            ("precision_observe", None, [vp, ctypes.c_char_p, dbl]),
+            ("precision_bandwidth", None, [vp, dbl]),
+            ("precision_level", ci, [vp, ctypes.c_char_p]),
+            ("precision_ewma", dbl, [vp, ctypes.c_char_p]),
+            ("precision_counts", None, [vp, counts]),
+            ("precision_dirty", ci, [vp])):
+        f = getattr(lib, f"htpu_policy_{fn}")
+        f.restype = res
+        f.argtypes = args
 
 
 def _make() -> None:
@@ -472,6 +501,123 @@ class NativeBucketPlanner:
 
     def reset(self) -> None:
         self._lib.htpu_sched_reset(self._ptr)
+
+
+# ------------------------------------------------------------ fleet policy
+
+class NativeFleetPolicy:
+    """ctypes wrapper over the C++ fleet-policy decision engine
+    (reference ``cpp_core.py:705-835``): the decision surface of the
+    pure-Python :class:`horovod_tpu_torch.policy.FleetPolicy` --
+    straggler eviction, re-rank and autoscale, per-set state and the
+    precision ladder -- for parity tests and offline replay.  The in-job
+    policy lives inside the native ControlPlane itself, which creates it
+    from the same environment knobs."""
+
+    def __init__(self):
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native fleet policy not available")
+        self._lib = lib
+        self._ptr = lib.htpu_policy_create()
+
+    def close(self) -> None:
+        if self._ptr:
+            self._lib.htpu_policy_destroy(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # noqa: BLE001 -- interpreter teardown
+            pass
+
+    def active(self) -> bool:
+        return bool(self._lib.htpu_policy_active(self._ptr))
+
+    def observe_tick(self, tick: int, wait_s) -> None:
+        n = len(wait_s)
+        arr = (ctypes.c_double * n)(*[float(w) for w in wait_s])
+        self._lib.htpu_policy_observe(self._ptr, int(tick), arr, n)
+
+    def next_eviction(self, process_count: int, seat_available: bool) -> int:
+        return self._lib.htpu_policy_next_eviction(
+            self._ptr, int(process_count), 1 if seat_available else 0)
+
+    def rerank_order(self, old_pidx):
+        n = len(old_pidx)
+        arr = (ctypes.c_int * n)(*[int(p) for p in old_pidx])
+        self._lib.htpu_policy_rerank(self._ptr, arr, n)
+        return list(arr)
+
+    def autoscale_target(self, tick: int) -> int:
+        return self._lib.htpu_policy_autoscale_target(self._ptr, int(tick))
+
+    def ewma(self, proc: int) -> float:
+        return float(self._lib.htpu_policy_ewma(self._ptr, int(proc)))
+
+    def consecutive_slow(self, proc: int) -> int:
+        return self._lib.htpu_policy_consecutive_slow(self._ptr, int(proc))
+
+    def observe_tick_set(self, process_set: int, wait_s) -> None:
+        n = len(wait_s)
+        arr = (ctypes.c_double * n)(*[float(w) for w in wait_s])
+        self._lib.htpu_policy_observe_set(self._ptr, int(process_set), arr, n)
+
+    def ewma_set(self, process_set: int, proc: int) -> float:
+        return float(self._lib.htpu_policy_ewma_set(
+            self._ptr, int(process_set), int(proc)))
+
+    def consecutive_slow_set(self, process_set: int, proc: int) -> int:
+        return self._lib.htpu_policy_consecutive_slow_set(
+            self._ptr, int(process_set), int(proc))
+
+    def next_eviction_set(self, process_set: int, process_count: int,
+                          seat_available: bool) -> int:
+        return self._lib.htpu_policy_next_eviction_set(
+            self._ptr, int(process_set), int(process_count),
+            1 if seat_available else 0)
+
+    # -- the precision ladder
+
+    def precision_auto(self) -> bool:
+        return bool(self._lib.htpu_policy_precision_auto(self._ptr))
+
+    def observe_precision(self, name: str, residual_norm: float) -> None:
+        self._lib.htpu_policy_precision_observe(
+            self._ptr, name.encode(), float(residual_norm))
+
+    def note_precision_bandwidth(self, min_leg_bps: float) -> None:
+        self._lib.htpu_policy_precision_bandwidth(self._ptr,
+                                                  float(min_leg_bps))
+
+    def precision_level(self, name: str) -> int:
+        return self._lib.htpu_policy_precision_level(self._ptr,
+                                                     name.encode())
+
+    def precision_wire(self, name: str) -> str:
+        from horovod_tpu_torch.policy import PRECISION_WIRE
+        return PRECISION_WIRE[self.precision_level(name)]
+
+    def precision_ewma(self, name: str) -> float:
+        return float(self._lib.htpu_policy_precision_ewma(self._ptr,
+                                                          name.encode()))
+
+    def _precision_counts(self):
+        counts = (ctypes.c_longlong * 2)()
+        self._lib.htpu_policy_precision_counts(self._ptr, counts)
+        return int(counts[0]), int(counts[1])
+
+    @property
+    def precision_promotions(self) -> int:
+        return self._precision_counts()[0]
+
+    @property
+    def precision_demotions(self) -> int:
+        return self._precision_counts()[1]
+
+    def take_precision_dirty(self) -> bool:
+        return bool(self._lib.htpu_policy_precision_dirty(self._ptr))
 
 
 # ------------------------------------------------------------ observatory

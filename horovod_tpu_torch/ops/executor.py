@@ -25,7 +25,9 @@ buffer, the reference's ``_mesh_allreduce`` :523, ``_mesh_allgather`` :633
 and ``_mesh_broadcast`` :681 -- and host tensors ride the native TCP ring
 of the control plane with the negotiated wire dtype and algorithm
 (``_tcp_allreduce`` :565), as the reference's launcher-spawned processes
-do.  Results come back on the input's device.
+do.  The NCCL route moves CUDA tensors raw and ignores a response's wire
+dtype, the precision autopilot's stamp included, as the reference's mesh
+route does (:587).  Results come back on the input's device.
 
 CUDA work runs on the background thread, on the default stream of this
 process's device: it follows everything the framework thread queued there
@@ -252,23 +254,26 @@ class DistributedExecutor(Executor):
             self._end(entries)
         else:
             buf = self._tcp_allreduce(entries, like.dtype,
-                                      getattr(response, "algo", ""))
+                                      getattr(response, "algo", ""),
+                                      response.wire_dtype)
         self._span(entries, "MEMCPY_OUT_FUSION_BUFFER")
         _unpack(buf, entries, self.nranks, like.device)
         self._end(entries)
 
-    def _tcp_allreduce(self, entries, dtype, algo=""):
+    def _tcp_allreduce(self, entries, dtype, algo="", wire_dtype=""):
         """Host data plane: the fusion buffer staged on the host, then the
         coordinator-selected collective ("" = chunked TCP ring; "hier" =
         two-level hierarchical; "small" = latency-optimal small-tensor
         path) with the negotiated wire compression, which is uniform
         across the fused entries (the planner only merges matching wire
-        dtypes)."""
+        dtypes).  ``wire_dtype`` is the response's: the requests' own, or
+        the coordinator's stamp under the precision autopilot, which every
+        rank receives alike.  (The reference passes the entries' wire
+        dtype here, so its stamp never reaches the ring.)"""
         from horovod_tpu_torch.core import dtype_name
         from horovod_tpu_torch.timeline import wire_activity
         self._span(entries, "MEMCPY_IN_FUSION_BUFFER")
         buf = _sum_rows(_flat_rows(entries, dtype, torch.device("cpu")))
-        wire_dtype = getattr(entries[0], "wire_dtype", "")
         self._end(entries)
         # Span name carries the resolved algorithm so traces show which
         # data-plane path each fused payload took.

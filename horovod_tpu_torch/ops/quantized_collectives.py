@@ -26,8 +26,9 @@ ring does.
 Policy: only bulk gradients quantize.  1-D leaves and leaves under the size
 floor (``HOROVOD_TPU_INJIT_INT8_FLOOR`` f32 bytes, default 64 KiB) stay raw.
 ``HOROVOD_TPU_INJIT_WIRE_DTYPE`` fills in the wire where the caller left
-the default.  ``compression="auto"`` (the precision autopilot) is not
-ported and raises.
+the default.  ``compression="auto"`` (the precision autopilot,
+:mod:`horovod_tpu_torch.precision`) is no static compressor: it passes
+through unchanged, and each caller resolves it per leaf.
 """
 
 from __future__ import annotations
@@ -74,13 +75,13 @@ def resolve_injit_compression(compression):
     """Apply the ``HOROVOD_TPU_INJIT_WIRE_DTYPE`` override: the knob fills
     in the wire only where the call site left the default
     ``NoneCompressor``; an explicit ``compression=`` (a class or a wire
-    name, ``"none"`` included) wins.  ``"auto"`` raises
-    ``NotImplementedError``: the precision autopilot is not ported."""
+    name, ``"none"`` included) wins.  The ``"auto"`` marker of the
+    precision autopilot passes through unchanged: callers resolve it per
+    bucket through :mod:`horovod_tpu_torch.precision`."""
     from horovod_tpu_torch.compression import (
         NoneCompressor, canonical_wire_dtype, compressor_for_wire)
     if is_auto(compression):
-        raise NotImplementedError(
-            "compression='auto' (the precision autopilot) is not ported")
+        return compression
     if isinstance(compression, str):
         return compressor_for_wire(canonical_wire_dtype(
             compression.strip().lower(), source="compression"))

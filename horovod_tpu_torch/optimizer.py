@@ -44,8 +44,23 @@ under int8) adds its residual before the reduction (carry-in) and stores
 branches.  The residual is f32 and lives in the wrapped optimizer's
 ``state[p]["residual"]``, so ``state_dict()`` carries it.
 
-Not ported yet: ``compression="auto"`` (the precision autopilot) and the
-wire-plan metrics.
+``compression="auto"`` (with ``HOROVOD_TPU_PRECISION=auto``) hands the
+wire to the precision autopilot (:mod:`.precision`), as
+``jax/__init__.py:204-232, 259-273, 333-368`` do.  On the SPMD branch each
+leaf is reduced on the rung the process-local mirror names for its
+bucket, read when the leaf is reduced: ``f"{name_prefix}{keystr}"``, the
+keystr of the leaf's path in the tree handed to
+:func:`allreduce_gradients`, or for :func:`DistributedOptimizer` of the
+flax path of its parameter name (``named_parameters``; by position,
+``[i]``, without them; :func:`.spmd.flax_keystr`).  On the eager branch
+requests go out raw (``wire_dtype=""``); after each step the measured
+int8-grid residual ``||g - Q(g)|| / ||g||`` of every reduced f32 leaf
+that is int8-eligible (of every bucket under overlap, with the size floor
+only) is queued for the next request frame, named as the request
+(``f"{name_prefix}.{i}"``, ``f"{name_prefix}.bucket{b}"``), and the
+coordinator's stamped wire dtype applies on the host ring (NCCL moves
+CUDA tensors raw).  ``error_feedback`` is a no-op under ``"auto"``: no
+residual is kept.  The wire-plan metrics are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,14 +75,16 @@ from torch.utils import _pytree as pytree
 
 from horovod_tpu_torch import basics
 from horovod_tpu_torch import observe as _observe
+from horovod_tpu_torch import precision as _precision
 from horovod_tpu_torch import scheduler as _sched
 from horovod_tpu_torch import sparse as _sparse
-from horovod_tpu_torch.compression import NoneCompressor
+from horovod_tpu_torch.compression import NoneCompressor, compressor_for_wire
 from horovod_tpu_torch.metrics import registry as _metrics
 from horovod_tpu_torch.ops import eager as _eager
 from horovod_tpu_torch.ops import injit as _injit
 from horovod_tpu_torch.ops import quantized_collectives as _qc
 from horovod_tpu_torch.spmd import _check_compression as _resolve
+from horovod_tpu_torch.spmd import flax_keystr
 
 DEFAULT_NAME_PREFIX = "DistributedOptimizer.grads"
 
@@ -99,10 +116,15 @@ def _as_leaf(g, sparse_as_dense: bool):
     return g
 
 
-def _reduce_leaf(g, compression, *, average: bool, group):
-    """One leaf of ``allreduce_gradients``' SPMD branch."""
+def _reduce_leaf(g, compression, *, average: bool, group,
+                 name: str = ""):
+    """One leaf of ``allreduce_gradients``' SPMD branch; under ``"auto"``
+    on the rung the autopilot's mirror names for bucket ``name``."""
     if isinstance(g, _sparse.IndexedSlices):
         return _sparse.allreduce(g, average=average, group=group)
+    if _qc.is_auto(compression):
+        compression = compressor_for_wire(
+            _precision.get_autopilot().wire_dtype_for(name))
     if _lossy(compression, g):
         return _qc.quantized_ring_allreduce(g, average=average, group=group)
     leaf_comp = NoneCompressor if _qc.is_int8(compression) else compression
@@ -110,6 +132,32 @@ def _reduce_leaf(g, compression, *, average: bool, group):
     if _world(group) > 1:
         c = _injit.allreduce(c, average=average, group=group)
     return leaf_comp.decompress(c, ctx)
+
+
+def _note_auto_residual(name: str, reduced, flat_ok: bool = False) -> None:
+    """Feed the precision autopilot one measured residual: the relative
+    norm of the error the int8 grid (the ladder's most aggressive rung)
+    would introduce on this reduced gradient (reference
+    ``jax/__init__.py:340-368``).  Only f32 leaves that are int8-eligible
+    -- with ``flat_ok`` (an overlap bucket, already a bulk 1-D payload)
+    the size floor only.  Reduced gradients are identical on every rank,
+    so every process reports the same value.  No-op unless
+    ``HOROVOD_TPU_PRECISION=auto``."""
+    pilot = _precision.get_autopilot()
+    if not pilot.enabled or reduced.dtype != torch.float32:
+        return
+    if flat_ok:
+        if reduced.numel() * 4 < _qc.int8_floor_bytes():
+            return
+    elif not _qc.int8_eligible(reduced.shape, reduced.dtype):
+        return
+    g = reduced.reshape(-1)
+    denom = float(torch.linalg.vector_norm(g))
+    if denom <= 0.0:
+        pilot.note_residual(name, 0.0)
+        return
+    r = g - _qc.snap_to_grid(g)
+    pilot.note_residual(name, float(torch.linalg.vector_norm(r)) / denom)
 
 
 class _EagerReduction:
@@ -126,7 +174,10 @@ class _EagerReduction:
     def __init__(self, *, average: bool, compression, name_prefix: str,
                  bucketed=None):
         self.average = average
-        self.compression = compression
+        # Under "auto" requests go out raw: the coordinator's response
+        # carries the wire dtype, and wait() reports the residuals.
+        self.auto = _qc.is_auto(compression)
+        self.compression = NoneCompressor if self.auto else compression
         self.name_prefix = name_prefix
         self.submitted: set = set()
         self.bucketed: set = set()
@@ -217,6 +268,10 @@ class _EagerReduction:
             else:
                 outs[i] = self.compression.decompress(
                     _eager.synchronize(h), extra)
+        if self.auto:
+            for i in sorted(self._handles):
+                if self._handles[i][0] == "dense":
+                    _note_auto_residual(f"{self.name_prefix}.{i}", outs[i])
         return outs
 
     def _wait_buckets(self, outs: list) -> None:
@@ -225,6 +280,11 @@ class _EagerReduction:
             h, leaves = self._buckets[b]
             red = _eager.synchronize(h)
             self._planner.note_complete(b)
+            if self.auto:
+                # The negotiated name under overlap is the bucket's, so the
+                # residual report is per bucket too.
+                _note_auto_residual(f"{self.name_prefix}.bucket{b}", red,
+                                    flat_ok=True)
             off = 0
             for i in leaves:
                 shape = self._grads[i]
@@ -310,13 +370,18 @@ def allreduce_gradients(grads, *, average: bool = True,
     tensors or :class:`.sparse.IndexedSlices`) come back gathered, in the
     form they came in, unless ``sparse_as_dense``.  ``compression`` takes
     a Compressor class or a wire name; ``HOROVOD_TPU_INJIT_WIRE_DTYPE``
-    fills in the default."""
+    fills in the default; ``"auto"`` keys each leaf's bucket as
+    ``f"{name_prefix}{keystr}"`` of its path in ``grads`` on the SPMD
+    branch (``torch.utils._pytree.keystr``, which writes paths as
+    ``jax.tree_util.keystr`` does)."""
     compression = _resolve(compression)
-    given, spec = pytree.tree_flatten(grads)
+    paths, spec = pytree.tree_flatten_with_path(grads)
+    given = [g for _, g in paths]
     leaves = [_as_leaf(g, sparse_as_dense) for g in given]
     if not eager:
-        out = [_reduce_leaf(g, compression, average=average, group=group)
-               for g in leaves]
+        out = [_reduce_leaf(g, compression, average=average, group=group,
+                            name=name_prefix + pytree.keystr(path))
+               for (path, _), g in zip(paths, leaves)]
     else:
         if group is not None:
             raise ValueError(
@@ -346,7 +411,8 @@ class _DistributedOptimizer:
     optimizer's class."""
 
     def _setup(self, *, average, compression, sparse_as_dense,
-               error_feedback, overlap, group, eager) -> None:
+               error_feedback, overlap, group, eager,
+               named_parameters) -> None:
         if eager and group is not None:
             raise ValueError(
                 "eager=True reduces over the world of hvd.init(); group= "
@@ -366,6 +432,13 @@ class _DistributedOptimizer:
         self._bucket_plan: Optional[list] = None
         self._sparse_ids: set = set()
         self._position = {id(p): i for i, p in enumerate(self._params())}
+        # The autopilot's bucket keys of the SPMD branch: the flax path of
+        # each named parameter, the position of the others.
+        names = {id(p): n for n, p in (named_parameters or ())}
+        self._bucket = {
+            id(p): DEFAULT_NAME_PREFIX + (flax_keystr(names[id(p)])
+                                          if id(p) in names else f"[{i}]")
+            for i, p in enumerate(self._params())}
         for p in self._params():
             if error_feedback and _lossy(self.compression, p):
                 self.state[p]["residual"] = torch.zeros(
@@ -425,7 +498,7 @@ class _DistributedOptimizer:
         """The SPMD branch, one parameter."""
         g = self._carried_in(p, self._grad(p))
         red = _reduce_leaf(g, self.compression, average=self.average,
-                           group=self.group)
+                           group=self.group, name=self._bucket[id(p)])
         p.grad = (red.to_dense() if isinstance(red, _sparse.IndexedSlices)
                   else red)
         self._done.add(id(p))
@@ -535,7 +608,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                          sparse_as_dense: bool = False,
                          error_feedback: bool = False,
                          overlap: Optional[bool] = None, group=None,
-                         eager: bool = False):
+                         eager: bool = False, named_parameters=None):
     """Wrap ``optimizer`` so that its updates consume rank-averaged
     gradients.
 
@@ -562,9 +635,15 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     plain loop, not through ``spmd.make_train_step``, which reduces the
     gradients itself.
 
-    ``compression`` is read once, here (class, wire name, or the
-    ``HOROVOD_TPU_INJIT_WIRE_DTYPE`` fill-in); ``"auto"`` raises
-    ``NotImplementedError``.
+    ``compression`` is read once, here (class, wire name, the
+    ``HOROVOD_TPU_INJIT_WIRE_DTYPE`` fill-in, or ``"auto"``: the module
+    docstring).  ``named_parameters`` (``model.named_parameters()``, as
+    Horovod's PyTorch optimizer takes it) names the SPMD branch's
+    autopilot buckets as the JAX package names the same leaves of a flax
+    parameter tree.  Without it a parameter is keyed by its position,
+    ``DistributedOptimizer.grads[i]``, a name the JAX package never gives
+    a leaf of such a tree: a ladder warmed on its names leaves these
+    parameters on fp32.
     """
     base = type(optimizer)
     cls = type(f"Distributed{base.__name__}", (_DistributedOptimizer, base),
@@ -574,7 +653,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     wrapped._setup(average=average, compression=compression,
                    sparse_as_dense=sparse_as_dense,
                    error_feedback=error_feedback, overlap=overlap,
-                   group=group, eager=eager)
+                   group=group, eager=eager,
+                   named_parameters=(None if named_parameters is None
+                                     else list(named_parameters)))
     return wrapped
 
 

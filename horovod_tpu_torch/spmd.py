@@ -28,7 +28,31 @@ packed into the scheduler's buckets and each bucket rides one int8 ring
 (``_reduce_flat_int8``, the port of ``jax/spmd.py:204-241``); the other
 leaves take the raw path.  On the two-tier path eligible leaves are
 snapped onto the int8 grid around the reduce (``Int8Compressor``), as in
-the JAX package.  The ``"auto"`` wire is not ported yet.
+the JAX package.
+
+``compression="auto"`` (with ``HOROVOD_TPU_PRECISION=auto``) hands each
+leaf's wire to the precision autopilot (``_reduce_auto``, the port of
+``jax/spmd.py:160-196``): the process-local mirror
+(:func:`..precision.get_autopilot`) names a rung per leaf -- raw fp32,
+bf16 (``BF16Compressor`` around the collective) or int8 (an eligible leaf
+rides :func:`..ops.quantized_collectives.quantized_ring_allreduce` alone
+over the flat world; an ineligible one goes raw; on the two-tier path it
+is snapped by ``Int8Compressor``).  Each int8 ring carries one leaf,
+whose block scales are the leaf's own, as in the JAX package; the other
+leaves are cast by their rung's Compressor and the casts of one dtype
+share the scheduler's buckets, as on the static path (the JAX package
+leaves that batching to XLA's all-reduce combiner).
+
+Bucket names, the keys of the ladder and of the ``precision.*#bucket=``
+series, are the reference's for the same leaf: ``"grads"`` followed by
+``jax.tree_util.keystr`` of the leaf's flax path.  The port builds that
+path from the parameter's name, split at its dots as
+:func:`..weights.to_flax` splits it: ``block_0.attn.qkv.kernel`` is
+bucket ``grads['block_0']['attn']['qkv']['kernel']``.  A leaf with no
+name -- every leaf of the list handed to :func:`reduce_gradients` -- is
+keyed by its index, ``grads[3]``, as ``keystr`` keys a list.  The mirror
+is fed by the caller (``note_residual``), never by the step, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -40,8 +64,10 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from horovod_tpu_torch import basics as _basics
+from horovod_tpu_torch import precision as _precision
 from horovod_tpu_torch import scheduler as _sched
-from horovod_tpu_torch.compression import Compressor, NoneCompressor
+from horovod_tpu_torch.compression import (Compressor, NoneCompressor,
+                                           compressor_for_wire)
 from horovod_tpu_torch.ops import injit as _injit
 from horovod_tpu_torch.ops import quantized_collectives as _qc
 from horovod_tpu_torch.parallel.hierarchical import hierarchical_allreduce
@@ -50,15 +76,104 @@ from horovod_tpu_torch.parallel.mesh import ranks_mesh as _ranks_mesh
 
 def _check_compression(compression):
     """The Compressor that ``compression`` names (class, wire name or the
-    env fill-in); ``"auto"`` and anything else raise
+    env fill-in), or the ``"auto"`` marker; anything else raises
     ``NotImplementedError``."""
     compression = _qc.resolve_injit_compression(compression)
+    if _qc.is_auto(compression):
+        return compression
     if not (isinstance(compression, type)
             and issubclass(compression, Compressor)):
         raise NotImplementedError(
             f"compression={compression!r}: only the Compressor classes and "
             f"their wire names (none, fp16, bf16, int8) are ported")
     return compression
+
+
+def flax_keystr(name: str) -> str:
+    """``jax.tree_util.keystr`` of the flax path of the parameter the port
+    names ``name``: ``"block_0.attn.qkv.kernel"`` gives
+    ``"['block_0']['attn']['qkv']['kernel']"``."""
+    return "".join(f"[{part!r}]" for part in name.split("."))
+
+
+def bucket_names(names, prefix: str = "grads") -> List[str]:
+    """The autopilot's bucket name of each leaf: ``prefix`` followed by
+    :func:`flax_keystr` of its parameter name, or by ``[i]`` for a leaf
+    without one (``names`` an int: that many unnamed leaves)."""
+    if isinstance(names, int):
+        return [f"{prefix}[{i}]" for i in range(names)]
+    return [prefix + flax_keystr(n) for n in names]
+
+
+def _auto_route(names: List[str]) -> List[str]:
+    """Each bucket's wire dtype (""/"bf16"/"int8") on the autopilot's
+    mirror as it stands."""
+    pilot = _precision.get_autopilot()
+    return [pilot.wire_dtype_for(n) for n in names]
+
+
+def _reduce_auto(grads, route, *, average: bool, fuse: bool,
+                 bucket_bytes: int, overlap: bool, group, mesh):
+    """Reduction under the precision autopilot, leaf ``i`` on the rung
+    ``route[i]`` (the per-leaf body of ``jax/spmd.py:180-194``): int8 on
+    an eligible leaf over the flat world rides the quantized ring alone
+    (flattened to f32 and back); int8 on an ineligible leaf goes raw;
+    every other leaf is cast by its rung's Compressor (snapped by
+    ``Int8Compressor`` with ``mesh``) and the casts go through
+    :func:`_reduce_cast`."""
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    rest, comps = [], []
+    for i, (g, wire) in enumerate(zip(grads, route)):
+        comp = compressor_for_wire(wire)
+        eligible = _qc.int8_eligible(g.shape, g.dtype)
+        if _qc.is_int8(comp) and mesh is None and eligible:
+            out[i] = _qc.quantized_ring_allreduce(
+                g.reshape(-1).to(torch.float32), average=average,
+                group=group).reshape(g.shape).to(g.dtype)
+            continue
+        rest.append(i)
+        comps.append(NoneCompressor if _qc.is_int8(comp) and not eligible
+                     else comp)
+    reduced = _reduce_cast([grads[i] for i in rest], comps,
+                           _reduce_flat_fn(average, group, mesh), fuse=fuse,
+                           bucket_bytes=bucket_bytes, overlap=overlap)
+    for i, r in zip(rest, reduced):
+        out[i] = r
+    return out
+
+
+def _reduce_flat_fn(average: bool, group, mesh):
+    """The collective of one flat payload: two-tier with ``mesh``, else
+    over ``group``."""
+    def reduce_flat(flat):
+        if mesh is not None:
+            return hierarchical_allreduce(flat, average=average, mesh=mesh)
+        return _injit.allreduce(flat, average=average, group=group)
+    return reduce_flat
+
+
+def _reduce_cast(grads, comps, reduce_flat, *, fuse: bool,
+                 bucket_bytes: int, overlap: bool) -> List[torch.Tensor]:
+    """Each leaf cast by its Compressor, reduced by ``reduce_flat`` and
+    cast back: leaf by leaf without ``fuse``, else the casts of one dtype
+    packed into the scheduler's buckets, one ``reduce_flat`` a bucket
+    (:func:`..ops.injit.staged_bucket_allreduce`)."""
+    compressed = [c.compress(g) for c, g in zip(comps, grads)]
+    if not fuse:
+        return [comp.decompress(reduce_flat(c), ctx)
+                for comp, (c, ctx) in zip(comps, compressed)]
+    groups: dict = {}
+    for i, (c, _) in enumerate(compressed):
+        groups.setdefault(c.dtype, []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    for idx_list in groups.values():
+        reduced = _injit.staged_bucket_allreduce(
+            [compressed[i][0] for i in idx_list], reduce_flat,
+            bucket_bytes=bucket_bytes, overlap=overlap)
+        for i, r in zip(idx_list, reduced):
+            c, ctx = compressed[i]
+            out[i] = comps[i].decompress(r.view(c.shape), ctx)
+    return out
 
 
 def reduce_gradients(grads: List[torch.Tensor], *, average: bool = True,
@@ -73,44 +188,29 @@ def reduce_gradients(grads: List[torch.Tensor], *, average: bool = True,
     reduces through the two-tier path and ``group`` is not used.
     ``bucket_bytes`` defaults to ``HOROVOD_TPU_BUCKET_BYTES`` and
     ``overlap`` to ``HOROVOD_TPU_OVERLAP`` (reverse issue order); overlap
-    on and off give identical results."""
+    on and off give identical results.  Under ``compression="auto"`` leaf
+    ``i`` takes the rung the autopilot's mirror names for bucket
+    ``grads[i]``, read at this call."""
     compression = _check_compression(compression)
     bucket_bytes = _sched.bucket_bytes_from_env(bucket_bytes)
     overlap = _sched.overlap_enabled(overlap)
+    if _qc.is_auto(compression):
+        return _reduce_auto(grads, _auto_route(bucket_names(len(grads))),
+                            average=average, fuse=fuse,
+                            bucket_bytes=bucket_bytes, overlap=overlap,
+                            group=group, mesh=mesh)
     if mesh is None and _qc.is_int8(compression):
         return _reduce_flat_int8(grads, average=average, fuse=fuse,
                                  bucket_bytes=bucket_bytes, overlap=overlap,
                                  group=group)
-
-    def reduce_flat(flat):
-        if mesh is not None:
-            return hierarchical_allreduce(flat, average=average, mesh=mesh)
-        return _injit.allreduce(flat, average=average, group=group)
-
-    def leaf_comp(g):
-        # Under int8 (two-tier path only) leaves below the floor skip the
-        # lossy snap and stay raw; decompress passes them through.
-        if _qc.is_int8(compression) and not _qc.int8_eligible(g.shape,
-                                                               g.dtype):
-            return NoneCompressor
-        return compression
-
-    compressed = [leaf_comp(g).compress(g) for g in grads]
-    if not fuse:
-        return [compression.decompress(reduce_flat(c), ctx)
-                for c, ctx in compressed]
-    groups: dict = {}
-    for i, (c, _) in enumerate(compressed):
-        groups.setdefault(c.dtype, []).append(i)
-    out: List[Optional[torch.Tensor]] = [None] * len(grads)
-    for idx_list in groups.values():
-        reduced = _injit.staged_bucket_allreduce(
-            [compressed[i][0] for i in idx_list], reduce_flat,
-            bucket_bytes=bucket_bytes, overlap=overlap)
-        for i, r in zip(idx_list, reduced):
-            c, ctx = compressed[i]
-            out[i] = compression.decompress(r.view(c.shape), ctx)
-    return out
+    # Under int8 (two-tier path only) leaves below the floor skip the
+    # lossy snap and stay raw.
+    comps = [NoneCompressor if _qc.is_int8(compression)
+             and not _qc.int8_eligible(g.shape, g.dtype) else compression
+             for g in grads]
+    return _reduce_cast(grads, comps, _reduce_flat_fn(average, group, mesh),
+                        fuse=fuse, bucket_bytes=bucket_bytes,
+                        overlap=overlap)
 
 
 def _reduce_flat_int8(grads, *, average: bool, fuse: bool,
@@ -229,13 +329,29 @@ def make_train_step(model: torch.nn.Module,
 
     ``steps_per_call > 1`` runs that many steps per call: every batch
     leaf gains a leading ``steps_per_call`` axis, the steps take those
-    batches in turn and the call returns the mean of their losses."""
+    batches in turn and the call returns the mean of their losses.
+
+    ``compression="auto"`` (with ``HOROVOD_TPU_PRECISION=auto``) reduces
+    each gradient on the rung the autopilot's mirror names for its bucket
+    (``grads`` + :func:`flax_keystr` of its parameter name).  Each call
+    reads the mirror's ``plan_version`` first and rebuilds its per-leaf
+    route only when that has moved (the reference's retrace,
+    ``jax/spmd.py:587-613``), so a promotion or demotion takes effect on
+    the next call, never inside one.  The step does not feed the ladder:
+    the caller does (``precision.get_autopilot().note_residual``).  The
+    returned step then carries ``step.route`` (bucket name -> wire dtype
+    of the last rebuild) and ``step.rebuilds``."""
     compression = _check_compression(compression)
     overlap = _sched.overlap_enabled(overlap)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got "
                          f"{steps_per_call}")
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    auto = _qc.is_auto(compression)
+    names = bucket_names([n for n, _ in named]) if auto else None
+    # The route of the autopilot's plan: rebuilt when plan_version moves.
+    cell = {"version": None, "route": None}
 
     def one_step(batch):
         optimizer.zero_grad(set_to_none=True)
@@ -249,9 +365,16 @@ def make_train_step(model: torch.nn.Module,
         if distributed:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
-            reduced = reduce_gradients(grads, average=average,
-                                       compression=compression, fuse=fuse,
-                                       overlap=overlap, mesh=mesh)
+            if auto:
+                reduced = _reduce_auto(
+                    grads, cell["route"], average=average, fuse=fuse,
+                    bucket_bytes=_sched.bucket_bytes_from_env(),
+                    overlap=overlap, group=None, mesh=mesh)
+            else:
+                reduced = reduce_gradients(grads, average=average,
+                                           compression=compression,
+                                           fuse=fuse, overlap=overlap,
+                                           mesh=mesh)
             for p, g in zip(params, reduced):
                 p.grad = g
             loss = _injit.allreduce(loss, average=True)
@@ -260,8 +383,28 @@ def make_train_step(model: torch.nn.Module,
             _sync_buffers(model)
         return loss
 
-    if steps_per_call == 1:
-        return one_step
+    call = one_step
+    if steps_per_call > 1:
+        call = _stepping(one_step, steps_per_call)
+    if not auto:
+        return call
+
+    def step(batch):
+        version = _precision.get_autopilot().plan_version
+        if cell["route"] is None or cell["version"] != version:
+            cell["version"] = version
+            cell["route"] = _auto_route(names)
+            step.route = dict(zip(names, cell["route"]))
+            step.rebuilds += 1
+        return call(batch)
+
+    step.route, step.rebuilds = {}, 0
+    return step
+
+
+def _stepping(one_step, steps_per_call: int):
+    """``steps_per_call`` steps a call, each on its slice of the batch's
+    leading axis; the mean of their losses."""
 
     def leading(i):
         def pick(x):

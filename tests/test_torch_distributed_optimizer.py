@@ -224,8 +224,11 @@ def test_error_feedback_state_and_errors():
     (model.w.sum() + model.b.sum()).backward()
     with pytest.raises(RuntimeError, match="accumulated twice"):
         model.w.sum().backward()
-    with pytest.raises(NotImplementedError, match="autopilot"):
-        hvd.DistributedOptimizer(sgd, compression="auto")
+    # "auto" is accepted, and error feedback keeps no residual under it.
+    auto = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=LR), compression="auto",
+        error_feedback=True)
+    assert auto.compression == "auto" and not auto.state
     with pytest.raises(ValueError, match="expected none"):
         hvd.DistributedOptimizer(sgd, compression="int4")
 

@@ -254,7 +254,10 @@ def test_synchronize_timeout_abandons_the_handle(size1):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("HOROVOD_TPU_PROCESS_SETS", "a:0"), ("HOROVOD_TPU_PRECISION", "auto")])
+    ("HOROVOD_TPU_PROCESS_SETS", "a:0"),
+    ("HOROVOD_TPU_EVICT_THRESHOLD", "0.5"),
+    ("HOROVOD_TPU_AUTOSCALE", "tick:5=2"),
+    ("HOROVOD_TPU_AUTOSCALE_FILE", "target.txt")])
 def test_unported_modes_raise_at_init(monkeypatch, knob, value):
     for var in ("SIZE", "RANK", "LOCAL_RANK", "LOCAL_SIZE"):
         monkeypatch.delenv("HOROVOD_TPU_" + var, raising=False)
