@@ -341,6 +341,51 @@ the checkout.  Phases, in order; any failure ends the run:
    request frames, every rank sees the same ``wire_dtype`` on each
    response (counted by wire dtype), and, NCCL moving the buckets raw,
    the auto losses equal the raw ones bit for bit.
+35. Straggler eviction, NCCL (phases 35-37 run right after phase 34,
+   only with four or more cards; otherwise a line says each did not
+   run): phase 28's job and worker (``CHIP_SMOKE_ELASTIC_MODE=evict``),
+   ``-np 3 --num-standby 1 --elastic-min-ranks 3``, the fleet policy
+   armed (``HOROVOD_TPU_EVICT_THRESHOLD=0.02``, ``EVICT_TICKS=5``,
+   ``EVICT_MAX=1``).  Rank 0 commits epoch 0 before the first step, and
+   the standby parks only ``FLEET_STEPS`` steps later; process 1 alone
+   slows each of its ticks by ``EVICT_MS`` from tick
+   ``EVICT_ONSET_TICK`` (``HOROVOD_TPU_FAULT`` set in that process
+   only).  With the floor at the full world the policy waits for the
+   parked standby, then demotes process 1, and only it: it prints the
+   native eviction text and exits 3, and the launcher relaunches it as a
+   standby; the parked
+   standby is admitted in the same reconfigure (generation 1, 3 ranks,
+   the NCCL group rebuilt), every re-entry restores the committed tip,
+   the final states are bit-identical, ``policy.evictions`` is 1, and in
+   each generation P1-P3 launch depth x its steps on every rank, each
+   process in the NCCL seat of its rank and on its own card.  Printed:
+   the onset tick, the tick of epoch 0's commit and of the demotion, the
+   victim's EWMA, ``elastic.downtime_seconds``,
+   ``elastic.rebuild_seconds``, rank 0's step ms before and after.
+36. Scripted autoscaling, NCCL: the same job of four processes
+   (``CHIP_SMOKE_ELASTIC_MODE=autoscale``) with
+   ``HOROVOD_TPU_AUTOSCALE_FILE``, the file seam of ``--autoscale-script``
+   (a script counts ticks, which the card's steps do not fix): rank 0
+   writes 2 after ``AUTOSCALE_STEPS`` steps and a committed snapshot,
+   processes 2 and 3 leave with the shrink's eviction text and are
+   relaunched as standbys on the cards they freed; after as many steps
+   at size 2, rank 0 writes 4 once both have parked, and the grow admits
+   them.  Each generation of 4 or 2 trains its steps (P1-P3 depth x
+   steps), every re-entry restores the committed tip, the final states
+   are bit-identical and ``policy.rescales`` is at least 2.  Printed:
+   the step and tick of each target and rescale, downtime and rebuild
+   seconds, rank 0's step ms at size 4 and at size 2.
+37. Hierarchical control topology, NCCL: four processes on fake hosts A,
+   A, B, B (``HIER_HOSTS``) train the headline model from one seed, each
+   on its own batch, ``TOPO_STEPS`` steps through
+   ``DistributedOptimizer(eager=True, overlap=True)`` (one NCCL call a
+   scheduler bucket: ``HOROVOD_TPU_FUSION_THRESHOLD=0``), once under
+   ``HOROVOD_TPU_CONTROL_TOPO=flat`` and once under ``hier``: losses and
+   every leaf of the final states bit-identical on every rank (if not, a
+   second ``flat`` run, and ``hier`` held to the difference between the
+   two), ``control.agg_depth`` 1.0 and 2.0, frames merged under ``hier``
+   only, P1-P3 depth x steps.  Printed: step ms, the tick-seconds
+   histogram's median bucket.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3833,6 +3878,21 @@ CKPT_ROOT = Path("build") / "chip_smoke_ckpt"
 CKPT_SAVE_AT, CKPT_RESUME_STEPS, STREAM_STEPS = 3, 2, 4
 ELASTIC_RANKS, ELASTIC_STEPS = 3, 10
 ELASTIC_DIE_RANK, ELASTIC_DIE_STEP = 2, 5
+# Phases 35-36: the fleet policy on phase 28's job.  Process 1 alone
+# slows each of its ticks by EVICT_MS from tick EVICT_ONSET_TICK; the
+# eviction waits for a parked standby (the floor is the full world),
+# which parks only once rank 0 has committed epoch 0, so the demotion
+# comes after the commit however fast the ticks run.  The final
+# generation trains FLEET_STEPS steps; a generation that waits for a
+# membership change trains until it comes, at most FLEET_WAIT_S.  Phase
+# 36 goes AUTOSCALE_RANKS -> AUTOSCALE_SMALL -> AUTOSCALE_RANKS through
+# the file seam: rank 0 writes each target after AUTOSCALE_STEPS steps of
+# a generation.
+EVICT_MS, EVICT_ONSET_TICK = 50, 2000
+FLEET_STEPS, FLEET_WAIT_S = 4, 300
+AUTOSCALE_RANKS, AUTOSCALE_SMALL, AUTOSCALE_STEPS = 4, 2, 4
+# Phase 37: steps a topology.
+TOPO_STEPS = 3
 
 
 def _fingerprint(t: torch.Tensor) -> int:
@@ -4076,29 +4136,71 @@ def phase_checkpoint(depth: int) -> dict:
 
 
 def _elastic_emit(kind: str, **kw) -> None:
-    print("ELASTIC " + json.dumps(dict(kind=kind, **kw)), flush=True)
+    """One ``ELASTIC {json}`` line in one write: the job's processes share
+    the launcher's stdout."""
+    sys.stdout.flush()
+    os.write(1, ("ELASTIC " + json.dumps(dict(kind=kind, **kw)) + "\n")
+             .encode())
+
+
+def _elastic_events(out: str) -> list:
+    """The ``ELASTIC`` events in a job's stdout, wherever another
+    process's output split their lines."""
+    dec = json.JSONDecoder()
+    events = []
+    for chunk in out.split("ELASTIC ")[1:]:
+        try:
+            events.append(dec.raw_decode(chunk)[0])
+        except ValueError:
+            _fail(f"elastic job: a garbled event {chunk[:200]!r}")
+    return events
 
 
 def _elastic_worker() -> None:
-    """Phase 28 in one process of the launcher's job (``chip_smoke.py
-    --elastic-worker``): the headline model through ``run_elastic`` with
-    ``DistributedOptimizer(eager=True)``, each rank on its own batch.
-    Rank ``ELASTIC_DIE_RANK`` kills itself at step ``ELASTIC_DIE_STEP``
-    of generation 0; a smaller generation waits for the standby, which
-    parks only once the survivors have reconfigured.  Lines ``ELASTIC
-    {json}`` report to the parent."""
+    """Phases 28, 35 and 36 in one process of the launcher's job
+    (``chip_smoke.py --elastic-worker``; ``CHIP_SMOKE_ELASTIC_MODE``
+    ``loss``, ``evict`` or ``autoscale``): the headline model through
+    ``run_elastic`` with ``DistributedOptimizer(eager=True)``, each rank
+    on its own batch.  ``loss``: rank ``ELASTIC_DIE_RANK`` kills itself at
+    step ``ELASTIC_DIE_STEP`` of generation 0; a smaller generation waits
+    for the standby, which parks only once the survivors have
+    reconfigured.  ``evict``: process 1 (not a standby) is the planted
+    straggler; rank 0 commits epoch 0 before the first step, generation 0
+    trains until the fleet policy reconfigures the job.  ``autoscale``:
+    rank 0 writes each target of ``AUTOSCALE_FILE`` after a committed
+    snapshot.  Every re-entry and every generation's steps and P1-P3
+    launches are reported; an aborted process prints ``ABORTED`` and
+    exits 3.  Lines ``ELASTIC {json}`` report to the parent."""
     import signal
+    import torch.distributed as dist
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import checkpoint, elastic
+    from horovod_tpu_torch import checkpoint, cpp_core, elastic
+    from horovod_tpu_torch.ops import _cuda
     d = os.environ["CHIP_SMOKE_ELASTIC_DIR"]
+    mode = os.environ.get("CHIP_SMOKE_ELASTIC_MODE", "loss")
+    pidx = int(os.environ["HOROVOD_TPU_PROCESS_INDEX"])
     marker = os.path.join(d, "reconfigured")
-    if elastic.is_standby():
+    committed = os.path.join(d, "committed")
+    if elastic.is_standby() and mode in ("loss", "evict"):
+        # loss: park once the survivors have reconfigured; evict: once
+        # epoch 0 is on disk (the launcher's first standby only).
+        wait_for = marker if mode == "loss" else committed
         deadline = time.monotonic() + 600
-        while not os.path.exists(marker):
+        while not os.path.exists(wait_for):
             if time.monotonic() > deadline:
-                sys.exit("elastic worker: the survivors never reconfigured")
+                sys.exit(f"elastic worker: {wait_for} never appeared")
             time.sleep(0.1)
+    if elastic.is_standby() and mode == "autoscale":
+        open(os.path.join(d, f"parked.{pidx}"), "w").close()
+    if mode == "evict" and pidx == 1 and not elastic.is_standby():
+        spec = f"slow:rank=1:ms={EVICT_MS}:tick={EVICT_ONSET_TICK}"
+        os.environ.update(HOROVOD_TPU_FAULT=spec)
+        _elastic_emit("fault", pidx=pidx, spec=spec)
     elastic.init()
+    if mode != "loss":
+        # The policy's records must outlive the ticks of a generation's
+        # last step, after which rank 0 reads them.
+        cpp_core.flight_set_capacity(1 << 18)
     dev = torch.device("cuda", torch.cuda.current_device())
     model = _lm("flash", DEPTH, SEQ, dev)
     opt = hvd.DistributedOptimizer(
@@ -4111,12 +4213,27 @@ def _elastic_worker() -> None:
     like = checkpoint.model_state(model, opt)
     times = {}
 
+    def tick() -> int:
+        return json.loads(cpp_core.flight_snapshot("tick"))["tick"]
+
+    def set_target(n: int, step: int) -> None:
+        """Rank 0: commit what is queued, then ask for ``n`` processes."""
+        elastic.active_stream().flush()
+        with open(os.path.join(d, "target"), "w") as f:
+            f.write(f"{n}\n")
+        _elastic_emit("target", n=n, step=step, tick=tick())
+
     def train(state, epoch):
         gen = elastic.generation()
+        # hvd.size() can move before the generation does: the size read
+        # at entry decides.
+        size = hvd.size()
         checkpoint.load_model_state(model, opt, state)
         fps = _state_fingerprints(checkpoint.model_state(model, opt))
-        _elastic_emit("reentry", rank=hvd.rank(), size=hvd.size(), gen=gen,
-                      epoch=epoch, fp=_digest(fps), card=dev.index)
+        _elastic_emit("reentry", rank=hvd.rank(), size=size, gen=gen,
+                      epoch=epoch, fp=_digest(fps), card=dev.index,
+                      pidx=pidx, group_rank=dist.get_rank()
+                      if dist.is_initialized() else 0)
         if hvd.rank() == 0 and epoch >= 0:
             flat = checkpoint.read_chain_state(d, epoch)
             _elastic_emit("tip", gen=gen, epoch=epoch,
@@ -4124,49 +4241,124 @@ def _elastic_worker() -> None:
             del flat
         if gen > 0:
             open(marker, "w").close()
-        deadline = time.monotonic() + 600
-        # A generation of another size trains no step: it waits for the
-        # next membership change (hvd.size() can move before the
-        # generation does, so the size read at entry decides).
-        size = hvd.size()
-        while size != ELASTIC_RANKS:
-            if elastic.generation() != gen:
-                raise hvd.HorovodRetryableError(
-                    "membership changed while waiting for a standby")
-            if time.monotonic() > deadline:
-                sys.exit("elastic worker: no standby was admitted")
-            time.sleep(0.05)
         gen_tok = torch.Generator(device=dev).manual_seed(
             SEED + 40 + hvd.rank())
         tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen_tok,
                                device=dev)
-        loss = None
-        for step in range(max(epoch, 0), ELASTIC_STEPS):
-            if elastic.generation() != gen:
-                raise hvd.HorovodRetryableError(
-                    "membership changed between steps")
-            if (gen == 0 and hvd.rank() == ELASTIC_DIE_RANK
-                    and step == ELASTIC_DIE_STEP):
-                torch.cuda.synchronize()
-                _elastic_emit("kill", rank=hvd.rank(), step=step)
-                os.kill(os.getpid(), signal.SIGKILL)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss = _sgd_step(model, opt, tokens)
-            times.setdefault(gen, []).append(
-                (time.perf_counter() - t0) * 1e3)
-            elastic.snapshot(checkpoint.model_state(model, opt), step + 1)
-        return loss
+        launches0 = {k: _cuda.LAUNCHES[k] for k in FLASH}
+        started = [0]
+        loss = [None]
 
-    loss = elastic.run_elastic(train, directory=d, like=like)
+        def steps(first, count, until_change=False):
+            """``count`` steps from ``first`` (with ``until_change``, then
+            more until the membership changes, at most FLEET_WAIT_S, with
+            no snapshot: the re-entry then waits for no write)."""
+            deadline = time.monotonic() + FLEET_WAIT_S
+            step = first
+            while step < first + count or until_change:
+                if elastic.generation() != gen:
+                    raise hvd.HorovodRetryableError(
+                        "membership changed between steps")
+                if time.monotonic() > deadline:
+                    sys.exit(f"elastic worker: no membership change within "
+                             f"{FLEET_WAIT_S} s at generation {gen}")
+                if (mode == "loss" and gen == 0
+                        and hvd.rank() == ELASTIC_DIE_RANK
+                        and step == ELASTIC_DIE_STEP):
+                    torch.cuda.synchronize()
+                    _elastic_emit("kill", rank=hvd.rank(), step=step)
+                    os.kill(os.getpid(), signal.SIGKILL)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                started[0] += 1
+                loss[0] = _sgd_step(model, opt, tokens)
+                times.setdefault(gen, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                if not until_change:
+                    elastic.snapshot(checkpoint.model_state(model, opt),
+                                     step + 1)
+                step += 1
+            return step
+
+        first = max(epoch, 0)
+        try:
+            if mode == "loss":
+                deadline = time.monotonic() + 600
+                # A generation of another size trains no step: it waits
+                # for the next membership change.
+                while size != ELASTIC_RANKS:
+                    if elastic.generation() != gen:
+                        raise hvd.HorovodRetryableError(
+                            "membership changed while waiting for a "
+                            "standby")
+                    if time.monotonic() > deadline:
+                        sys.exit("elastic worker: no standby was admitted")
+                    time.sleep(0.05)
+                steps(first, ELASTIC_STEPS - first)
+            elif mode == "evict":
+                if gen == 0 and epoch < 0 and hvd.rank() == 0:
+                    stream = elastic.active_stream()
+                    stream.snapshot(checkpoint.model_state(model, opt), 0)
+                    stream.flush()
+                    _elastic_emit("commit", epoch=0, tick=tick())
+                    # FLEET_STEPS steps with the straggler, then the
+                    # standby may park.
+                    first = steps(first, FLEET_STEPS)
+                    open(committed, "w").close()
+                if gen == 0:
+                    steps(first, 0, until_change=True)
+                steps(first, FLEET_STEPS)
+            else:
+                if size == AUTOSCALE_RANKS and gen > 0:
+                    steps(first, FLEET_STEPS)
+                else:
+                    step = steps(first, AUTOSCALE_STEPS)
+                    if hvd.rank() == 0 and size == AUTOSCALE_RANKS:
+                        set_target(AUTOSCALE_SMALL, step)
+                    elif hvd.rank() == 0 and size == AUTOSCALE_SMALL:
+                        # Grow once both parked processes are back as
+                        # standbys, so that one reconfigure admits both.
+                        wait = time.monotonic() + FLEET_WAIT_S
+                        while (len([f for f in os.listdir(d)
+                                    if f.startswith("parked.")])
+                               < AUTOSCALE_RANKS - AUTOSCALE_SMALL
+                               and time.monotonic() < wait):
+                            time.sleep(0.2)
+                        time.sleep(2.0)
+                        set_target(AUTOSCALE_RANKS, step)
+                    steps(step, 0, until_change=True)
+        finally:
+            torch.cuda.synchronize()
+            _elastic_emit("generation", rank=hvd.rank(), gen=gen,
+                          size=size, started=started[0], launches={
+                              k: _cuda.LAUNCHES[k] - launches0[k]
+                              for k in FLASH})
+            if hvd.rank() == 0 and mode != "loss":
+                # The policy's records of the reconfigure that just ended
+                # this generation, read before the restore's ticks can
+                # overwrite them in the ring.
+                events = json.loads(cpp_core.flight_snapshot("policy"))
+                _elastic_emit("policy", gen=gen, records=[
+                    e for e in events["events"]
+                    if e["kind"].startswith("policy.")])
+        return loss[0]
+
+    try:
+        loss = elastic.run_elastic(train, directory=d, like=like)
+    except hvd.HorovodAbortedError as exc:
+        print(f"ABORTED rank={hvd.rank()} pidx={pidx} msg={exc}",
+              flush=True)
+        _elastic_emit("aborted", rank=hvd.rank(), pidx=pidx, msg=str(exc))
+        sys.exit(3)
     hist = hvd.metrics()["histograms"]
 
     def h(name):
         x = hist.get(name, {})
         return {"count": x.get("count", 0), "sum": x.get("sum", 0.0)}
 
+    counters = cpp_core.metrics_snapshot().get("counters", {})
     _elastic_emit("done", rank=hvd.rank(), size=hvd.size(),
-                  gen=elastic.generation(), loss=loss,
+                  gen=elastic.generation(), loss=loss, pidx=pidx,
                   fp=_digest(_state_fingerprints(
                       checkpoint.model_state(model, opt))),
                   step_ms={g: [round(t, 1) for t in ts]
@@ -4175,8 +4367,109 @@ def _elastic_worker() -> None:
                   resume=h("elastic.resume_seconds"),
                   rebuild=h("elastic.rebuild_seconds"),
                   snapshot=h("ckpt.snapshot_seconds"),
-                  write=h("ckpt.write_seconds"))
+                  write=h("ckpt.write_seconds"),
+                  policy={k: v for k, v in counters.items()
+                          if k.startswith("policy.")})
     hvd.shutdown()
+
+
+def _elastic_job(label: str, root: Path, launcher_args, env_extra: dict,
+                 timeout: float = 900):
+    """Run ``python -m horovod_tpu_torch.run <launcher_args> --elastic
+    --snapshot-every-steps 2 -- chip_smoke.py --elastic-worker`` in its
+    own session with ``env_extra``; print its notes and events.  Returns
+    (exit code, stdout, stderr, events, wall seconds)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_"))}
+    env.update(CHIP_SMOKE_ELASTIC_DIR=str(root), **env_extra)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", *launcher_args,
+           "--elastic", "--snapshot-every-steps", "2", "--",
+           sys.executable, os.path.abspath(__file__), "--elastic-worker"]
+    t0 = time.perf_counter()
+    # Its own session, so that a job which does not end is stopped whole:
+    # the launcher, its workers and its standbys.
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        _fail(f"{label}: no end within {timeout:.0f} s; stderr tail "
+              f"{err[-3000:]}")
+    wall_s = time.perf_counter() - t0
+    events = _elastic_events(out)
+    notes = [line for line in err.splitlines()
+             if any(t in line for t in (
+                 "reconfigured to", "standby admitted", "rebuilt the",
+                 "exited with code", "relaunched", "ABORT", "Error",
+                 "FAILED", "fault injection", "htpu policy"))]
+    print(f"{label}: " + "\n  ".join(notes[:40]))
+    for e in events:
+        if e["kind"] != "policy":
+            print(f"{label}: {e}")
+    _check(proc.returncode == 0,
+           f"{label}: the launcher exited {proc.returncode}; stderr tail "
+           f"{err[-3000:]}")
+    return proc.returncode, out, err, events, wall_s
+
+
+def _check_elastic_states(label: str, events, final_gen: int,
+                          final_size: int) -> list:
+    """The checks every elastic phase shares: the job ends at
+    ``final_gen`` with ``final_size`` ranks on bit-identical states, and
+    every re-entry after generation 0 restores the committed tip read from
+    disk.  Returns the ``done`` events."""
+    done = [e for e in events if e["kind"] == "done"]
+    tips = {(e["gen"], e["epoch"]): e["fp"] for e in events
+            if e["kind"] == "tip"}
+    _check(len(done) == final_size
+           and all(e["gen"] == final_gen and e["size"] == final_size
+                   for e in done),
+           f"{label}: the job did not end at generation {final_gen} with "
+           f"{final_size} ranks: {done}")
+    _check(len({e["fp"] for e in done}) == 1,
+           f"{label}: the final states differ across ranks: "
+           f"{[e['fp'] for e in done]}")
+    for e in events:
+        if e["kind"] == "reentry" and e["epoch"] >= 0:
+            want = tips.get((e["gen"], e["epoch"]))
+            _check(e["fp"] == want,
+                   f"{label}: rank {e['rank']} restored {e['fp']} at "
+                   f"generation {e['gen']}, epoch {e['epoch']}; the "
+                   f"committed tip is {want}")
+    return done
+
+
+def _check_fleet_generations(label: str, events, gens) -> dict:
+    """Every member of each generation in ``gens`` trained steps there,
+    and every generation's P1-P3 launches are depth x its steps, each
+    process in its own group seat on its own card.  Returns {gen: {rank:
+    steps}}."""
+    first_card = {}
+    for e in events:
+        if e["kind"] == "reentry":
+            first_card.setdefault(e["pidx"], e["card"])
+            _check(e["group_rank"] == e["rank"]
+                   and e["card"] == first_card[e["pidx"]],
+                   f"{label}: process {e['pidx']} at generation "
+                   f"{e['gen']} is rank {e['rank']} but rank "
+                   f"{e['group_rank']} of the NCCL group, or moved from "
+                   f"card {first_card[e['pidx']]} to {e['card']}")
+    trained = {}
+    for e in events:
+        if e["kind"] != "generation":
+            continue
+        trained.setdefault(e["gen"], {})[e["rank"]] = e["started"]
+        _check((e["started"] > 0 or e["gen"] not in gens) and all(
+            n == DEPTH * e["started"] for n in e["launches"].values()),
+            f"{label}: rank {e['rank']} at generation {e['gen']} trained "
+            f"{e['started']} steps with P1-P3 launches {e['launches']}, "
+            f"not {DEPTH} x steps each")
+    for g in gens:
+        _check(g in trained, f"{label}: no rank trained at generation {g}")
+    return trained
 
 
 def phase_elastic_nccl():
@@ -4190,70 +4483,23 @@ def phase_elastic_nccl():
     root = (CKPT_ROOT / "phase28").resolve()
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_"))}
-    # The rejoin action admits a parked standby at the first tick with a
-    # seat open: after the loss has shrunk the world.
-    env.update(CHIP_SMOKE_ELASTIC_DIR=str(root),
-               HOROVOD_TPU_FAULT="rejoin:rank=0:tick=1")
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np",
-           str(ELASTIC_RANKS), "--elastic", "--num-standby", "1",
-           "--snapshot-every-steps", "2", "--", sys.executable,
-           os.path.abspath(__file__), "--elastic-worker"]
     try:
-        t0 = time.perf_counter()
-        # Its own session, so that a job which does not end is stopped
-        # whole: the launcher, its workers and its standbys.
-        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True,
-                                start_new_session=True)
-        try:
-            out, err = proc.communicate(timeout=900)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
-            out, err = proc.communicate()
-            _fail(f"elastic nccl: no end within 900 s; stderr tail "
-                  f"{err[-3000:]}")
-        wall_s = time.perf_counter() - t0
-        events = [json.loads(line[8:]) for line in out.splitlines()
-                  if line.startswith("ELASTIC ")]
-        notes = [line for line in err.splitlines()
-                 if any(t in line for t in (
-                     "reconfigured to", "standby admitted", "rebuilt the",
-                     "exited with code", "relaunched", "ABORT", "Error",
-                     "FAILED"))]
-        print("elastic nccl: " + "\n  ".join(notes[:40]))
-        for e in events:
-            print(f"elastic nccl: {e}")
-        _check(proc.returncode == 0,
-               f"elastic nccl: the launcher exited {proc.returncode}; "
-               f"stderr tail {err[-3000:]}")
+        # The rejoin action admits a parked standby at the first tick
+        # with a seat open: after the loss has shrunk the world.
+        _, out, err, events, wall_s = _elastic_job(
+            "elastic nccl", root,
+            ["-np", str(ELASTIC_RANKS), "--num-standby", "1"],
+            {"HOROVOD_TPU_FAULT": "rejoin:rank=0:tick=1"})
         _check("ABORTED" not in out + err,
                "elastic nccl: a rank was aborted")
-        done = [e for e in events if e["kind"] == "done"]
         reentries = [e for e in events if e["kind"] == "reentry"]
-        tips = {(e["gen"], e["epoch"]): e["fp"] for e in events
-                if e["kind"] == "tip"}
-        _check(len(done) == ELASTIC_RANKS
-               and all(e["gen"] == 2 and e["size"] == ELASTIC_RANKS
-                       for e in done),
-               f"elastic nccl: the job did not end at generation 2 with "
-               f"{ELASTIC_RANKS} ranks: {done}")
-        _check(len({e["fp"] for e in done}) == 1,
-               f"elastic nccl: the final states differ across ranks: "
-               f"{[e['fp'] for e in done]}")
+        done = _check_elastic_states("elastic nccl", events, 2,
+                                     ELASTIC_RANKS)
         gens = sorted({e["gen"] for e in reentries})
         _check(gens == [0, 1, 2] and {e["size"] for e in reentries
                                       if e["gen"] == 1} == {2},
                f"elastic nccl: generations {gens}, not 0 -> 1 (size 2) "
                f"-> 2")
-        for e in reentries:
-            if e["epoch"] >= 0:
-                want = tips.get((e["gen"], e["epoch"]))
-                _check(e["fp"] == want,
-                       f"elastic nccl: rank {e['rank']} restored "
-                       f"{e['fp']} at generation {e['gen']}, epoch "
-                       f"{e['epoch']}; the committed tip is {want}")
         r0 = next(e for e in done if e["rank"] == 0)
         before = r0["step_ms"].get("0", [])
         after = r0["step_ms"].get("2", [])
@@ -4269,6 +4515,313 @@ def phase_elastic_nccl():
         return {"done": done, "reentries": reentries, "wall_s": wall_s}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _policy_records(events, kind: str) -> list:
+    """The fleet policy's flight records of ``kind`` that rank 0 read at
+    the end of each generation, each once."""
+    seen = {}
+    for e in events:
+        if e["kind"] == "policy":
+            for r in e["records"]:
+                if r["kind"] == kind:
+                    seen[(r["tick"], r["detail"])] = r
+    return [seen[k] for k in sorted(seen)]
+
+
+def phase_evict_nccl():
+    """Phase 35: straggler eviction on phase 28's job (four cards; only
+    with four or more, otherwise a line says it did not run).  Three
+    processes and a parked standby; process 1 alone slows each of its
+    ticks by ``EVICT_MS`` from tick ``EVICT_ONSET_TICK``; the fleet policy
+    (threshold 20 ms for 5 ticks, one eviction, floor 3 ranks) demotes it
+    and admits the standby in the same reconfigure."""
+    import shutil
+    if torch.cuda.device_count() < 4:
+        print("evict nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    label = "evict nccl"
+    root = (CKPT_ROOT / "phase35").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        _, out, err, events, wall_s = _elastic_job(
+            label, root, ["-np", str(ELASTIC_RANKS), "--num-standby", "1",
+                          "--elastic-min-ranks", str(ELASTIC_RANKS)],
+            {"CHIP_SMOKE_ELASTIC_MODE": "evict",
+             "HOROVOD_TPU_EVICT_THRESHOLD": "0.02",
+             "HOROVOD_TPU_EVICT_TICKS": "5", "HOROVOD_TPU_EVICT_MAX": "1"})
+        aborted = [e for e in events if e["kind"] == "aborted"]
+        _check(len(aborted) == 1 and aborted[0]["pidx"] == 1
+               and "evicted from the membership at generation 1 after: "
+               "straggler rank 1 demoted to standby by fleet policy"
+               in aborted[0]["msg"] and out.count("ABORTED") == 1,
+               f"{label}: not the victim alone evicted: {aborted}")
+        _check(err.count("relaunched as standby") == 1
+               and "standby admitted at generation 1 as rank 2 of 3" in err
+               and "rebuilt the nccl world group for generation 1" in err,
+               f"{label}: the standby was not admitted in the eviction's "
+               f"reconfigure, the victim not relaunched, or the NCCL group "
+               f"not rebuilt")
+        reentries = [e for e in events if e["kind"] == "reentry"
+                     and e["gen"] == 1]
+        _check(sorted(e["pidx"] for e in reentries) == [0, 2, 3]
+               and {e["size"] for e in reentries} == {ELASTIC_RANKS}
+               and all(e["epoch"] >= 0 for e in reentries),
+               f"{label}: generation 1 is not processes 0, 2 and the "
+               f"standby 3 at size {ELASTIC_RANKS} from a committed tip: "
+               f"{reentries}")
+        done = _check_elastic_states(label, events, 1, ELASTIC_RANKS)
+        trained = _check_fleet_generations(label, events, (0, 1))
+        commit = next(e for e in events if e["kind"] == "commit")
+        evicts = _policy_records(events, "policy.evict")
+        r0 = next(e for e in done if e["rank"] == 0)
+        _check(r0["policy"].get("policy.evictions") == 1
+               and len(evicts) == 1 and evicts[0]["a"] == 1,
+               f"{label}: policy.evictions {r0['policy']}, records "
+               f"{evicts}")
+        onset = re.search(r"slowing rank 1 by \d+ms per tick from tick "
+                          r"(\d+)", err)
+        _check(onset is not None and commit["tick"] < evicts[0]["tick"]
+               and int(onset.group(1)) < evicts[0]["tick"],
+               f"{label}: epoch 0 committed at tick {commit['tick']}, the "
+               f"slowdown began {onset and onset.group(0)}, the demotion "
+               f"at tick {evicts[0]['tick']}")
+        print(f"{label}: {wall_s:.1f} s; onset tick {onset.group(1)} "
+              f"(epoch 0 committed at tick {commit['tick']}), demoted at "
+              f"tick {evicts[0]['tick']} with the victim's EWMA "
+              f"{evicts[0]['bytes'] / 1e3:.1f} ms ({evicts[0]['detail']}); "
+              f"steps a rank: generation 0 {trained[0]}, 1 {trained[1]} "
+              f"(P1-P3 {DEPTH} x steps each); rank 0 step ms before "
+              f"{r0['step_ms'].get('0', [])}, after "
+              f"{r0['step_ms'].get('1', [])}; elastic.downtime_seconds "
+              f"{r0['downtime']}, elastic.rebuild_seconds {r0['rebuild']}, "
+              f"elastic.resume_seconds {r0['resume']}; policy counters "
+              f"{r0['policy']}")
+        return {"done": done, "wall_s": wall_s, "trained": trained}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_autoscale_nccl():
+    """Phase 36: scripted autoscaling on phase 28's job (four cards; only
+    with four or more, otherwise a line says it did not run): four
+    processes, ``HOROVOD_TPU_AUTOSCALE_FILE`` written by rank 0 (the
+    file seam of ``--autoscale-script``, at chosen steps): 4 -> 2, the
+    parked pair relaunched as standbys on the cards they freed, -> 4."""
+    import shutil
+    if torch.cuda.device_count() < 4:
+        print("autoscale nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    label = "autoscale nccl"
+    root = (CKPT_ROOT / "phase36").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        _, out, err, events, wall_s = _elastic_job(
+            label, root, ["-np", str(AUTOSCALE_RANKS)],
+            {"CHIP_SMOKE_ELASTIC_MODE": "autoscale",
+             "HOROVOD_TPU_AUTOSCALE_FILE": str(root / "target")})
+        shrink = f"autoscale: shrink to {AUTOSCALE_SMALL} process(es)"
+        aborted = [e for e in events if e["kind"] == "aborted"]
+        _check(sorted(e["pidx"] for e in aborted) == [2, 3]
+               and all(shrink in e["msg"] for e in aborted),
+               f"{label}: the shrink did not park processes 2 and 3 "
+               f"alone: {aborted}")
+        _check(err.count("relaunched as standby") == 2
+               and f"reconfigured to {AUTOSCALE_SMALL} process(es) at "
+               "generation 1" in err
+               and f"autoscale: grow to {AUTOSCALE_RANKS} process(es)" in err,
+               f"{label}: no shrink to {AUTOSCALE_SMALL}, relaunch of the "
+               f"parked pair or grow to {AUTOSCALE_RANKS}")
+        reentries = [e for e in events if e["kind"] == "reentry"]
+        final_gen = max(e["gen"] for e in reentries)
+        freed = {e["pidx"]: e["card"] for e in reentries
+                 if e["gen"] == 0 and e["pidx"] in (2, 3)}
+        back = {e["pidx"]: e["card"] for e in reentries
+                if e["gen"] == final_gen and e["pidx"] >= AUTOSCALE_RANKS}
+        _check(len(back) == 2 and sorted(back.values())
+               == sorted(freed.values()),
+               f"{label}: the relaunched standbys {back} are not on the "
+               f"cards the parked pair freed {freed}")
+        _check({e["size"] for e in reentries if e["gen"] == 1}
+               == {AUTOSCALE_SMALL},
+               f"{label}: generation 1 is not of size {AUTOSCALE_SMALL}")
+        done = _check_elastic_states(label, events, final_gen,
+                                     AUTOSCALE_RANKS)
+        size_of = {e["gen"]: e["size"] for e in reentries}
+        # The generations the targets asked for train their steps; one of
+        # size 3 (the grow admitting one standby first) may not.
+        trained = _check_fleet_generations(
+            label, events, [g for g, n in size_of.items()
+                            if n in (AUTOSCALE_RANKS, AUTOSCALE_SMALL)])
+        rescales = _policy_records(events, "policy.rescale")
+        targets = [e for e in events if e["kind"] == "target"]
+        r0 = next(e for e in done if e["rank"] == 0)
+        _check(r0["policy"].get("policy.rescales", 0) >= 2,
+               f"{label}: policy counters {r0['policy']}")
+        by_size = {}
+        for g, ms in r0["step_ms"].items():
+            by_size.setdefault(size_of[int(g)], []).extend(ms)
+        asked = [(t["n"], t["step"], t["tick"]) for t in targets]
+        print(f"{label}: {wall_s:.1f} s; targets written by rank 0 "
+              f"(target, step, tick): {asked}; rescales (tick, what): "
+              f"{[(r['tick'], r['detail']) for r in rescales]}; "
+              f"generations {sorted(size_of.items())}; steps a rank "
+              f"{trained}; relaunched standbys on cards {back}; rank 0 "
+              f"step ms by size {by_size}; elastic.downtime_seconds "
+              f"{r0['downtime']}, elastic.rebuild_seconds {r0['rebuild']}, "
+              f"elastic.resume_seconds {r0['resume']}; policy counters "
+              f"{r0['policy']}")
+        return {"done": done, "wall_s": wall_s, "trained": trained}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _hist_median(h: dict):
+    """The upper bound of the bucket that holds a native histogram's
+    median (None when empty)."""
+    counts, bounds = h.get("counts", []), h.get("bounds", [])
+    total = sum(counts)
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if total and seen * 2 >= total:
+            return bounds[i] if i < len(bounds) else math.inf
+    return None
+
+
+def _topo_train_worker(run: str, rank: int, port: int, results) -> None:
+    """Phase 37 on one of four cards: the headline model from one seed,
+    this rank's own batch, ``TOPO_STEPS`` steps through
+    ``DistributedOptimizer(eager=True, overlap=True)`` under
+    ``HOROVOD_TPU_CONTROL_TOPO`` = ``run`` without its trailing digits
+    (``flat2`` is a second ``flat`` run), on fake host
+    ``HIER_HOSTS[rank]``."""
+    try:
+        topo = run.rstrip("0123456789")
+        os.environ.update({
+            "HOROVOD_TPU_SIZE": "4", "HOROVOD_TPU_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_SIZE": "1",
+            "HOROVOD_TPU_LOCAL_RANK": str(rank),
+            "HOROVOD_TPU_COORD_ADDR": f"127.0.0.1:{port + 1}",
+            "HOROVOD_TPU_HOST_FINGERPRINT": HIER_HOSTS[rank],
+            "HOROVOD_TPU_CONTROL_TOPO": topo,
+            # One NCCL call a bucket, whatever the ticks' timing: the
+            # scheduler's buckets are the same in every run.
+            "HOROVOD_TPU_FUSION_THRESHOLD": "0"})
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch import checkpoint
+        from horovod_tpu_torch.ops import _cuda
+        hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=dev).manual_seed(SEED + 50 + rank)
+        tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                               device=dev)
+        model, _, _ = _train_setup(DEPTH)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            eager=True, overlap=True)
+        _cuda.reset_launches()
+        losses, times = [], []
+        for _ in range(TOPO_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            losses.append(_sgd_step(model, opt, tokens))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: _cuda.LAUNCHES[k] for k in FLASH}
+        fps = _state_fingerprints(checkpoint.model_state(model, opt))
+        m = hvd.metrics()
+        out = {"losses": losses, "times_ms": times, "launches": launches,
+               "fp": _digest(fps), "leaves": fps, "device": dev.index,
+               "agg_depth": m["gauges"].get("control.agg_depth"),
+               "merged_frames": m["counters"].get("control.merged_frames",
+                                                  0),
+               "tick_median_s": _hist_median(
+                   m["histograms"].get("control.tick_seconds", {})),
+               "ticks": m["counters"].get("control.ticks", 0)}
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def phase_topo_nccl():
+    """Phase 37: the hierarchical control topology on four cards (only
+    with four or more; otherwise a line says it did not run): four
+    processes on fake hosts A, A, B, B train the headline model from one
+    seed ``TOPO_STEPS`` steps under ``flat`` and under ``hier``; losses
+    and final states bit-identical (else held to the difference between
+    two ``flat`` runs), ``control.agg_depth`` 1.0 and 2.0, P1-P3 depth x
+    steps."""
+    import functools
+    if torch.cuda.device_count() < 4:
+        print("topo nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    label = "topo nccl"
+    runs = {}
+    for topo in ("flat", "hier"):
+        got = _spawn(functools.partial(_topo_train_worker, topo), 4)
+        _check(all(isinstance(got.get(r), dict) for r in range(4)),
+               f"{label} ({topo}) failed: {got}")
+        runs[topo] = got
+    for topo, got in runs.items():
+        want = 1.0 if topo == "flat" else 2.0
+        for r in range(4):
+            o = got[r]
+            print(f"{label} {topo} rank {r} (cuda:{o['device']}, host "
+                  f"{HIER_HOSTS[r]}): losses {o['losses']}, step ms "
+                  f"{[round(t, 1) for t in o['times_ms']]}, "
+                  f"control.tick_seconds median bucket <= "
+                  f"{o['tick_median_s']} s over {o['ticks']} ticks, "
+                  f"agg_depth {o['agg_depth']}, merged frames "
+                  f"{o['merged_frames']}, P1-P3 {o['launches']}")
+            _check(all(math.isfinite(x) for x in o["losses"])
+                   and all(n == DEPTH * TOPO_STEPS
+                           for n in o["launches"].values()),
+                   f"{label} {topo} rank {r}: losses {o['losses']}, "
+                   f"launches {o['launches']}")
+        _check(got[0]["agg_depth"] == want,
+               f"{label} {topo}: control.agg_depth {got[0]['agg_depth']}, "
+               f"not {want}")
+    _check(runs["hier"][0]["merged_frames"] > 0
+           and runs["flat"][0]["merged_frames"] == 0,
+           f"{label}: merged frames flat {runs['flat'][0]['merged_frames']}"
+           f", hier {runs['hier'][0]['merged_frames']}")
+
+    def distance(a: str, b: str):
+        """(largest loss difference, leaves whose bits differ) over the
+        ranks of runs ``a`` and ``b``."""
+        loss = max(abs(x - y) for r in range(4) for x, y in zip(
+            runs[a][r]["losses"], runs[b][r]["losses"]))
+        leaves = max(sum(runs[a][r]["leaves"][k] != runs[b][r]["leaves"][k]
+                         for k in runs[a][r]["leaves"]) for r in range(4))
+        return loss, leaves
+
+    hier_d = distance("flat", "hier")
+    if hier_d == (0.0, 0):
+        print(f"{label}: hier bit-identical to flat on every rank (losses "
+              f"and every leaf of the final state)")
+    else:
+        got = _spawn(functools.partial(_topo_train_worker, "flat2"), 4)
+        _check(all(isinstance(got.get(r), dict) for r in range(4)),
+               f"{label} (second flat) failed: {got}")
+        runs["flat2"] = got
+        flat_d = distance("flat", "flat2")
+        print(f"{label}: hier against flat: largest loss difference "
+              f"{hier_d[0]:.3e}, {hier_d[1]} leaves differ; flat against "
+              f"flat: {flat_d[0]:.3e}, {flat_d[1]} leaves")
+        _check(hier_d[0] <= flat_d[0] and hier_d[1] <= flat_d[1],
+               f"{label}: hier strays from flat further than two flat "
+               f"runs from each other: {hier_d} against {flat_d}")
+    return runs
 
 
 def _spawn(target, n: int, timeout: float = 300) -> dict:
@@ -5033,6 +5586,13 @@ def main() -> None:
     phase_elastic_nccl()
     _free()
     auto_nccl = phase_auto_nccl()
+    _free()
+    # Phases 35-37 also run while this process holds little on card 0.
+    phase_evict_nccl()
+    _free()
+    phase_autoscale_nccl()
+    _free()
+    phase_topo_nccl()
     _free()
     f32_launches = phase_models_f32()
     _free()

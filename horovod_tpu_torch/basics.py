@@ -125,6 +125,14 @@ def _warm_world(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _abort_world() -> None:
+    """Abort the world group's communicators, never waiting on them (a
+    peer of theirs is gone, or this process left the membership)."""
+    if dist.is_initialized() and _state.owns_world:
+        dist.distributed_c10d._abort_process_group()
+    _state.owns_world = False
+
+
 def _rebuild_world(generation: int, size: int, rank: int) -> float:
     """Replace the world group for membership ``generation`` (the
     controller's reconfigure, before it wakes the training threads):
@@ -133,9 +141,7 @@ def _rebuild_world(generation: int, size: int, rank: int) -> float:
     (none at size 1).  Returns the seconds it took.  Raises on failure:
     a CUDA job never goes on over gloo or the host."""
     t0 = time.perf_counter()
-    if dist.is_initialized() and _state.owns_world:
-        dist.distributed_c10d._abort_process_group()
-    _state.owns_world = False
+    _abort_world()
     if size > 1:
         _init_world(_state.kind, size, rank, None, generation)
         _warm_world(_state.device)

@@ -857,7 +857,9 @@ def _broadcast_state(state: Any, root_rank: int = 0,
         elif isinstance(leaf, np.ndarray) and leaf.dtype != _BF16_RAW:
             t = torch.from_numpy(np.ascontiguousarray(leaf))
         elif isinstance(leaf, (bool, int, float)):
-            t = torch.tensor(leaf)
+            # A Python float is a double: float32 would round it.
+            t = torch.tensor(leaf, dtype=torch.float64
+                             if isinstance(leaf, float) else None)
         else:
             handles.append(None)
             continue

@@ -32,9 +32,16 @@ in-flight entry RETRYABLE.  Under the precision autopilot
 (``HOROVOD_TPU_PRECISION=auto``) each request frame carries the residual
 reports queued since the last tick (``FLAG_PRECISION_EXT``), and the
 coordinator's stamped ``wire_dtype`` reaches the host data plane through
-the response.  Non-default process sets and the fleet policy's eviction
-and autoscaling are not ported yet: their knobs raise
-``NotImplementedError`` (ROADMAP Queue 1).
+the response.  The fleet policy's other actuators act inside the native
+coordinator (``HOROVOD_TPU_EVICT_THRESHOLD``, ``HOROVOD_TPU_AUTOSCALE``,
+``HOROVOD_TPU_AUTOSCALE_FILE``): a demoted straggler or a process a
+shrink parks finds itself out of the member table and latches the
+native "evicted from the membership" abort, on which this controller
+also aborts its world group, so that the process exits without waiting
+on a collective of the old generation; the survivors reconfigure in the
+order the native plane gives them (fastest first under
+``HOROVOD_TPU_POLICY_RERANK``).  Non-default process sets are not ported
+yet: their knob raises ``NotImplementedError`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -1053,6 +1060,10 @@ class _LocalResponseCache:
         self._sets.clear()
 
 
+# The native abort text of a process the elastic coordinator left out of
+# a new generation (control.cc ApplyReconfigure).
+EVICTED_PREFIX = "evicted from the membership at generation "
+
 # Knobs of modules that are not ported yet, and where ROADMAP lists them.
 _UNPORTED_KNOBS = (
     ("HOROVOD_TPU_PROCESS_SETS", "non-default process sets",
@@ -1063,21 +1074,6 @@ _UNPORTED_KNOBS = (
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"horovod_tpu_torch: {what} is not ported yet (ROADMAP {where})")
-
-
-def _refuse_fleet_actuators() -> None:
-    """The fleet policy's straggler eviction and autoscaling are not wired
-    into this controller: refuse the knobs that arm them (the native
-    coordinator would otherwise act on them on its own).  The precision
-    ladder, the policy's third actuator, is wired."""
-    from horovod_tpu_torch import policy
-    pol = policy.FleetPolicy()
-    if pol.evict_enabled():
-        raise _not_ported("straggler eviction "
-                          "(HOROVOD_TPU_EVICT_THRESHOLD)", "Queue 1 item 3")
-    if pol.autoscale_enabled():
-        raise _not_ported("scripted autoscaling (HOROVOD_TPU_AUTOSCALE, "
-                          "HOROVOD_TPU_AUTOSCALE_FILE)", "Queue 1 item 3")
 
 
 class Controller:
@@ -1110,7 +1106,6 @@ class Controller:
         for knob, what, where in _UNPORTED_KNOBS:
             if env_flag(knob):
                 raise _not_ported(f"{what} ({knob})", where)
-        _refuse_fleet_actuators()
 
         # Fail fast on malformed fault specs: the native core parses the
         # same variable leniently (warn + ignore), which would make a typo'd
@@ -1135,6 +1130,12 @@ class Controller:
         # only): published after rank()/size() report the new world, for
         # elastic.generation().
         self._adopted_generation: Optional[int] = None
+        # The generation the training code runs in (``run_elastic`` sets
+        # it at each entry of ``train``; None outside it), and the status
+        # of the last reconfigure: a collective submitted from an older
+        # generation completes with it at once (see enqueue).
+        self.expected_generation: Optional[int] = None
+        self._reconfigure_status: Optional[Status] = None
         # Host grouping (None = not discovered; single-process jobs don't
         # need it).
         self.host_local_rank: Optional[int] = None
@@ -1467,6 +1468,17 @@ class Controller:
             # draining, so an entry can never land in a dead controller.
             if self._shutdown.is_set():
                 return SHUT_DOWN_ERROR
+            if (self.expected_generation is not None
+                    and self.generation != self.expected_generation):
+                # The caller began its step in an older membership
+                # generation (a planned reconfigure can land between two
+                # of its collectives, none of them in flight): the new
+                # world's members never submit this one, so it completes
+                # RETRYABLE like an entry the reconfigure found in flight.
+                # Checked under the lock _fail_all sweeps the table with,
+                # after the new generation is published: no entry falls
+                # between the two.
+                return self._reconfigure_status
             if entry.name in self._tensor_table:
                 return Status.invalid_argument(
                     f"Duplicate tensor name in queue: {entry.name}. "
@@ -1662,6 +1674,15 @@ class Controller:
             else:
                 status = self._abort_status
             self._shutdown.set()
+        if reason.startswith(EVICTED_PREFIX):
+            # Demoted or parked by the elastic coordinator (control.cc
+            # ApplyReconfigure): the others already left this
+            # generation's world group, so abort it here too -- the
+            # process exits without waiting on it.  All CUDA collectives
+            # run on this thread, so none is in flight.
+            from horovod_tpu_torch import basics
+            if basics._state.controller is self:
+                basics._abort_world()
         self._fail_all(status)
 
     def _handle_reconfigure(self, ext):
@@ -1696,6 +1717,7 @@ class Controller:
             self._pending_report = None
             self._last_reported = None
             self._stall_warned.clear()
+            self._reconfigure_status = status
         old_pidx = self.topology.process_index
         pidx, pcount, first_rank, generation = self._control.membership()
         new_size = pcount
@@ -1714,9 +1736,12 @@ class Controller:
         self.topology = dataclasses.replace(base, rank=first_rank,
                                             size=new_size)
         self.size = new_size
-        # Dense re-rank: one rank per process, so the rank map is pure
-        # arithmetic -- no layout re-exchange over a ring whose peers are
-        # mid-training.
+        # The order is the native plane's (survivors fastest first under
+        # the fleet policy's re-rank, admitted standbys after them), and
+        # first_rank above is this process's seat in it, as is its rank
+        # in the rebuilt group.  One rank per process, so the rank map is
+        # the identity -- no layout re-exchange over a ring whose peers
+        # are mid-training.
         self._rank_to_process.clear()
         for r in range(new_size):
             self._rank_to_process[r] = r

@@ -1,15 +1,18 @@
 """ctypes binding of the framework-agnostic native core (``cpp/htpu``).
 
-Port of ``horovod_tpu/cpp_core.py``, for what the eager plane calls:
-``load`` / ``available`` / ``_configure`` (:35, :395, :438), the flight
-recorder hooks, :class:`CppMessageTable` (:515), :func:`cpp_plan_fusion`
-(:581), :func:`cpp_plan_tick` (:611), :func:`cpp_resolve_algo` (:632),
-:class:`CppControlPlane` (:1202), :class:`CppTimeline` (:1383), the metrics
-snapshot, CRC32C and the request-list round trip the tests hold frames
-with; :class:`NativeBucketPlanner` (:644) and the observatory bindings
-(:1086-1135); the fleet policy's bindings (:275-337) and
-:class:`NativeFleetPolicy` (:705) with its precision ladder (:787-835).
-The process-set table is not ported yet (ROADMAP Queue 1 item 3).
+Port of ``horovod_tpu/cpp_core.py``: ``load`` / ``available`` /
+``_configure`` (:35, :395, :438), the flight recorder (:455-512: record,
+dump, snapshot, capacity, rank), :class:`CppMessageTable` (:515),
+:func:`cpp_plan_fusion` (:581), :func:`cpp_plan_tick` (:611),
+:func:`cpp_resolve_algo` (:632), :class:`CppControlPlane` (:1202),
+:class:`CppTimeline` (:1383), the metrics snapshot and reset, the wire
+codec hooks (:941-993), ``sum_into`` (:995), CRC32C (:1174-1200), the
+request-list round trip, the aggregation tier's ``agg_merge`` /
+``agg_roundtrip`` (:1054-1083); :class:`NativeBucketPlanner` (:644) and
+the observatory bindings (:1086-1171); the fleet policy's bindings
+(:275-337) and :class:`NativeFleetPolicy` (:705) with its precision
+ladder (:787-835).  The process-set table (``CppProcessSetTable``, :863)
+waits for the process-set slice (ROADMAP Queue 1 item 3).
 
 The library is the reference's own C++ core, built by the reference's
 Makefile into a path this package owns::
@@ -239,6 +242,60 @@ def _configure(lib) -> None:
         f = getattr(lib, f"htpu_policy_{fn}")
         f.restype = res
         f.argtypes = args
+    # The unit-test hooks and the rest of the reference's surface
+    # (horovod_tpu/cpp_core.py), under the reference's guards.
+    lib.htpu_wire_roundtrip.restype = ctypes.c_longlong
+    lib.htpu_wire_roundtrip.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p]
+    for fn in ("htpu_wire_encode", "htpu_wire_decode"):
+        f = getattr(lib, fn, None)
+        if f is not None:
+            f.restype = ctypes.c_longlong
+            f.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
+                          ctypes.c_longlong, ctypes.c_void_p]
+    if hasattr(lib, "htpu_wire_bytes"):
+        lib.htpu_wire_bytes.restype = ctypes.c_longlong
+        lib.htpu_wire_bytes.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+    lib.htpu_sum_into.restype = ctypes.c_int
+    lib.htpu_sum_into.argtypes = [
+        ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong]
+    lib.htpu_metrics_reset.restype = None
+    lib.htpu_metrics_reset.argtypes = []
+    if hasattr(lib, "htpu_flight_record"):
+        lib.htpu_flight_set_capacity.restype = None
+        lib.htpu_flight_set_capacity.argtypes = [ctypes.c_longlong]
+        lib.htpu_flight_set_rank.restype = None
+        lib.htpu_flight_set_rank.argtypes = [ctypes.c_int]
+        lib.htpu_flight_snapshot.restype = ctypes.c_int
+        lib.htpu_flight_snapshot.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)]
+    if hasattr(lib, "htpu_observe_enabled"):
+        lib.htpu_observe_record_xfer.restype = None
+        lib.htpu_observe_record_xfer.argtypes = [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_double]
+        lib.htpu_observe_trailer_encode.restype = ctypes.c_int
+        lib.htpu_observe_trailer_encode.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.htpu_observe_trailer_probe.restype = ctypes.c_int
+        lib.htpu_observe_trailer_probe.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+    # The aggregation tier of the hierarchical control topology.
+    if hasattr(lib, "htpu_agg_merge"):
+        lib.htpu_agg_merge.restype = ctypes.c_int
+        lib.htpu_agg_merge.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p)]
+        lib.htpu_agg_roundtrip.restype = ctypes.c_int
+        lib.htpu_agg_roundtrip.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+    if hasattr(lib, "htpu_crc32c"):
+        lib.htpu_crc32c_sw.restype = ctypes.c_uint
+        lib.htpu_crc32c_sw.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.htpu_crc32c_hw.restype = ctypes.c_int
+        lib.htpu_crc32c_hw.argtypes = []
 
 
 def _make() -> None:
@@ -317,6 +374,28 @@ def flight_record(kind: str, detail: str = "", nbytes: int = 0,
                                int(nbytes), int(a), int(b))
 
 
+def _flight_lib():
+    """The loaded library iff it exports the flight-recorder API, else
+    None -- the helpers below are no-ops without the native core."""
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_flight_record"):
+        return None
+    return lib
+
+
+def flight_set_capacity(events: int) -> None:
+    """Resize the ring to ``events`` events (drops what it holds)."""
+    lib = _flight_lib()
+    if lib is not None:
+        lib.htpu_flight_set_capacity(int(events))
+
+
+def flight_set_rank(rank: int) -> None:
+    lib = _flight_lib()
+    if lib is not None:
+        lib.htpu_flight_set_rank(int(rank))
+
+
 def flight_dump(why: str = "manual") -> str:
     """Dump the ring to its per-rank JSON file; returns the path, or ""
     when the dump failed or the native core is absent."""
@@ -325,6 +404,21 @@ def flight_dump(why: str = "manual") -> str:
         return ""
     out = ctypes.c_void_p()
     n = lib.htpu_flight_dump(why.encode("utf-8"), ctypes.byref(out))
+    if n < 0:
+        return ""
+    return _take_buffer(lib, out, n).decode("utf-8", errors="replace")
+
+
+def flight_snapshot(why: str = "snapshot") -> str:
+    """The ring serialized as JSON (without touching disk); "" when the
+    native core is absent.  Its ``events`` carry the fleet policy's
+    ``policy.evict``, ``policy.rescale`` and ``policy.rerank`` records
+    with the tick of each."""
+    lib = _flight_lib()
+    if lib is None:
+        return ""
+    out = ctypes.c_void_p()
+    n = lib.htpu_flight_snapshot(why.encode("utf-8"), ctypes.byref(out))
     if n < 0:
         return ""
     return _take_buffer(lib, out, n).decode("utf-8", errors="replace")
@@ -691,6 +785,75 @@ def wire_request_list_roundtrip(frame: bytes):
 
 
 
+def wire_roundtrip(wire_dtype: str, values):
+    """Encode -> decode a float32 array through the ring wire codec
+    (chunked exactly like the data plane); returns ``(decoded,
+    wire_bytes)``.  Unit-test hook for the quantizers."""
+    import numpy as np
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native core not available")
+    arr = np.ascontiguousarray(values, dtype=np.float32)
+    out = np.empty_like(arr)
+    nbytes = lib.htpu_wire_roundtrip(
+        wire_dtype.encode("utf-8"), arr.ctypes.data, arr.size,
+        out.ctypes.data)
+    if nbytes < 0:
+        raise ValueError(f"unknown wire dtype: {wire_dtype!r}")
+    return out, int(nbytes)
+
+
+def wire_encode(wire_dtype: str, values) -> bytes:
+    """Encode a float32 array into the ring's wire image
+    (``EncodeWireChunk`` framing, per 64K-element sub-chunk)."""
+    import numpy as np
+    lib = load()
+    if lib is None or getattr(lib, "htpu_wire_encode", None) is None:
+        raise RuntimeError("native core wire codec not available")
+    arr = np.ascontiguousarray(values, dtype=np.float32).reshape(-1)
+    total = lib.htpu_wire_bytes(wire_dtype.encode("utf-8"), arr.size)
+    if total < 0:
+        raise ValueError(f"unknown wire dtype: {wire_dtype!r}")
+    out = np.empty(int(total), dtype=np.uint8)
+    rc = lib.htpu_wire_encode(wire_dtype.encode("utf-8"), arr.ctypes.data,
+                              arr.size, out.ctypes.data)
+    if rc < 0:
+        raise ValueError(f"wire encode failed for {wire_dtype!r}")
+    return out.tobytes()
+
+
+def wire_decode(wire_dtype: str, buf: bytes, n_elems: int):
+    """Decode a wire image produced by :func:`wire_encode` back to
+    float32."""
+    import numpy as np
+    lib = load()
+    if lib is None or getattr(lib, "htpu_wire_decode", None) is None:
+        raise RuntimeError("native core wire codec not available")
+    inp = np.frombuffer(buf, dtype=np.uint8)
+    out = np.empty(n_elems, dtype=np.float32)
+    rc = lib.htpu_wire_decode(wire_dtype.encode("utf-8"), inp.ctypes.data,
+                              n_elems, out.ctypes.data)
+    if rc < 0:
+        raise ValueError(f"wire decode failed for {wire_dtype!r}")
+    return out
+
+
+def sum_into(dtype: str, acc, inp) -> None:
+    """Native ``acc += inp`` elementwise (reduce.h SumInto) on two
+    C-contiguous same-size numpy arrays; ``dtype`` is the htpu dtype name
+    (may differ from the arrays' numpy dtype -- e.g. "bfloat16" over
+    uint16 storage)."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native core not available")
+    if acc.nbytes != inp.nbytes:
+        raise ValueError("size mismatch")
+    rc = lib.htpu_sum_into(dtype.encode("utf-8"), acc.ctypes.data,
+                           inp.ctypes.data, acc.nbytes)
+    if rc != 0:
+        raise ValueError(f"SumInto failed for dtype {dtype!r}")
+
+
 def _parse_stall_records(data: bytes):
     """Decode the stall wire format (c_api.cc SerializeStallRecords):
     repeated { name_len:i32 name age:f64 n_missing:i32 ranks:i32[n] },
@@ -727,6 +890,80 @@ def metrics_snapshot() -> dict:
     return json.loads(_take_buffer(lib, out, n).decode("utf-8"))
 
 
+def metrics_reset() -> None:
+    """Zero every native counter/gauge/histogram (tests, bench windows)."""
+    lib = load()
+    if lib is not None:
+        lib.htpu_metrics_reset()
+
+
+def agg_merge(a: bytes, b: bytes):
+    """Fold serialized aggregation container ``b`` into ``a`` through the
+    native merge (cpp/htpu/aggregate.cc) and return the canonical merged
+    container bytes; ``None`` without the native core; ``ValueError`` on
+    a corrupt container -- the seam that holds
+    :mod:`horovod_tpu_torch.aggregate` to the native code."""
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_agg_merge"):
+        return None
+    out = ctypes.c_void_p()
+    n = lib.htpu_agg_merge(a, len(a), b, len(b), ctypes.byref(out))
+    if n < 0:
+        raise ValueError("corrupt aggregation container")
+    return _take_buffer(lib, out, n)
+
+
+def agg_roundtrip(buf: bytes):
+    """Parse + canonically re-serialize one aggregation container through
+    the native code; ``None`` without the native core; ``ValueError`` on
+    a corrupt container."""
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_agg_roundtrip"):
+        return None
+    out = ctypes.c_void_p()
+    n = lib.htpu_agg_roundtrip(buf, len(buf), ctypes.byref(out))
+    if n < 0:
+        raise ValueError("corrupt aggregation container")
+    return _take_buffer(lib, out, n)
+
+
+def observe_record_xfer(leg: int, sent_bytes: int, recv_bytes: int,
+                        seconds: float) -> None:
+    """Test seam: record one transfer on leg 0..3 (classic/shm/uring/
+    ctrl) without driving a real job."""
+    lib = load()
+    if lib is not None and hasattr(lib, "htpu_observe_record_xfer"):
+        lib.htpu_observe_record_xfer(leg, sent_bytes, recv_bytes, seconds)
+
+
+def observe_trailer_encode() -> bytes:
+    """The telemetry trailer this process would append to its next tick
+    frame -- b"" when the observatory is off."""
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_observe_trailer_encode"):
+        return b""
+    out = ctypes.c_void_p()
+    n = lib.htpu_observe_trailer_encode(ctypes.byref(out))
+    if n <= 0:
+        return b""
+    return _take_buffer(lib, out, n)
+
+
+def observe_trailer_probe(blob: bytes) -> dict:
+    """Strip-probe arbitrary frame bytes the way the coordinator does:
+    ``{"stripped": bool, "payload_len": int, "sample": {...}}``; empty
+    dict without the native core."""
+    import json
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_observe_trailer_probe"):
+        return {}
+    out = ctypes.c_void_p()
+    n = lib.htpu_observe_trailer_probe(blob, len(blob), ctypes.byref(out))
+    if n < 0:
+        return {}
+    return json.loads(_take_buffer(lib, out, n).decode("utf-8"))
+
+
 def crc32c_native(data):
     """CRC32C (Castagnoli) via the native runtime-dispatched path (SSE4.2
     when available); ``None`` when the native core is unavailable —
@@ -743,6 +980,23 @@ def crc32c_native(data):
         return int(lib.htpu_crc32c(data.ctypes.data if data.nbytes else None,
                                    data.nbytes))
     return int(lib.htpu_crc32c(data, len(data)))
+
+
+def crc32c_native_sw(data: bytes):
+    """The native software (table) path, regardless of CPU support -- for
+    pinning hardware == software == Python on the same inputs."""
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_crc32c_sw"):
+        return None
+    return int(lib.htpu_crc32c_sw(data, len(data)))
+
+
+def crc32c_hardware() -> bool:
+    """True when the native dispatcher selected the SSE4.2 path."""
+    lib = load()
+    if lib is None or not hasattr(lib, "htpu_crc32c_hw"):
+        return False
+    return bool(lib.htpu_crc32c_hw())
 
 
 class CppControlPlane:

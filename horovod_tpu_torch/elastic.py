@@ -178,41 +178,54 @@ def run_elastic(train: Callable[[Any, int], Any], *, directory: str,
     cadence = (snapshot_every_steps if snapshot_every_steps is not None
                else ckpt_stream.snapshot_every_steps_default())
     use_stream = cadence > 0 or ckpt_stream.async_enabled()
+    controller = basics.controller() if basics.is_initialized() else None
     attempts = 0
-    while True:
-        # The restore itself runs collectives (epoch agreement + state
-        # broadcast), so a membership change landing mid-restore retries
-        # the same way one landing mid-train does.
-        try:
-            t0 = time.monotonic()
-            state, epoch = checkpoint.restore_and_broadcast(
-                directory, like, root_rank=root_rank,
-                optional_keys=optional_keys)
-            if attempts:
-                _metrics.registry.observe("elastic.resume_seconds",
-                                          time.monotonic() - t0)
-                _metrics.registry.set_gauge("elastic.last_resume_s",
-                                            time.monotonic() - t0)
-            if use_stream and basics.rank() == root_rank:
-                _stream = ckpt_stream.AsyncCheckpointer(
-                    directory, snapshot_every_steps=cadence)
-                _stream.seed(state, epoch)
+    try:
+        while True:
+            if controller is not None and generation() >= 0:
+                # Each entry of train runs in one generation: a
+                # collective submitted once the controller has adopted
+                # another completes RETRYABLE instead of waiting for
+                # members that restore (core.Controller.enqueue).  The
+                # controller's own view: the native plane's number moves
+                # before the controller adopts it.
+                controller.expected_generation = controller.generation
+            # The restore itself runs collectives (epoch agreement + state
+            # broadcast), so a membership change landing mid-restore retries
+            # the same way one landing mid-train does.
             try:
-                result = train(state, epoch)
-                if _stream is not None:
-                    # Surface a pending writer failure before declaring
-                    # success; on a clean exit the final snapshot commits.
-                    _stream.flush()
-                return result
-            finally:
-                if _stream is not None:
-                    _stream.close(flush=False)
-                    _stream = None
-        except HorovodRetryableError as exc:
-            attempts += 1
-            if attempts > max_reconfigures:
-                raise
-            print(f"horovod_tpu elastic: membership changed (generation "
-                  f"{generation()}): {exc}; restoring from "
-                  f"{directory!r} and re-entering train "
-                  f"(reconfiguration {attempts})", file=sys.stderr)
+                t0 = time.monotonic()
+                state, epoch = checkpoint.restore_and_broadcast(
+                    directory, like, root_rank=root_rank,
+                    optional_keys=optional_keys)
+                if attempts:
+                    _metrics.registry.observe("elastic.resume_seconds",
+                                              time.monotonic() - t0)
+                    _metrics.registry.set_gauge("elastic.last_resume_s",
+                                                time.monotonic() - t0)
+                if use_stream and basics.rank() == root_rank:
+                    _stream = ckpt_stream.AsyncCheckpointer(
+                        directory, snapshot_every_steps=cadence)
+                    _stream.seed(state, epoch)
+                try:
+                    result = train(state, epoch)
+                    if _stream is not None:
+                        # Surface a pending writer failure before declaring
+                        # success; on a clean exit the final snapshot commits.
+                        _stream.flush()
+                    return result
+                finally:
+                    if _stream is not None:
+                        _stream.close(flush=False)
+                        _stream = None
+            except HorovodRetryableError as exc:
+                attempts += 1
+                if attempts > max_reconfigures:
+                    raise
+                print(f"horovod_tpu elastic: membership changed (generation "
+                      f"{generation()}): {exc}; restoring from "
+                      f"{directory!r} and re-entering train "
+                      f"(reconfiguration {attempts})", file=sys.stderr)
+    finally:
+        if controller is not None:
+            controller.expected_generation = None

@@ -26,12 +26,12 @@ them into *planned* reconfigures through the elastic machinery —
   int8) from measured residual norms, armed by
   ``HOROVOD_TPU_PRECISION=auto``.
 
-In this package only the precision ladder is wired into a job (the
-native coordinator runs its own copy inside the ControlPlane, and
-:mod:`horovod_tpu_torch.precision` keeps a per-process mirror); the
-controller arms neither eviction nor autoscaling, whose knobs raise at
-``hvd.init`` (ROADMAP Queue 1 item 3).  Their decision methods are here
-whole and held against the reference by the parity tests.
+In a job the native coordinator runs its own copy of this engine inside
+the ControlPlane, armed by the same knobs at ``hvd.init``: it evicts,
+re-ranks and rescales, and :mod:`horovod_tpu_torch.core` follows its
+reconfigures (:mod:`horovod_tpu_torch.precision` keeps a per-process
+mirror of the ladder).  This mirror is the executable specification,
+held against the reference and the native engine by the parity tests.
 """
 
 from __future__ import annotations

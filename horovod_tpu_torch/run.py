@@ -24,7 +24,13 @@ options set.  The port adds:
   (several hosts) the store is at ``host:port+1``, hosted by the launcher
   whose ``--process-index-base`` is 0.
 
-``--autoscale-script`` is not ported yet (ROADMAP Queue 1 item 3).
+``--autoscale-script "tick:<T>=<procs>,..."`` (elastic only) is validated
+by :func:`horovod_tpu_torch.policy.parse_autoscale_script` and handed to
+every child as ``HOROVOD_TPU_AUTOSCALE``; the coordinator shrinks (the
+highest process indices leave as evicted processes) and grows (parked
+standbys are admitted) the world to each target.  An evicted, demoted or
+parked child exits non-zero and is relaunched as a standby on the card it
+freed, against ``--max-restarts``, as a crashed one is.
 """
 
 from __future__ import annotations
@@ -122,7 +128,11 @@ def main(argv=None):
                         "(elastic mode)")
     p.add_argument("--autoscale-script", default="",
                    help="scripted elastic autoscaling (elastic mode only): "
-                        "not ported yet (ROADMAP Queue 1 item 3)")
+                        "a tick:<T>=<procs>,... schedule, validated here "
+                        "and handed to the coordinator (sets "
+                        "HOROVOD_TPU_AUTOSCALE in every child), which "
+                        "grows/shrinks the world to each target via "
+                        "planned reconfigures (docs/elasticity.md)")
     p.add_argument("--ckpt-async", action="store_true",
                    help="async incremental checkpointing (sets "
                         "HOROVOD_TPU_CKPT_ASYNC=1): run_elastic snapshots "
@@ -141,7 +151,13 @@ def main(argv=None):
     if args.autoscale_script:
         if not args.elastic:
             p.error("--autoscale-script requires --elastic")
-        p.error("--autoscale-script: not ported (ROADMAP Queue 1 item 3)")
+        # Fail at launch on a typo'd schedule: the native parser is
+        # lenient (warn + drop), which would silently run unscaled.
+        from horovod_tpu_torch.policy import parse_autoscale_script
+        try:
+            parse_autoscale_script(args.autoscale_script)
+        except ValueError as e:
+            p.error(f"--autoscale-script: {e}")
 
     cmd = args.command
     if cmd and cmd[0] == "--":
@@ -177,6 +193,8 @@ def main(argv=None):
             if args.elastic_min_ranks > 0:
                 env["HOROVOD_TPU_ELASTIC_MIN_RANKS"] = str(
                     args.elastic_min_ranks)
+            if args.autoscale_script:
+                env["HOROVOD_TPU_AUTOSCALE"] = args.autoscale_script
         if standby:
             env["HOROVOD_TPU_STANDBY"] = "1"
         if args.ckpt_async or args.snapshot_every_steps > 0:

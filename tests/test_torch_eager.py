@@ -254,10 +254,7 @@ def test_synchronize_timeout_abandons_the_handle(size1):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("HOROVOD_TPU_PROCESS_SETS", "a:0"),
-    ("HOROVOD_TPU_EVICT_THRESHOLD", "0.5"),
-    ("HOROVOD_TPU_AUTOSCALE", "tick:5=2"),
-    ("HOROVOD_TPU_AUTOSCALE_FILE", "target.txt")])
+    ("HOROVOD_TPU_PROCESS_SETS", "a:0")])
 def test_unported_modes_raise_at_init(monkeypatch, knob, value):
     for var in ("SIZE", "RANK", "LOCAL_RANK", "LOCAL_SIZE"):
         monkeypatch.delenv("HOROVOD_TPU_" + var, raising=False)
@@ -266,6 +263,45 @@ def test_unported_modes_raise_at_init(monkeypatch, knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("HOROVOD_TPU_EVICT_THRESHOLD", "0.5"),
+    ("HOROVOD_TPU_AUTOSCALE", "tick:5=2"),
+    ("HOROVOD_TPU_AUTOSCALE_FILE", "target.txt")])
+def test_fleet_knobs_arm_the_policy_at_init(monkeypatch, tmp_path, knob,
+                                            value):
+    """The fleet policy's eviction and autoscaling knobs, once refused at
+    init, now arm the policy as the reference's do: a job of one process
+    initializes, and the policy the native coordinator builds from the
+    same environment (and its Python twin) is armed exactly as the JAX
+    package's (eviction, autoscaling, re-rank, the standing target)."""
+    from horovod_tpu import policy as ref_policy
+    from horovod_tpu_torch import cpp_core, policy
+    for var in ("SIZE", "RANK", "LOCAL_RANK", "LOCAL_SIZE", "COORD_ADDR",
+                "ELASTIC", "STANDBY", "EVICT_THRESHOLD", "AUTOSCALE",
+                "AUTOSCALE_FILE", "POLICY_RERANK", "PRECISION"):
+        monkeypatch.delenv("HOROVOD_TPU_" + var, raising=False)
+    if knob == "HOROVOD_TPU_AUTOSCALE_FILE":
+        (tmp_path / value).write_text("3\n")
+        value = str(tmp_path / value)
+    monkeypatch.setenv(knob, value)
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        assert hvd.is_initialized() and hvd.size() == 1
+
+        def arming(pol):
+            return (pol.evict_enabled(), pol.autoscale_enabled(),
+                    pol.active(), pol.rerank_enabled(),
+                    pol.autoscale_target(10))
+        got, want = arming(policy.FleetPolicy()), arming(
+            ref_policy.FleetPolicy())
+        assert got == want and got[2] and got[3]
+        native = cpp_core.NativeFleetPolicy()
+        assert native.active() and native.autoscale_target(10) == got[4]
+    finally:
+        hvd.shutdown()
 
 
 @pytest.mark.parametrize("knob", ["HOROVOD_TPU_ELASTIC",

@@ -54,7 +54,7 @@ def test_scan_sees_the_whole_package():
 EAGER_MODULES = ["cpp_core", "core", "metrics", "timeline", "wire",
                  "ops/executor", "ops/eager", "optimizer", "scheduler",
                  "sparse", "observe", "callbacks", "data", "checkpoint",
-                 "ckpt_stream", "run", "elastic"]
+                 "ckpt_stream", "run", "elastic", "policy", "aggregate"]
 
 
 @pytest.fixture(scope="module")
@@ -73,9 +73,10 @@ def eager_imports():
 
 @pytest.mark.parametrize("name", EAGER_MODULES)
 def test_scan_covers_the_eager_plane(name, eager_imports):
-    """The modules of the eager plane, of the gradient route through it
-    and of resilience (checkpoints, the async stream, the launcher and
-    elastic membership) are scanned, and import without JAX or the JAX
+    """The modules of the eager plane, of the gradient route through it,
+    of resilience (checkpoints, the async stream, the launcher and
+    elastic membership) and of the control plane's fleet policy and
+    aggregation containers are scanned, and import without JAX or the JAX
     package."""
     assert f"horovod_tpu_torch/{name}.py" in FILES
     assert not FORBIDDEN & set(eager_imports)

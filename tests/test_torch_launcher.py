@@ -48,11 +48,16 @@ def test_usage_errors_match_the_reference(argv, capsys):
             == _usage_error(ref_run.main, argv, capsys))
 
 
-def test_autoscale_script_is_not_ported(capsys):
-    msg = _usage_error(run.main, ["-np", "2", "--elastic",
-                                  "--autoscale-script", "tick:1=2", "--",
-                                  "true"], capsys)
-    assert msg == "--autoscale-script: not ported (ROADMAP Queue 1 item 3)"
+@pytest.mark.parametrize("script", [
+    "tick:x=2", "bogus", "tick:5", "tick:0=2", "tick:5=2,tick:9=-1"],
+    ids=["not-integer", "no-tick", "no-target", "zero-tick",
+         "negative-target"])
+def test_autoscale_script_usage_errors_match_the_reference(script, capsys):
+    argv = ["-np", "2", "--elastic", "--autoscale-script", script, "--",
+            "true"]
+    msg = _usage_error(run.main, argv, capsys)
+    assert msg == _usage_error(ref_run.main, argv, capsys)
+    assert msg.startswith("--autoscale-script: autoscale entry ")
 
 
 def _clean_env(**extra):
@@ -78,7 +83,9 @@ def _children(module, args, env):
       "--snapshot-every-steps", "4"], True),
     (["-np", "1", "--elastic", "--num-standby", "1", "--elastic-min-ranks",
       "1", "--ckpt-async"], False),
-], ids=["plain", "elastic"])
+    (["-np", "1", "--elastic", "--num-standby", "1", "--autoscale-script",
+      "tick:60=2,tick:200=4"], False),
+], ids=["plain", "elastic", "autoscale"])
 def test_child_env_is_the_reference_plus_the_store(args, timeline,
                                                    tmp_path):
     env = _clean_env()
