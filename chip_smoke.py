@@ -386,6 +386,29 @@ the checkout.  Phases, in order; any failure ends the run:
    two), ``control.agg_depth`` 1.0 and 2.0, frames merged under ``hier``
    only, P1-P3 depth x steps.  Printed: step ms, the tick-seconds
    histogram's median bucket.
+38. Process sets and the publish plane, NCCL (right after phase 37, four
+   cards; otherwise a line says it did not run): two jobs of four
+   processes through ``python -m horovod_tpu_torch.run``.  (a) Under
+   ``HOROVOD_TPU_PROCESS_SETS="tenantA:0,1;tenantB:2,3"`` both tenants
+   run, at once and under the same tensor names, allreduce (sum, average,
+   an int32 average), a ragged allgather and a broadcast on CUDA tensors
+   over their sets' NCCL groups: each result equals the reference's
+   ``execute_host`` semantics computed in numpy from the same seeded
+   contributions, bit for bit, and each process's
+   ``control.set_requests#process_set=`` counts its own tenant only; then
+   a 4 MiB set allreduce is timed.  (b) Publish while training, under
+   ``"serve:2,3"``: the headline model trains ``PUBLISH_STEPS`` steps
+   through ``make_train_step`` on the world group twice from one seed and
+   the same batches; in the second leg rank 0 commits the parameters
+   every ``PUBLISH_EVERY`` steps through ``ckpt_stream.AsyncCheckpointer``
+   (each commit a base; a snapshot waits for the commit before it) and
+   ranks 2 and 3 poll a ``ParameterPublisher(dir, "serve")`` between
+   steps.  Every published state equals ``checkpoint.read_chain_state``
+   of its epoch leaf by leaf, bit for bit (read after the leg); the legs'
+   losses are bit-identical; P1-P3 launch depth x steps a leg on every
+   rank.  Printed: publishes, bytes, mean publish latency and staleness,
+   both legs' step ms and their difference, each rank's peak device
+   memory and host RSS.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3889,6 +3912,11 @@ ELASTIC_DIE_RANK, ELASTIC_DIE_STEP = 2, 5
 # the file seam: rank 0 writes each target after AUTOSCALE_STEPS steps of
 # a generation.
 EVICT_MS, EVICT_ONSET_TICK = 50, 2000
+# Phase 38: the tenants' spec and elements of their timed allreduce; the
+# publish drill's steps a leg and its commit cadence.
+SET_TENANTS = ("tenantA", "tenantB")
+SET_TIMED_N = 1 << 20
+PUBLISH_STEPS, PUBLISH_EVERY = 12, 4
 FLEET_STEPS, FLEET_WAIT_S = 4, 300
 AUTOSCALE_RANKS, AUTOSCALE_SMALL, AUTOSCALE_STEPS = 4, 2, 4
 # Phase 37: steps a topology.
@@ -4374,17 +4402,20 @@ def _elastic_worker() -> None:
 
 
 def _elastic_job(label: str, root: Path, launcher_args, env_extra: dict,
-                 timeout: float = 900):
+                 timeout: float = 900, worker: str = "--elastic-worker"):
     """Run ``python -m horovod_tpu_torch.run <launcher_args> --elastic
     --snapshot-every-steps 2 -- chip_smoke.py --elastic-worker`` in its
     own session with ``env_extra``; print its notes and events.  Returns
-    (exit code, stdout, stderr, events, wall seconds)."""
+    (exit code, stdout, stderr, events, wall seconds).  With another
+    ``worker`` (phase 38's ``--set-worker``) the job is not elastic."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_"))}
     env.update(CHIP_SMOKE_ELASTIC_DIR=str(root), **env_extra)
+    elastic = (["--elastic", "--snapshot-every-steps", "2"]
+               if worker == "--elastic-worker" else [])
     cmd = [sys.executable, "-m", "horovod_tpu_torch.run", *launcher_args,
-           "--elastic", "--snapshot-every-steps", "2", "--",
-           sys.executable, os.path.abspath(__file__), "--elastic-worker"]
+           *elastic, "--", sys.executable, os.path.abspath(__file__),
+           worker]
     t0 = time.perf_counter()
     # Its own session, so that a job which does not end is stopped whole:
     # the launcher, its workers and its standbys.
@@ -4407,7 +4438,7 @@ def _elastic_job(label: str, root: Path, launcher_args, env_extra: dict,
                  "FAILED", "fault injection", "htpu policy"))]
     print(f"{label}: " + "\n  ".join(notes[:40]))
     for e in events:
-        if e["kind"] != "policy":
+        if e["kind"] not in ("policy", "tenant", "publish"):
             print(f"{label}: {e}")
     _check(proc.returncode == 0,
            f"{label}: the launcher exited {proc.returncode}; stderr tail "
@@ -4822,6 +4853,311 @@ def phase_topo_nccl():
                f"{label}: hier strays from flat further than two flat "
                f"runs from each other: {hier_d} against {flat_d}")
     return runs
+
+
+# The phase-38 cases: (case, kind, numpy dtype, average, set-local root).
+SET_CASES = (("sum", "allreduce", "float32", False, -1),
+             ("avg", "allreduce", "float32", True, -1),
+             ("iavg", "allreduce", "int32", True, -1),
+             ("gather", "allgather", "float32", False, -1),
+             ("bcast", "broadcast", "float32", False, 1))
+
+
+def _set_contribution(tenant: int, local: int, case: str):
+    """One member's seeded contribution to one case (numpy)."""
+    import numpy as np
+    rng = np.random.default_rng([tenant, local, [c[0] for c in SET_CASES]
+                                 .index(case)])
+    if case == "iavg":
+        return rng.integers(-1000, 1000, size=SET_TIMED_N).astype(np.int32)
+    if case == "gather":
+        return rng.standard_normal((local + 1, 1024)).astype(np.float32)
+    return (rng.standard_normal(SET_TIMED_N) * 5).astype(np.float32)
+
+
+def _execute_host(kind: str, per, dtype: str, average: bool, root: int):
+    """The reference's set data plane, ``execute_host``
+    (``horovod_tpu/process_set.py:445-475``), in numpy: a sum in the
+    entry's dtype, floats divided by the set's size, integers
+    floor-divided, dim-0 concatenation, the set-local root's value."""
+    import numpy as np
+    if kind == "allreduce":
+        out = np.sum(np.stack(per), axis=0, dtype=np.dtype(dtype))
+        if average:
+            out = ((out / len(per)).astype(dtype)
+                   if np.issubdtype(np.dtype(dtype), np.floating)
+                   else out // len(per))
+        return out
+    if kind == "allgather":
+        return np.concatenate(per, axis=0)
+    return per[root].copy()
+
+
+def _sets_tenants_worker() -> None:
+    """Phase 38 (a) in one process of the launcher's job: this rank's
+    tenant runs every case at once under the same names as the other
+    tenant, on CUDA tensors, and holds each result against
+    ``_execute_host``; then times a 4 MiB allreduce over the set."""
+    import numpy as np
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    rank = hvd.rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tenant = rank // 2
+    ps = hvd.process_set_by_name(SET_TENANTS[tenant])
+    local = ps.rank()
+    hvd.allreduce(torch.ones(1, device=dev), name="sets.start")
+    handles = {}
+    for case, kind, _, average, root in SET_CASES:
+        x = torch.from_numpy(_set_contribution(tenant, local, case)).to(dev)
+        if kind == "allreduce":
+            handles[case] = hvd.allreduce_async(
+                x, average=average, name=f"sets.{case}", process_set=ps)
+        elif kind == "allgather":
+            handles[case] = hvd.allgather_async(x, name=f"sets.{case}",
+                                                process_set=ps)
+        else:
+            handles[case] = hvd.broadcast_async(x, root, name=f"sets.{case}",
+                                                process_set=ps)
+    bad, on_card = [], True
+    for case, kind, dtype, average, root in SET_CASES:
+        got = hvd.synchronize(handles[case])
+        on_card = on_card and got.is_cuda
+        want = _execute_host(kind, [_set_contribution(tenant, r, case)
+                                    for r in range(ps.size())],
+                             dtype, average, root)
+        g = got.cpu().numpy()
+        if g.dtype != want.dtype or g.shape != want.shape or \
+                g.tobytes() != want.tobytes():
+            bad.append(case)
+    x = torch.ones(SET_TIMED_N, device=dev)
+    for i in range(3):
+        hvd.allreduce(x, name=f"sets.warm.{i}", process_set=ps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        hvd.allreduce(x, name=f"sets.timed.{i}", process_set=ps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e2
+    counters = {k: v for k, v in hvd.metrics()["counters"].items()
+                if k.startswith("control.set_requests#")}
+    _elastic_emit("tenant", rank=rank, tenant=ps.name, local=local,
+                  bad=bad, on_card=on_card, counters=counters,
+                  allreduce_ms=ms, device=dev.index)
+    hvd.allreduce(torch.ones(1, device=dev), name="sets.end")
+    hvd.shutdown()
+
+
+def _publish_leg(hvd, rank: int, directory: str, publishing: bool):
+    """One leg of phase 38 (b): the headline model from ``SEED``, this
+    rank's own batches, ``PUBLISH_STEPS`` steps through
+    ``make_train_step`` on the world group; when ``publishing``, rank 0
+    commits the parameters every ``PUBLISH_EVERY`` steps and ranks 2 and 3
+    poll the ``serve`` publisher between steps.  Returns (losses, step
+    seconds, launches, [(epoch, state)] published here)."""
+    from horovod_tpu_torch import checkpoint, ckpt_stream
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.publish import ParameterPublisher
+    from horovod_tpu_torch.spmd import make_train_step
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60 + rank)
+    batches = [torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                             device=dev) for _ in range(PUBLISH_STEPS)]
+    model = _lm("flash", DEPTH, SEQ, dev)
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(model, _lm_loss, opt)
+    # Every commit a base (each step changes every parameter, so a delta
+    # would hold them all and a read replay two links).
+    writer = (ckpt_stream.AsyncCheckpointer(directory, full_every=1)
+              if publishing and rank == 0 else None)
+    pub = (ParameterPublisher(directory, "serve")
+           if publishing and rank >= 2 else None)
+    published, losses, times = [], [], []
+    torch.cuda.synchronize()
+    hvd.allreduce(torch.ones(1, device=dev), name=f"leg.{publishing}.go")
+    _cuda.reset_launches()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(step(b).item())
+        if writer is not None and i % PUBLISH_EVERY == PUBLISH_EVERY - 1:
+            # No snapshot coalesces over a commit still in flight: each
+            # epoch reaches the disk, and the next waits for it here.
+            if i >= PUBLISH_EVERY:
+                writer.flush(timeout=600)
+            writer.snapshot(checkpoint.model_state(model),
+                            i // PUBLISH_EVERY)
+        if pub is not None:
+            out = pub.poll()
+            if out is not None:
+                published.append((pub.last_published_epoch, out))
+        times.append(time.perf_counter() - t0)
+    launches = {k: _cuda.LAUNCHES[k] for k in FLASH}
+    if writer is not None:
+        writer.close()
+    del step, opt, model
+    _free()
+    return losses, times, launches, published
+
+
+def _sets_publish_worker() -> None:
+    """Phase 38 (b) in one process of the launcher's job: a baseline leg,
+    a publishing leg, then the serving ranks hold every published state
+    against ``read_chain_state`` of its epoch."""
+    import numpy as np
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint
+    directory = os.environ["CHIP_SMOKE_ELASTIC_DIR"]
+    hvd.init()
+    rank = hvd.rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # Each commit's and each chain read's seconds (rank 0 writes, the
+    # serving ranks read); the verification reads after the leg are not
+    # counted.
+    io_s = {"commit": [], "read": []}
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            io_s[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    read_chain_state = checkpoint.read_chain_state
+    checkpoint.save_chain = timed("commit", checkpoint.save_chain)
+    checkpoint.read_chain_state = timed("read", read_chain_state)
+    base = _publish_leg(hvd, rank, directory, False)
+    pub = _publish_leg(hvd, rank, directory, True)
+    # Every commit is on disk; the serving ranks' last poll streams the
+    # tip if the loop did not.
+    hvd.allreduce(torch.ones(1, device=dev), name="publish.committed")
+    if rank >= 2:
+        from horovod_tpu_torch.publish import ParameterPublisher
+        last = ParameterPublisher(directory, "serve")
+        last.last_published_epoch = max([e for e, _ in pub[3]] + [-1])
+        out = last.poll()
+        if out is not None:
+            pub[3].append((last.last_published_epoch, out))
+    snap = hvd.metrics()
+    hists = snap["histograms"]
+    verified = {}
+    for epoch, out in pub[3]:
+        want = read_chain_state(directory, epoch)
+        verified[epoch] = sorted(out) == sorted(want) and all(
+            np.asarray(out[k]).dtype == np.asarray(v).dtype
+            and np.asarray(out[k]).shape == np.shape(v)
+            and np.array_equal(np.asarray(out[k]).reshape(-1).view(np.uint8),
+                               np.asarray(v).reshape(-1).view(np.uint8))
+            for k, v in want.items())
+        del want
+    lat = hists.get("publish.latency_seconds", {})
+    stale = hists.get("publish.staleness_seconds#process_set=serve", {})
+    _elastic_emit(
+        "publish", rank=rank, base_losses=base[0], losses=pub[0],
+        base_s=base[1], pub_s=pub[1], base_launches=base[2],
+        launches=pub[2], epochs=[e for e, _ in pub[3]], verified=verified,
+        publishes=snap["counters"].get("publish.count", 0),
+        bytes=snap["counters"].get("publish.bytes", 0),
+        latency_s=[lat.get("sum", 0.0), lat.get("count", 0)],
+        staleness_s=[stale.get("sum", 0.0), stale.get("count", 0)],
+        io_s=io_s,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        rss_gib=_peak_rss_gib(), device=dev.index)
+    del pub
+    hvd.allreduce(torch.ones(1, device=dev), name="publish.end")
+    hvd.shutdown()
+
+
+def phase_sets_nccl():
+    """Phase 38: process sets and the parameter publisher on four cards
+    (only with four or more; otherwise a line says it did not run), both
+    jobs through the launcher."""
+    import shutil
+    if torch.cuda.device_count() < 4:
+        print("sets nccl: not run (it needs four CUDA devices, this "
+              f"machine has {torch.cuda.device_count()})")
+        return None
+    label = "sets nccl"
+    root = CKPT_ROOT / "phase38"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        _, _, _, events, wall = _elastic_job(
+            f"{label} (a)", root, ["-np", "4"],
+            {"HOROVOD_TPU_PROCESS_SETS": "tenantA:0,1;tenantB:2,3",
+             "CHIP_SMOKE_SET_MODE": "tenants"}, timeout=300,
+            worker="--set-worker")
+        tenants = sorted((e for e in events if e["kind"] == "tenant"),
+                         key=lambda e: e["rank"])
+        _check(len(tenants) == 4, f"{label} (a): {len(tenants)} reports")
+        for e in tenants:
+            mine = f"control.set_requests#process_set={e['tenant']}"
+            _check(not e["bad"] and e["on_card"]
+                   and set(e["counters"]) == {mine},
+                   f"{label} (a) rank {e['rank']}: cases differing from "
+                   f"execute_host {e['bad']}, results on the card "
+                   f"{e['on_card']}, set counters {e['counters']}")
+        print(f"{label} (a): two tenants, {len(SET_CASES)} cases each at "
+              f"once under the same names, every result equal to "
+              f"execute_host bit for bit; 4 MiB set allreduce ms by rank "
+              f"{[round(e['allreduce_ms'], 3) for e in tenants]}; job "
+              f"{wall:.1f} s")
+        _, _, _, events, wall = _elastic_job(
+            f"{label} (b)", root, ["-np", "4"],
+            {"HOROVOD_TPU_PROCESS_SETS": "serve:2,3",
+             "CHIP_SMOKE_SET_MODE": "publish"}, timeout=900,
+            worker="--set-worker")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    pubs = sorted((e for e in events if e["kind"] == "publish"),
+                  key=lambda e: e["rank"])
+    _check(len(pubs) == 4, f"{label} (b): {len(pubs)} reports")
+    steps = PUBLISH_STEPS
+    for e in pubs:
+        # The first step of a leg warms up: the means and medians leave it
+        # out.
+        base_ms = statistics.mean(e["base_s"][1:]) * 1e3
+        pub_ms = statistics.mean(e["pub_s"][1:]) * 1e3
+        io = {k: [round(x, 2) for x in v] for k, v in e["io_s"].items() if v}
+        print(f"{label} (b) rank {e['rank']} (cuda:{e['device']}): step ms "
+              f"baseline {[round(t * 1e3, 1) for t in e['base_s']]} (mean "
+              f"{base_ms:.1f}, median "
+              f"{statistics.median(e['base_s'][1:]) * 1e3:.1f} after the "
+              f"first), publishing {[round(t * 1e3, 1) for t in e['pub_s']]}"
+              f" (mean {pub_ms:.1f}, median "
+              f"{statistics.median(e['pub_s'][1:]) * 1e3:.1f}): "
+              f"{(pub_ms - base_ms) / base_ms * 100:+.1f}% on the mean; "
+              f"seconds of commits and chain reads {io}; peak device "
+              f"memory {e['peak_gib']:.2f} GiB, host RSS "
+              f"{e['rss_gib']:.2f} GiB; P1-P3 {e['launches']}")
+        _check(e["losses"] == e["base_losses"]
+               and all(math.isfinite(x) for x in e["losses"]),
+               f"{label} (b) rank {e['rank']}: the publishing leg's losses "
+               f"{e['losses']} differ from the baseline's "
+               f"{e['base_losses']}")
+        for launches in (e["base_launches"], e["launches"]):
+            _check(all(n == DEPTH * steps for n in launches.values()),
+                   f"{label} (b) rank {e['rank']}: P1-P3 launched "
+                   f"{launches}, expected {DEPTH * steps} each")
+    for e in pubs[2:]:
+        n_lat, n_st = e["latency_s"][1], e["staleness_s"][1]
+        print(f"{label} (b) rank {e['rank']}: {e['publishes']} publishes of "
+              f"epochs {e['epochs']}, {e['bytes']} bytes; mean latency "
+              f"{e['latency_s'][0] / max(n_lat, 1):.2f} s, mean staleness "
+              f"{e['staleness_s'][0] / max(n_st, 1):.2f} s; each "
+              f"bit-identical to read_chain_state of its epoch: "
+              f"{e['verified']}")
+        _check(e["publishes"] >= 2 and len(e["epochs"]) >= 2
+               and all(e["verified"].get(str(x), e["verified"].get(x))
+                       for x in e["epochs"]),
+               f"{label} (b) rank {e['rank']}: publishes {e['epochs']}, "
+               f"verified {e['verified']}")
+    for e in pubs[:2]:
+        _check(e["publishes"] == 0 and not e["epochs"],
+               f"{label} (b) rank {e['rank']} published {e['epochs']}")
+    print(f"{label} (b): the publishing leg's losses bit-identical to the "
+          f"baseline's on every rank; job {wall:.1f} s")
+    return pubs
 
 
 def _spawn(target, n: int, timeout: float = 300) -> dict:
@@ -5558,6 +5894,11 @@ def main() -> None:
     if sys.argv[1:] == ["--elastic-worker"]:
         _elastic_worker()      # one process of phase 28's launched job
         return
+    if sys.argv[1:] == ["--set-worker"]:
+        # One process of phase 38's launched jobs.
+        {"tenants": _sets_tenants_worker, "publish": _sets_publish_worker}[
+            os.environ["CHIP_SMOKE_SET_MODE"]]()
+        return
     gpu = _gpu_line()
     usage = phase_device()
     import horovod_tpu_torch as hvd
@@ -5593,6 +5934,8 @@ def main() -> None:
     phase_autoscale_nccl()
     _free()
     phase_topo_nccl()
+    _free()
+    phase_sets_nccl()
     _free()
     f32_launches = phase_models_f32()
     _free()

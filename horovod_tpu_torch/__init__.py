@@ -27,7 +27,9 @@ expert parallelism, and TransformerLM's sequence- and tensor-parallel
 modes), and resilience: checkpoint chains readable by both packages and
 model save/load (:mod:`.checkpoint`), the async checkpoint stream
 (:mod:`.ckpt_stream`), the launcher (:mod:`.run`) and elastic membership
-(:mod:`.elastic`)::
+(:mod:`.elastic`), and the multi-tenant planes: process sets
+(:mod:`.process_set`, each over one host's processes) and the
+parameter publisher (:mod:`.publish`)::
 
     import horovod_tpu_torch as hvd
     hvd.init()                                   # cuda:local_rank, NCCL
@@ -55,6 +57,10 @@ model save/load (:mod:`.checkpoint`), the async checkpoint stream
     # python -m horovod_tpu_torch.run -np 3 --elastic --num-standby 1 \
     #     --snapshot-every-steps 2 -- python train.py
     hvd.elastic.run_elastic(train, directory=ckpt_dir, like=state)
+
+    # HOROVOD_TPU_PROCESS_SETS="train:0,1;serve:2,3" on every process
+    out = hvd.allreduce(x, name="eval", process_set="serve")
+    state = hvd.ParameterPublisher(ckpt_dir, "serve").poll()  # 2 and 3
 """
 
 from horovod_tpu_torch.basics import (      # noqa: F401
@@ -86,5 +92,11 @@ from horovod_tpu_torch.ops.eager import (   # noqa: F401
 # the launcher).
 from horovod_tpu_torch import checkpoint, ckpt_stream, elastic  # noqa: F401
 from horovod_tpu_torch.checkpoint import load_model, save_model  # noqa: F401
+# Multi-tenant process sets and the parameter-publish serving plane.
+from horovod_tpu_torch.process_set import (      # noqa: F401
+    ProcessSet, add_process_set, process_set_by_name,
+    reconfigure_process_set, remove_process_set,
+)
+from horovod_tpu_torch.publish import ParameterPublisher   # noqa: F401
 
 __version__ = "0.1.0"

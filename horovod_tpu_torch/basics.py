@@ -23,6 +23,12 @@ per membership generation on the rendezvous store that
 aborts the old group and makes the next one when the membership changes.
 A parked standby (``HOROVOD_TPU_STANDBY=1``) makes none until the
 controller adopts the seat it is admitted to.
+
+Process sets (``HOROVOD_TPU_PROCESS_SETS``): right after the world group,
+every process makes every set's group, in set-id order, and its members
+keep it (:func:`horovod_tpu_torch.process_set.build_groups`); each
+generation's world rebuild makes them again, its abort drops them, and
+``shutdown`` resets the registry (reference ``basics.py:121-122``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import process_set as _process_set_mod
 from horovod_tpu_torch import topology as _topology_mod
 
 
@@ -129,7 +136,9 @@ def _abort_world() -> None:
     """Abort the world group's communicators, never waiting on them (a
     peer of theirs is gone, or this process left the membership)."""
     if dist.is_initialized() and _state.owns_world:
+        # Aborts every group of this world, the process sets' included.
         dist.distributed_c10d._abort_process_group()
+    _process_set_mod._groups.clear()
     _state.owns_world = False
 
 
@@ -145,6 +154,8 @@ def _rebuild_world(generation: int, size: int, rank: int) -> float:
     if size > 1:
         _init_world(_state.kind, size, rank, None, generation)
         _warm_world(_state.device)
+        _process_set_mod.build_groups(_state.kind, rank, size,
+                                      _state.device)
     seconds = time.perf_counter() - t0
     from horovod_tpu_torch import metrics as _metrics_mod
     _metrics_mod.registry.observe("elastic.rebuild_seconds", seconds)
@@ -221,6 +232,10 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
                 _init_world(kind, topo.size, topo.rank, None,
                             controller.generation)
                 _warm_world(device)
+            # The process sets' groups, after the world's: a set group
+            # that cannot form fails init with its cause.
+            _process_set_mod.build_groups(kind, topo.rank, topo.size,
+                                          device)
             controller.start()
         except BaseException:
             if controller is not None:
@@ -228,6 +243,7 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
             if _state.owns_world and dist.is_initialized():
                 dist.destroy_process_group()
             _state.owns_world = False
+            _process_set_mod.reset()
             raise
         from horovod_tpu_torch import metrics as _metrics_mod
         _metrics_mod.start_exporters(topo.rank)
@@ -255,6 +271,7 @@ def shutdown() -> None:
                 if _state.owns_world and dist.is_initialized():
                     dist.destroy_process_group()
             finally:
+                _process_set_mod.reset()
                 _state.owns_world = False
                 _state.controller = None
                 _state.topology = None

@@ -40,8 +40,12 @@ native "evicted from the membership" abort, on which this controller
 also aborts its world group, so that the process exits without waiting
 on a collective of the old generation; the survivors reconfigure in the
 order the native plane gives them (fastest first under
-``HOROVOD_TPU_POLICY_RERANK``).  Non-default process sets are not ported
-yet: their knob raises ``NotImplementedError`` (ROADMAP Queue 1).
+``HOROVOD_TPU_POLICY_RERANK``).  Non-default process sets
+(:mod:`horovod_tpu_torch.process_set`, ``HOROVOD_TPU_PROCESS_SETS``)
+negotiate in their own namespaces on the same tick -- the local loop's
+``_negotiate_sets``, the native coordinator's per-set tables -- and run
+over their members' groups (``_execute_set``); a set must sit on one
+host.
 """
 
 from __future__ import annotations
@@ -927,8 +931,7 @@ class TensorTableEntry:
     # Ring wire compression for the cross-process data plane ("" = raw
     # fp32; "bf16"/"fp16"/"int8").  Negotiated across ranks like dtype.
     wire_dtype: str = ""
-    # Process set this entry negotiates in (0 = default/world; the only
-    # one ported).
+    # Process set this entry negotiates in (0 = default/world).
     process_set: int = 0
     # CUDA event recorded on the caller's stream at enqueue when that is
     # not the device's default stream; the executor waits on it before it
@@ -1064,18 +1067,6 @@ class _LocalResponseCache:
 # a new generation (control.cc ApplyReconfigure).
 EVICTED_PREFIX = "evicted from the membership at generation "
 
-# Knobs of modules that are not ported yet, and where ROADMAP lists them.
-_UNPORTED_KNOBS = (
-    ("HOROVOD_TPU_PROCESS_SETS", "non-default process sets",
-     "Queue 1 item 3"),
-)
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"horovod_tpu_torch: {what} is not ported yet (ROADMAP {where})")
-
-
 class Controller:
     """Per-process background controller.
 
@@ -1103,9 +1094,6 @@ class Controller:
         self.stall_warning_time_s = 60.0
         self.stall_check_disabled = env_flag(
             "HOROVOD_TPU_STALL_CHECK_DISABLE")
-        for knob, what, where in _UNPORTED_KNOBS:
-            if env_flag(knob):
-                raise _not_ported(f"{what} ({knob})", where)
 
         # Fail fast on malformed fault specs: the native core parses the
         # same variable leniently (warn + ignore), which would make a typo'd
@@ -1140,6 +1128,9 @@ class Controller:
         # need it).
         self.host_local_rank: Optional[int] = None
         self.host_local_size: Optional[int] = None
+        # Host fingerprint of each global rank (the layout exchange's):
+        # a process set must sit on one host.
+        self._rank_host: Dict[int, str] = {}
         # Distinct host count across the job (refined by the layout
         # exchange below); feeds allreduce algorithm selection.
         self.num_hosts = 1
@@ -1242,6 +1233,13 @@ class Controller:
             capacity = cache_capacity_from_env()
             if capacity > 0:
                 self._local_cache = _LocalResponseCache(capacity)
+        # Non-default process sets (multi-tenant negotiation namespaces):
+        # the registry owns each set's scoped MessageTable + cache; the
+        # controller only routes by ``entry.process_set``.  Seeded from
+        # HOROVOD_TPU_PROCESS_SETS so ids agree with the native
+        # coordinator, which parses the same spec (control.cc Create).
+        from horovod_tpu_torch import process_set as _process_set_mod
+        self._process_sets = _process_set_mod.registry()
         self._tensor_table: Dict[str, TensorTableEntry] = {}
         self._message_queue: collections.deque = collections.deque()
         self._lock = threading.Lock()
@@ -1295,6 +1293,8 @@ class Controller:
                 "<3i64s", blob, off)
             for r in range(frank, frank + lsize):
                 self._rank_to_process[r] = pidx
+                self._rank_host[r] = host.rstrip(b"\0").decode(
+                    errors="replace")
             all_hosts.add(host.rstrip(b"\0"))
             if host.rstrip(b"\0") == my_host.rstrip(b"\0"):
                 host_procs.append(pidx)
@@ -1434,8 +1434,6 @@ class Controller:
                 "collectives, export HOROVOD_TPU_COORD_ADDR=<host>:<port> "
                 "beside HOROVOD_TPU_SIZE and HOROVOD_TPU_RANK on every "
                 "process before hvd.init().")
-        if entry.process_set:
-            raise _not_ported("non-default process sets", "Queue 1 item 3")
         first_rank = self.topology.rank
         # Allreduces carry the process-wide algorithm preference (read per
         # enqueue so HOROVOD_TPU_ALLREDUCE_ALGO changes take effect without
@@ -1443,21 +1441,26 @@ class Controller:
         algo = (default_allreduce_algo()
                 if entry.request_type == RequestType.ALLREDUCE else "")
         requests: List[Request] = []
-        for i, contrib in enumerate(entry.per_rank):
-            requests.append(Request(
-                request_rank=first_rank + i,
-                request_type=entry.request_type,
-                tensor_name=entry.name,
-                tensor_type=dtype_name(contrib.dtype),
-                tensor_shape=tuple(contrib.shape),
-                root_rank=entry.root_rank,
-                # The global rank for a CUDA tensor, -1 for a host one: the
-                # coordinator refuses a mix, whose ranks would enter
-                # different transports.
-                device=first_rank + i if contrib.is_cuda else -1,
-                wire_dtype=entry.wire_dtype,
-                algo=algo,
-            ))
+        if entry.process_set:
+            err = self._build_set_requests(entry, algo, requests)
+            if err is not None:
+                return err
+        else:
+            for i, contrib in enumerate(entry.per_rank):
+                requests.append(Request(
+                    request_rank=first_rank + i,
+                    request_type=entry.request_type,
+                    tensor_name=entry.name,
+                    tensor_type=dtype_name(contrib.dtype),
+                    tensor_shape=tuple(contrib.shape),
+                    root_rank=entry.root_rank,
+                    # The global rank for a CUDA tensor, -1 for a host one:
+                    # the coordinator refuses a mix, whose ranks would
+                    # enter different transports.
+                    device=first_rank + i if contrib.is_cuda else -1,
+                    wire_dtype=entry.wire_dtype,
+                    algo=algo,
+                ))
         with self._lock:
             # Abort outranks plain shutdown: after a job-wide abort every
             # enqueue fails fast with the ORIGINAL attributed cause, not the
@@ -1492,6 +1495,81 @@ class Controller:
             f"{request_type_name(entry.request_type).lower()},"
             f"dtype={entry.dtype}", len(requests))
         return Status.OK()
+
+    def _host_of(self, rank: int) -> Optional[str]:
+        """The host fingerprint of global ``rank`` (None outside the
+        world): the layout exchange's, or this host's in a job on one
+        host."""
+        if not 0 <= rank < self.size:
+            return None
+        if rank in self._rank_host:
+            return self._rank_host[rank]
+        if self.num_hosts == 1:
+            from horovod_tpu_torch.topology import host_fingerprint
+            return host_fingerprint()
+        return None
+
+    def _build_set_requests(self, entry: TensorTableEntry, algo: str,
+                            requests: List[Request]) -> Optional[Status]:
+        """The request of this process's rank in a non-default process
+        set: SET-LOCAL request_rank, the global rank in ``device`` (-1 for
+        a host tensor, as on the world route), so the coordinator's
+        per-set table -- sized to the set -- indexes correctly while
+        frames stay globally attributable.  Returns an error Status, or
+        None on success.
+
+        The reference refuses a set whose ranks span processes
+        (``horovod_tpu/core.py:1441-1450``): its set data plane is
+        process-local.  One process drives one GPU here, so the port's
+        rule is one host: the members' processes reach each other over
+        the set's group (NCCL over NVLink for CUDA tensors, gloo for host
+        ones), as a TPU host's chips reach each other in one process."""
+        ps = self._process_sets.get(entry.process_set)
+        if ps is None:
+            return Status.invalid_argument(
+                f"Unknown process set id {entry.process_set} for tensor "
+                f"{entry.name}: register it with hvd.add_process_set() or "
+                "HOROVOD_TPU_PROCESS_SETS (see docs/process-sets.md).")
+        hosts = {g: self._host_of(g) for g in ps.ranks}
+        if None in hosts.values() or len(set(hosts.values())) != 1:
+            where = ", ".join(
+                f"rank {g} on {h!r}" if h is not None
+                else f"rank {g} outside this {self.size}-rank world"
+                for g, h in hosts.items())
+            return Status.precondition_error(
+                f"process set '{ps.name}' spans ranks {list(ps.ranks)} on "
+                f"more than one host ({where}): every member rank of a "
+                "set must live on one host -- the set-scoped eager data "
+                "plane is host-local (see docs/process-sets.md).")
+        rank = self.topology.rank
+        if not ps.included(rank):
+            return Status.precondition_error(
+                f"process set '{ps.name}' has ranks {list(ps.ranks)} and "
+                f"this process is rank {rank}: only a set's members "
+                "submit its collectives.")
+        if self._control is not None and ps.generation > 0:
+            # The native coordinator's registry is sealed at Create and
+            # never reconfigured: it would wait for the lost rank forever.
+            return Status.precondition_error(
+                f"process set '{ps.name}' was reconfigured to generation "
+                f"{ps.generation} (ranks {list(ps.ranks)}), but the "
+                "coordinator of this multi-process job keeps the sets of "
+                "HOROVOD_TPU_PROCESS_SETS as they were at init: relaunch "
+                "with the new membership in the spec.")
+        contrib = entry.per_rank[0]
+        requests.append(Request(
+            request_rank=ps.local_rank(rank),
+            request_type=entry.request_type,
+            tensor_name=entry.name,
+            tensor_type=dtype_name(contrib.dtype),
+            tensor_shape=tuple(contrib.shape),
+            root_rank=entry.root_rank,
+            device=rank if contrib.is_cuda else -1,
+            wire_dtype=entry.wire_dtype,
+            algo=algo,
+            process_set=ps.id,
+        ))
+        return None
 
     # ------------------------------------------------------- background loop
 
@@ -1565,6 +1643,15 @@ class Controller:
                 names += f",+{len(pending) - 4}"
             cpp_core.flight_record("negotiate.pending", names,
                                    0, len(pending))
+            # Per-tenant request accounting (the local loop's analogue
+            # lives in _negotiate_sets; the coordinator adds its own
+            # control.negotiate_seconds#process_set= series natively).
+            for r in pending:
+                if r.process_set:
+                    ps = self._process_sets.get(r.process_set)
+                    tag = ps.name if ps is not None else str(r.process_set)
+                    _metrics.registry.inc(
+                        f"control.set_requests#process_set={tag}")
         precision_ext = None
         if not shutting:
             # Adaptive-precision autopilot: piggyback the residual-norm
@@ -1596,9 +1683,15 @@ class Controller:
         ready = []
         for resp in responses:
             with self._lock:
+                # Pop only entries whose process set matches: two tenants
+                # reusing a tensor name must never cross-execute (the
+                # coordinator stamps set responses, wire FLAG_SET_EXT),
+                # and a process holds none of a set it is not in.
                 entries = [self._tensor_table.pop(n)
                            for n in resp.tensor_names
-                           if n in self._tensor_table]
+                           if n in self._tensor_table
+                           and (self._tensor_table[n].process_set
+                                == resp.process_set)]
             if entries:
                 ready.append((resp, entries))
         if self.timeline:
@@ -1623,6 +1716,7 @@ class Controller:
                 "controller.ops#type="
                 + ResponseType(resp.response_type).name.lower())
             if (resp.response_type == ResponseType.ALLREDUCE
+                    and resp.process_set == 0
                     and self.fusion_threshold > 0 and entries):
                 nbytes = sum(int(e.per_rank[0].nbytes) for e in entries)
                 _metrics.registry.observe(
@@ -1632,7 +1726,10 @@ class Controller:
             if self.timeline:
                 self.timeline.activity_end_all(entries)
             try:
-                self._executor.execute(resp, entries)
+                if resp.process_set:
+                    self._execute_set(resp, entries)
+                else:
+                    self._executor.execute(resp, entries)
             except Exception as exc:   # noqa: BLE001 -- see docstring
                 status = Status(StatusType.UNKNOWN_ERROR, repr(exc))
                 for e in entries:
@@ -1642,6 +1739,35 @@ class Controller:
                         pass
         if ready and self._control is not None:
             self._note_data_plane_failure()
+
+    def _execute_set(self, resp: Response, entries):
+        """The set data plane (:func:`horovod_tpu_torch.process_set
+        .execute`): each entry's collective over its set's group, on this
+        thread and, for CUDA tensors, on the device's default stream, as
+        the world route's -- set and training collectives are serialized
+        on a card and never interleave across communicators.  The
+        negotiated response ordered and validated them."""
+        from horovod_tpu_torch import process_set as _process_set_mod
+        if resp.response_type == ResponseType.ERROR:
+            status = Status(StatusType.PRECONDITION_ERROR,
+                            resp.error_message)
+            for e in entries:
+                e.callback(status, None)
+            return
+        ps = self._process_sets.get(resp.process_set)
+        for e in entries:
+            try:
+                if ps is None:
+                    raise ValueError(
+                        f"process set {resp.process_set} was removed")
+                if e.ready_event is not None:
+                    torch.cuda.current_stream().wait_event(e.ready_event)
+                out = _process_set_mod.execute(e, ps, resp.tensor_sizes)
+            except Exception as exc:   # noqa: BLE001 -- propagate as status
+                e.callback(Status(StatusType.UNKNOWN_ERROR, repr(exc)),
+                           None)
+            else:
+                e.callback(Status.OK(), out)
 
     def _note_data_plane_failure(self):
         """Pick up a native ring data-plane failure recorded by the C++ core
@@ -1699,9 +1825,11 @@ class Controller:
         ``hvd.rank()``/``size()`` report the post-reconfigure world, the
         adopted generation is published, and only then every in-flight
         entry completes RETRYABLE (``run_elastic`` restores from the
-        latest checkpoint and re-submits).  No process-set hook runs: the
-        port has only the default set."""
+        latest checkpoint and re-submits).  Every process set holding the
+        lost rank reconfigures first (its generation advances on its own),
+        and the world's rebuild makes the sets' groups again."""
         from horovod_tpu_torch import basics, cpp_core
+        from horovod_tpu_torch import process_set as _process_set_mod
         if ext.lost_rank >= 0:
             cause = (f"rank {ext.lost_rank} was lost "
                      f"({ext.lost_reason or 'no reason recorded'})")
@@ -1721,6 +1849,16 @@ class Controller:
         old_pidx = self.topology.process_index
         pidx, pcount, first_rank, generation = self._control.membership()
         new_size = pcount
+        # Per-set elastic rides the pod event: every registered set
+        # containing the lost rank reconfigures itself (generation bump +
+        # tagged-series retirement) -- the other tenants are untouched.
+        try:
+            _process_set_mod.on_pod_reconfigure(ext.lost_rank)
+        except Exception:   # noqa: BLE001 -- tenant bookkeeping must not
+            pass            # block pod survival
+        # The ranks are dense again: the layout's rank -> host map is gone
+        # (a job on one host still maps every rank to it).
+        self._rank_host.clear()
         if basics._state.controller is self:
             # The data plane of CUDA tensors first, while every framework
             # query still reports the old world: abort the old
@@ -1809,6 +1947,20 @@ class Controller:
             pending = list(self._message_queue)
             self._message_queue.clear()
 
+        # Non-default process sets negotiate on the SAME tick but in their
+        # own namespaces: partition first, run each set's pass, and keep
+        # the default path below byte-identical when only set 0 exists.
+        if any(r.process_set for r in pending):
+            set_pending: Dict[int, List[Request]] = {}
+            default_pending: List[Request] = []
+            for r in pending:
+                if r.process_set:
+                    set_pending.setdefault(r.process_set, []).append(r)
+                else:
+                    default_pending.append(r)
+            pending = default_pending
+            self._negotiate_sets(set_pending)
+
         # Response cache: a batch byte-identical to an earlier
         # fully-successful tick replays that tick's fused responses,
         # skipping the table and the fusion planner.  Only sound when the
@@ -1881,6 +2033,66 @@ class Controller:
         self._maybe_check_stalls()
         self._tick_telemetry()
 
+    def _negotiate_sets(self, set_pending: Dict[int, List[Request]]):
+        """Local negotiation for non-default process sets.
+
+        Each set runs its own table pass and its OWN planner invocation --
+        responses never fuse across sets (native parity: the coordinator
+        appends set responses after PlanTick), and the default response
+        cache never sees set traffic.  Per-tenant observability: request
+        and tick-latency series tagged ``#process_set=<name>``."""
+        for sid in sorted(set_pending):
+            reqs = set_pending[sid]
+            ps = self._process_sets.get(sid)
+            tag = ps.name if ps is not None else str(sid)
+            t0 = time.monotonic()
+            responses: List[Response] = []
+            for req in reqs:
+                rc = self._process_sets.increment(sid, req)
+                if rc < 0:
+                    responses.append(Response(
+                        response_type=ResponseType.ERROR,
+                        tensor_names=[req.tensor_name],
+                        error_message="Request rank out of range.",
+                        process_set=sid))
+                elif rc == 1:
+                    responses.append(
+                        self._process_sets.construct_response(
+                            sid, req.tensor_name))
+            _metrics.registry.inc(
+                f"control.set_requests#process_set={tag}", len(reqs))
+            if not responses:
+                continue
+
+            def entry_bytes(name: str) -> int:
+                e = self._tensor_table[name]
+                return e.per_rank[0].numel() * dtype_itemsize(e.dtype)
+
+            def entry_dtype(name: str) -> str:
+                return self._tensor_table[name].dtype
+
+            fused = self._plan_fusion(responses, entry_bytes, entry_dtype,
+                                      self.fusion_threshold)
+            # The planner predates sets; re-stamp so pop guards and the
+            # execution branch route by the right namespace.
+            for resp in fused:
+                resp.process_set = sid
+            ready = []
+            for resp in fused:
+                with self._lock:
+                    entries = [self._tensor_table.pop(n)
+                               for n in resp.tensor_names
+                               if n in self._tensor_table
+                               and self._tensor_table[n].process_set == sid]
+                ready.append((resp, entries))
+            if self.timeline:
+                for _, entries in ready:
+                    self.timeline.activity_start_all(entries, "QUEUE")
+            self._execute_ready(ready)
+            _metrics.registry.observe(
+                f"control.tick_seconds#process_set={tag}",
+                time.monotonic() - t0)
+
     def _maybe_check_stalls(self):
         """Warn (once per minute) about tensors some ranks never submitted
         (reference ``CheckForStalledTensors``, ``operations.cc:1366-1412``)."""
@@ -1938,6 +2150,10 @@ class Controller:
         # its own cache in LatchAbort).
         if self._local_cache is not None:
             self._local_cache.flush()
+        # Per-set negotiation state is scoped the same way: stale
+        # set-local readiness counts would poison later reuse of the same
+        # tensor names inside a tenant.
+        self._process_sets.clear_negotiation_state()
         for e in entries:
             e.callback(status, None)
         # Keep the trace on disk usable while the job is failing: this

@@ -11,8 +11,8 @@ request-list round trip, the aggregation tier's ``agg_merge`` /
 ``agg_roundtrip`` (:1054-1083); :class:`NativeBucketPlanner` (:644) and
 the observatory bindings (:1086-1171); the fleet policy's bindings
 (:275-337) and :class:`NativeFleetPolicy` (:705) with its precision
-ladder (:787-835).  The process-set table (``CppProcessSetTable``, :863)
-waits for the process-set slice (ROADMAP Queue 1 item 3).
+ladder (:787-835); the multi-tenant process-set registry,
+:class:`CppProcessSetTable` (:854-939).
 
 The library is the reference's own C++ core, built by the reference's
 Makefile into a path this package owns::
@@ -183,6 +183,26 @@ def _configure(lib) -> None:
     lib.htpu_control_set_xfer_context.restype = None
     lib.htpu_control_set_xfer_context.argtypes = [
         ctypes.c_void_p, ctypes.c_char_p]
+    # The multi-tenant process-set registry (cpp/htpu/process_set.h).
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, res, args in (
+            ("create", vp, [ctypes.c_longlong]),
+            ("destroy", None, [vp]),
+            ("parse_spec", ci, [vp, ctypes.c_char_p]),
+            ("add", ci, [vp, ctypes.c_char_p, ctypes.POINTER(ci), ci]),
+            ("remove", ci, [vp, ci]),
+            ("id_of", ci, [vp, ctypes.c_char_p]),
+            ("count", ci, [vp]),
+            ("size", ci, [vp, ci]),
+            ("local_rank", ci, [vp, ci, ci]),
+            ("generation", ci, [vp, ci]),
+            ("reconfigure", ci, [vp, ci, ci]),
+            ("increment", ci, [vp, ci, ctypes.c_char_p, ci]),
+            ("construct", ci, [vp, ci, ctypes.c_char_p,
+                               ctypes.POINTER(vp)])):
+        f = getattr(lib, f"htpu_process_sets_{fn}")
+        f.restype = res
+        f.argtypes = args
     lib.htpu_sched_create.restype = ctypes.c_void_p
     lib.htpu_sched_create.argtypes = [ctypes.c_int64]
     lib.htpu_sched_destroy.restype = None
@@ -783,6 +803,84 @@ def wire_request_list_roundtrip(frame: bytes):
         raise ValueError("native RequestList parse rejected the frame")
     return out.raw[:n]
 
+
+
+class CppProcessSetTable:
+    """ctypes wrapper over the native multi-tenant process-set registry
+    (cpp/htpu/process_set.h), with the interface of the Python mirror in
+    :mod:`horovod_tpu_torch.process_set`.  Set ids start at 1; 0 is the
+    implicit default/world set."""
+
+    def __init__(self, cache_capacity: int = 0):
+        lib = load()
+        if lib is None:
+            raise RuntimeError("native process sets not available")
+        self._lib = lib
+        self._ptr = lib.htpu_process_sets_create(int(cache_capacity))
+
+    def close(self) -> None:
+        if self._ptr:
+            self._lib.htpu_process_sets_destroy(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # noqa: BLE001 -- best-effort at collection
+            pass
+
+    def parse_spec(self, spec: str) -> bool:
+        return bool(self._lib.htpu_process_sets_parse_spec(
+            self._ptr, spec.encode("utf-8")))
+
+    def add(self, name: str, ranks) -> int:
+        n = len(ranks)
+        arr = (ctypes.c_int * n)(*[int(r) for r in ranks])
+        return self._lib.htpu_process_sets_add(
+            self._ptr, name.encode("utf-8"), arr, n)
+
+    def remove(self, set_id: int) -> bool:
+        return bool(self._lib.htpu_process_sets_remove(self._ptr,
+                                                       int(set_id)))
+
+    def id_of(self, name: str) -> int:
+        return self._lib.htpu_process_sets_id_of(self._ptr,
+                                                 name.encode("utf-8"))
+
+    def count(self) -> int:
+        return self._lib.htpu_process_sets_count(self._ptr)
+
+    def size_of(self, set_id: int) -> int:
+        return self._lib.htpu_process_sets_size(self._ptr, int(set_id))
+
+    def local_rank(self, set_id: int, global_rank: int) -> int:
+        return self._lib.htpu_process_sets_local_rank(
+            self._ptr, int(set_id), int(global_rank))
+
+    def generation(self, set_id: int) -> int:
+        return self._lib.htpu_process_sets_generation(self._ptr, int(set_id))
+
+    def reconfigure(self, set_id: int, lost_global_rank: int) -> int:
+        return self._lib.htpu_process_sets_reconfigure(
+            self._ptr, int(set_id), int(lost_global_rank))
+
+    def increment(self, set_id: int, msg: Request) -> int:
+        # The single-message boundary format of CppMessageTable.increment
+        # (always with_algo; the set id is the explicit argument, never
+        # re-read from the frame).
+        data = wire.serialize_request(msg, with_algo=True)
+        return self._lib.htpu_process_sets_increment(
+            self._ptr, int(set_id), data, len(data))
+
+    def construct_response(self, set_id: int, name: str) -> Response:
+        out = ctypes.c_void_p()
+        n = self._lib.htpu_process_sets_construct(
+            self._ptr, int(set_id), name.encode("utf-8"), ctypes.byref(out))
+        if n < 0:
+            raise KeyError(f"unknown process set {set_id}")
+        resp = wire.parse_single_response(_take_buffer(self._lib, out, n))
+        resp.process_set = int(set_id)
+        return resp
 
 
 def wire_roundtrip(wire_dtype: str, values):

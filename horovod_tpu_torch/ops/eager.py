@@ -134,15 +134,25 @@ def _ready_event(t: torch.Tensor):
     return event
 
 
+def _resolve_set(process_set):
+    """None/0 -> the default world set; otherwise a registered
+    :class:`horovod_tpu_torch.process_set.ProcessSet` (accepts the object,
+    its name, or its id; raises ``ValueError`` on anything unknown)."""
+    if process_set is None or process_set == 0:
+        return None
+    from horovod_tpu_torch import process_set as _ps_mod
+    return _ps_mod.resolve(process_set)
+
+
 def _submit(request_type: RequestType, tensor, name: Optional[str],
             name_prefix: str, *, average: bool = False,
             root_rank: int = -1, compression=None,
             process_set=None) -> int:
-    if process_set is not None and process_set != 0:
-        from horovod_tpu_torch.core import _not_ported
-        raise _not_ported("non-default process sets", "Queue 1 item 3")
     ctrl = basics.controller()
+    ps = _resolve_set(process_set)
     per_rank, resolved = _normalize(tensor, name_prefix, name)
+    # A set's CUDA collectives ride NCCL on the device's default stream,
+    # as the world route's: the same hazard for the in-step path.
     handle = ctrl.handle_manager.allocate(mesh_hazard=per_rank[0].is_cuda,
                                           name=resolved)
 
@@ -160,6 +170,7 @@ def _submit(request_type: RequestType, tensor, name: Optional[str],
         wire_dtype=_wire_dtype_for(compression, per_rank[0].dtype,
                                    request_type),
         ready_event=_ready_event(per_rank[0]),
+        process_set=ps.id if ps is not None else 0,
     )
     status = ctrl.enqueue(entry)
     if not status.ok():
@@ -182,8 +193,10 @@ def allreduce_async(tensor, *, average: bool = True,
     Default (``None``) honours ``HOROVOD_TPU_WIRE_DTYPE``; all ranks must
     agree or negotiation raises a coordinated :class:`CollectiveError`.
     CUDA tensors ride NCCL, which moves them raw whatever the wire dtype.
-    ``process_set`` other than the default raises ``NotImplementedError``
-    (not ported yet)."""
+    ``process_set`` (a :class:`~horovod_tpu_torch.process_set.ProcessSet`,
+    its name or its id) reduces over that set's members only: an average
+    divides by the set's size (integers floor-divide, as the reference's
+    set plane does), and the set's wire is raw."""
     return _submit(RequestType.ALLREDUCE, tensor, name, "allreduce",
                    average=average, compression=compression,
                    process_set=process_set)
@@ -213,7 +226,8 @@ def allgather(tensor, *, name: Optional[str] = None, process_set=None):
 def broadcast_async(tensor, root_rank: int, *,
                     name: Optional[str] = None, process_set=None) -> int:
     """Start a broadcast of rank ``root_rank``'s value to all ranks
-    (reference ``mpi_ops.py:284-360``)."""
+    (reference ``mpi_ops.py:284-360``); with ``process_set``,
+    ``root_rank`` is the SET-LOCAL rank of the root."""
     return _submit(RequestType.BROADCAST, tensor, name, "broadcast",
                    root_rank=root_rank, process_set=process_set)
 

@@ -234,6 +234,20 @@ def topo() -> None:
         257).astype(np.float32))
     digest.update(hvd.broadcast(root, 1, name="topo.bcast").numpy()
                   .tobytes())
+    # Per-set traffic (set-tagged requests never cache), the reference's
+    # schedule (tests/test_aggregate.py): one-rank sets solo<r>.
+    me = hvd.process_set_by_name(f"solo{rank}")
+    for j in range(2):
+        want = torch.full((64,), float(rank + j))
+        out = hvd.allreduce(want, average=False, name=f"topo.set.{j}",
+                            process_set=me)
+        if not torch.equal(out, want):
+            raise AssertionError(f"rank {rank} set {j}: wrong sum")
+        digest.update(out.numpy().tobytes())
+    # Drain: one last world collective, so that no rank shuts down while
+    # a peer still negotiates its solo-set collectives.
+    digest.update(hvd.allreduce(torch.ones(16), average=False,
+                                name="topo.drain").numpy().tobytes())
     print("DIGEST", digest.hexdigest(), flush=True)
     snap = hvd.metrics()
     print("SNAP", json.dumps({"counters": snap["counters"],

@@ -16,7 +16,10 @@ PREFIXES = ("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_")
 def main() -> None:
     env = {k: v for k, v in os.environ.items() if k.startswith(PREFIXES)}
     if sys.argv[1] == "env":
-        print("ENV " + json.dumps(env, sort_keys=True), flush=True)
+        # One write: the children share the launcher's stdout, where two
+        # buffered prints could land on one line.
+        os.write(1, ("ENV " + json.dumps(env, sort_keys=True) + "\n")
+                 .encode())
     elif env.get("HOROVOD_TPU_RANK") == "1":
         sys.exit(1)
     else:

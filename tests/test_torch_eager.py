@@ -256,13 +256,24 @@ def test_synchronize_timeout_abandons_the_handle(size1):
 @pytest.mark.parametrize("knob,value", [
     ("HOROVOD_TPU_PROCESS_SETS", "a:0")])
 def test_unported_modes_raise_at_init(monkeypatch, knob, value):
+    """The process-set spec, once refused at init, now registers its
+    sets there as the reference's does: a job of one process initializes
+    with set ``a`` over rank 0 (id 1), whose collectives run, and
+    shutdown drops the registry."""
     for var in ("SIZE", "RANK", "LOCAL_RANK", "LOCAL_SIZE"):
         monkeypatch.delenv("HOROVOD_TPU_" + var, raising=False)
     monkeypatch.setenv(knob, value)
     hvd.shutdown()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        hvd.init(device="cpu")
-    assert not hvd.is_initialized()
+    hvd.init(device="cpu")
+    try:
+        ps = hvd.process_set_by_name("a")
+        assert (ps.id, ps.ranks, ps.rank()) == (1, (0,), 0)
+        out = hvd.allreduce(torch.arange(3), name="spec.a", process_set=ps)
+        assert torch.equal(out, torch.arange(3))
+    finally:
+        hvd.shutdown()
+    monkeypatch.delenv(knob)
+    assert hvd.process_set_by_name("a") is None
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -320,6 +331,9 @@ def test_elastic_knobs_at_init(monkeypatch, knob):
     monkeypatch.setenv(knob, "1")
     hvd.shutdown()
     hvd.init(device="cpu")
+    # The JAX package's runtime stays up across its own tests; one this
+    # test starts under the elastic knob must not outlive it.
+    ref_was_up = ref.is_initialized()
     try:
         ref.init()
         assert hvd.is_initialized() and hvd.size() == 1
@@ -331,10 +345,14 @@ def test_elastic_knobs_at_init(monkeypatch, knob):
         assert got[0] == (knob == "HOROVOD_TPU_ELASTIC") and got[3] == -1
     finally:
         hvd.shutdown()
+        if not ref_was_up:
+            ref.shutdown()
 
 
 def test_process_set_argument_raises(size1):
-    with pytest.raises(NotImplementedError, match="process sets"):
+    """An unknown set raises ``resolve``'s ValueError, the reference's
+    text, before anything is enqueued."""
+    with pytest.raises(ValueError, match="Unknown process set 1: register"):
         hvd.allreduce(torch.ones(2), process_set=1)
 
 

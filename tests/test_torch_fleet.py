@@ -23,9 +23,9 @@ generation on it), so that a fault can reach one process only:
 * ``HOROVOD_TPU_CONTROL_TOPO=hier`` on four processes of two faked hosts:
   results bit-identical to ``flat``, a member's and a leader's death
   under elastic membership, and a topology mismatch refused at bootstrap.
-  Unlike the reference's drill, it holds no process to a response-cache
-  hit: whether the replays hit depends on how their requests fall into
-  ticks (0 to 7 of 7 across runs of one job, under either topology).
+  The drill runs the reference's schedule, one-rank sets ``solo<r>`` and
+  their set-scoped allreduces included, and holds every process to a
+  response-cache hit under both topologies, as the reference's does.
 
 Each drill has its own time limit, well under 90 s.
 """
@@ -62,7 +62,8 @@ def _base_env(**extra) -> dict:
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_"))}
     env.update(PYTHONPATH=ROOT, HOROVOD_TPU_CYCLE_TIME_MS="2",
-               HOROVOD_TPU_CONTROL_TIMEOUT_S="30", **extra)
+               HOROVOD_TPU_CONTROL_TIMEOUT_S="30")
+    env.update(extra)
     return env
 
 
@@ -280,7 +281,14 @@ def test_scripted_autoscale_shrinks_and_grows_back(tmp_path):
 # ------------------------------------------------------ control topology
 
 def _topo(topo):
-    procs = _start(4, dict(TEST_MODE="topo", HOROVOD_TPU_CONTROL_TOPO=topo),
+    sets = ";".join(f"solo{r}:{r}" for r in range(len(HOSTS)))
+    # A 20 ms tick: each replay's requests, enqueued as the previous
+    # ring returns on every process, land in one tick (at 2 ms, the
+    # reference drill's, both packages' hits vary with scheduling, from 0
+    # to 7 of 7 under load).
+    procs = _start(4, dict(TEST_MODE="topo", HOROVOD_TPU_CONTROL_TOPO=topo,
+                           HOROVOD_TPU_PROCESS_SETS=sets,
+                           HOROVOD_TPU_CYCLE_TIME_MS="20"),
                    {i: {"HOROVOD_TPU_HOST_FINGERPRINT": fp}
                     for i, fp in enumerate(HOSTS)})
     parsed = []
@@ -303,6 +311,11 @@ def test_hier_results_equal_flat_on_two_fake_hosts():
     assert hier[2][1]["counters"].get("control.merged_frames", 0) > 0
     assert root_flat["counters"].get("control.root_gather_bytes", 0) > 0
     assert root_hier["counters"].get("control.root_gather_bytes", 0) > 0
+    # Members ticked their sub-coordinator, not the root, yet the
+    # response cache still served replay ticks everywhere (the
+    # reference's tests/test_aggregate.py:430-432).
+    for _, snap in flat + hier:
+        assert snap["counters"].get("control.cache_hits", 0) > 0
 
 
 @pytest.mark.parametrize("die,who", [(3, "member"), (2, "leader")])
