@@ -179,7 +179,8 @@ the checkout.  Phases, in order; any failure ends the run:
    ``ulysses_flash`` in bf16 launches P1-P3 once a layer.  Then P1-P3
    against their plain versions at every shape the four-card phases give
    them: a pipeline stage's (B 1, H 16, T 2048), ``ulysses_flash``'s at
-   batch 1 (B 1, H 4, T 8192) and at batch 8 (B 8, H 4, T 8192, D 128),
+   batch 1 (B 1, H 4, T 8192), phase 40's ``long_context`` twin's (B 1,
+   H 2, T 8192, D 64) and at batch 8 (B 8, H 4, T 8192, D 128),
    the last timed beside their bound and
    ``scaled_dot_product_attention``.
 23. Sequence parallel, NCCL: four processes, one card each, only with
@@ -409,6 +410,43 @@ the checkout.  Phases, in order; any failure ends the run:
    rank.  Printed: publishes, bytes, mean publish latency and staleness,
    both legs' step ms and their difference, each rank's peak device
    memory and host RSS.
+39. A rank subset and the in-step collectives, NCCL (right after phase
+   38, four cards; otherwise a line says it did not run): four processes,
+   one card each, launched without a control plane, call
+   ``hvd.init(ranks=[3, 1, 2])``.  Launched rank 0 must raise the
+   reference's "this process owns no devices in the requested rank
+   subset" before any rendezvous and exit 0.  The three members (size 3,
+   launched ranks 3, 1, 2 as ranks 0, 1, 2, each on the card of its
+   launch) train the headline model (phase 7's, SGD momentum 0.9), each
+   on its own batch, 2 warm-up and 5 timed steps through
+   ``make_train_step``: the parameters bit-identical on the three ranks
+   after every step, the losses finite and falling, P1-P3 launched depth
+   x steps on every member.  Then ``injit.broadcast`` of every parameter
+   (scaled by 1 + the launched rank) from subset rank 2 in both modes
+   equals the root's; ``allgather(axis=1)``, ``reducescatter``,
+   ``alltoall`` and ``broadcast`` of (6144, 2730) integer-valued f32 a
+   rank equal numpy bit for bit, and ``broadcast``'s backward leaves the
+   exact sum of the cotangents on the root and zeros elsewhere.  Printed:
+   step ms, tokens/s per GPU, MFU (``bench.py:425-427``), peak memory,
+   each collective's ms (mean of 10) and algorithm bandwidth, beside
+   ``injit.allreduce`` (sum) of the same buffer.  Then
+   ``init(ranks=[0])`` in both children of ``python -m
+   horovod_tpu_torch.run -np 2`` must raise "rank subsets are not
+   supported in multi-process mode".
+40. The multi-rank example twins, NCCL (four cards; otherwise a line
+   says it did not run): ``python -m horovod_tpu_torch.run -np 4`` over
+   ``chip_smoke.py --twin-worker``, which runs the twin's ``main`` and
+   reports its result and kernel launches, for ``long_context --attn
+   ulysses_flash`` (seq 8192, dim 512, depth 8, 8 heads: D 64, 20 steps),
+   ``pod_training`` (60 steps, as its JAX test; the example's default is
+   30), ``model_parallel`` (100 steps) and ``pipeline_transformer`` (40
+   steps), the JAX examples' defaults.  Each job exits 0;
+   ``pod_training`` ends below 0.05 x its first loss, ``model_parallel``
+   below 0.5 x, and
+   ``pipeline_transformer`` below its first with its "pipeline stages=4"
+   line (the JAX tests' bars); ``long_context``'s losses are finite and
+   fall, and P1-P3 launch depth x steps on every rank.  Printed: each
+   twin's lines, tokens/s per GPU or steps/s.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3225,13 +3263,18 @@ def phase_parallel_one_card():
     _check(rl <= TOL_SP_FIRST, f"ulysses_flash bf16 loss strays {rl}")
     # P1-P3 at every shape the four-card phases give them: a pipeline
     # stage's (one microbatch, every head), ulysses_flash's at batch 1,
-    # and at batch 8 (one card's heads over the whole sequence, timed).
+    # phase 40's long_context twin's (8 heads of 64 over 4 cards), and
+    # ulysses_flash's at batch 8 (one card's heads over the whole
+    # sequence, timed).
     print("kernels at the four-card phases' shapes (bf16):")
-    for b, h, t, label in ((1, HEADS, SEQ, "pipeline stage"),
-                           (1, HEADS // SP_RANKS, SP_SEQ,
-                            "ulysses_flash batch 1")):
-        _run_case(_case(b, h, t, DIM // HEADS, True, None, gen),
-                  f"{label} B={b} H={h} T={t} D={DIM // HEADS} causal")
+    for b, h, t, d, label in (
+            (1, HEADS, SEQ, DIM // HEADS, "pipeline stage"),
+            (1, HEADS // SP_RANKS, SP_SEQ, DIM // HEADS,
+             "ulysses_flash batch 1"),
+            (1, 8 // SP_RANKS, LONG_CONTEXT["seq"], 64,
+             "long_context twin")):
+        _run_case(_case(b, h, t, d, True, None, gen),
+                  f"{label} B={b} H={h} T={t} D={d} causal")
     c = _case(BATCH, HEADS // SP_RANKS, SP_SEQ, DIM // HEADS, True, None,
               gen)
     errs, times = _run_case(c, "ulysses_flash B=8 H=4 T=8192 D=128 causal",
@@ -4438,7 +4481,7 @@ def _elastic_job(label: str, root: Path, launcher_args, env_extra: dict,
                  "FAILED", "fault injection", "htpu policy"))]
     print(f"{label}: " + "\n  ".join(notes[:40]))
     for e in events:
-        if e["kind"] not in ("policy", "tenant", "publish"):
+        if e["kind"] not in ("policy", "tenant", "publish", "twin"):
             print(f"{label}: {e}")
     _check(proc.returncode == 0,
            f"{label}: the launcher exited {proc.returncode}; stderr tail "
@@ -5160,10 +5203,363 @@ def phase_sets_nccl():
     return pubs
 
 
-def _spawn(target, n: int, timeout: float = 300) -> dict:
+# Phase 39: a rank subset of four launched processes, and the in-step
+# collectives on its group.
+SUBSET = [3, 1, 2]                 # launched ranks, in subset rank order
+SUBSET_ROOT = 2                    # subset rank of injit.broadcast's root
+SUBSET_SHAPE = (6144, 2730)        # f32: 64 MiB less 16 KiB, rows split 3 ways
+SUBSET_REPS = 10
+SUBSET_OUT = "this process owns no devices in the requested rank subset"
+SUBSET_REFUSED = "rank subsets are not supported in multi-process mode"
+
+
+def _subset_ints(seed: int):
+    """An integer-valued f32 buffer of ``SUBSET_SHAPE`` (numpy): sums of
+    three of them are exact."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return rng.randint(-1000, 1000, SUBSET_SHAPE).astype(np.float32)
+
+
+def _collective_ms(fn) -> float:
+    """Mean ms of ``SUBSET_REPS`` back-to-back calls of ``fn`` on the
+    card, after one call and a barrier."""
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SUBSET_REPS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / SUBSET_REPS
+
+
+def _subset_worker(rank: int, port: int, results) -> None:
+    """Phase 39 on launched rank ``rank`` of four (card ``rank``), with
+    no control plane: ``hvd.init(ranks=SUBSET)``.  Launched rank 0
+    reports the error it raised; each member trains the headline model on
+    its own batch, then runs the collectives on the subset's group."""
+    try:
+        os.environ.update({"HOROVOD_TPU_SIZE": "4",
+                           "HOROVOD_TPU_RANK": str(rank),
+                           "HOROVOD_TPU_LOCAL_SIZE": "1",
+                           "HOROVOD_TPU_LOCAL_RANK": str(rank)})
+        for knob in ("HOROVOD_TPU_COORD_ADDR", "HOROVOD_TPU_PROCESS_COUNT"):
+            os.environ.pop(knob, None)
+        import numpy as np
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.ops import _cuda, injit
+        from horovod_tpu_torch.spmd import make_train_step
+        try:
+            hvd.init(SUBSET, init_method=f"tcp://127.0.0.1:{port}")
+        except RuntimeError as e:
+            results.put((rank, {"refused": str(e),
+                                "initialized": hvd.is_initialized(),
+                                "dist": dist.is_initialized()}))
+            return
+        me, n = hvd.rank(), hvd.size()
+        dev = hvd.local_devices()[0]
+        out = {"rank": me, "size": n, "device": dev.index}
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = _lm("flash", DEPTH, SEQ, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 50 + rank)
+        tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                               device=dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, _lm_loss, opt)
+        params = list(model.parameters())
+        _cuda.reset_launches()
+        losses, times, same = [], [], []
+        for _ in range(WARMUP + TIMED):
+            loss, t = _timed_steps(step, tokens, 1)
+            launches = {k: _cuda.LAUNCHES[k] for k in FLASH + (FUSED,)}
+            losses += loss
+            times += t
+            digest = _digest({str(i): _fingerprint(p)
+                              for i, p in enumerate(params)})
+            views = [None] * n
+            dist.all_gather_object(views, digest)
+            same.append(len(set(views)) == 1)
+        out.update(launches=launches, losses=losses, times=times, same=same,
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   clocks=_clocks())
+        # Every parameter, scaled by 1 + the launched rank, broadcast from
+        # subset rank SUBSET_ROOT: the parameters are bit-identical on the
+        # three ranks, so each rank computes the root's value itself.
+        root_scale = float(1 + SUBSET[SUBSET_ROOT])
+        with torch.no_grad():
+            for mode in ("permute", "psum"):
+                bad = 0
+                for p in params:
+                    y = injit.broadcast(p * float(1 + rank), SUBSET_ROOT,
+                                        mode=mode)
+                    want = p * root_scale
+                    # psum adds the others' zeros: -0.0 + 0.0 is +0.0.
+                    bad += not (_bits_equal(y, want) if mode == "permute"
+                                else torch.equal(y, want))
+                out[f"broadcast_{mode}_bad"] = bad
+        out["n_params"] = len(params)
+        del model, opt, step, params, tokens
+        _free()
+        # The collectives on 64 MiB of integer-valued f32 a rank, against
+        # numpy on every member's inputs.
+        ins = {r: _subset_ints(60 + r) for r in SUBSET}
+        cts = {r: _subset_ints(70 + r) for r in SUBSET}
+        x = torch.from_numpy(ins[rank]).to(dev)
+        total = sum(ins[r] for r in SUBSET)
+        checks = {}
+        got = injit.allgather(x, axis=1).cpu().numpy()
+        checks["allgather_axis1"] = np.array_equal(
+            got, np.concatenate([ins[r] for r in SUBSET], axis=1))
+        got = injit.reducescatter(x).cpu().numpy()
+        checks["reducescatter"] = np.array_equal(got,
+                                                 np.split(total, n)[me])
+        got = injit.alltoall(x).cpu().numpy()
+        checks["alltoall"] = np.array_equal(got, np.concatenate(
+            [np.split(ins[r], n)[me] for r in SUBSET]))
+        del got
+        xg = x.clone().requires_grad_(True)
+        y = injit.broadcast(xg, SUBSET_ROOT)
+        checks["broadcast"] = np.array_equal(y.detach().cpu().numpy(),
+                                             ins[SUBSET[SUBSET_ROOT]])
+        y.backward(torch.from_numpy(cts[rank]).to(dev))
+        want = (sum(cts[r] for r in SUBSET) if me == SUBSET_ROOT
+                else np.zeros(SUBSET_SHAPE, np.float32))
+        checks["broadcast_backward"] = np.array_equal(
+            xg.grad.cpu().numpy(), want)
+        del xg, y, ins, cts, total
+        nbytes = x.numel() * x.element_size()
+        ms = {"allgather_axis1": _collective_ms(
+                  lambda: injit.allgather(x, axis=1)),
+              "reducescatter": _collective_ms(lambda: injit.reducescatter(x)),
+              "alltoall": _collective_ms(lambda: injit.alltoall(x)),
+              "broadcast_permute": _collective_ms(
+                  lambda: injit.broadcast(x, SUBSET_ROOT)),
+              "broadcast_psum": _collective_ms(
+                  lambda: injit.broadcast(x, SUBSET_ROOT, mode="psum")),
+              "allreduce_sum": _collective_ms(
+                  lambda: injit.allreduce(x, average=False))}
+        out.update(checks=checks, ms=ms, nbytes=nbytes)
+        torch.cuda.synchronize()
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def _refusal_job() -> list:
+    """``init(ranks=[0])`` in both children of ``python -m
+    horovod_tpu_torch.run -np 2``: the lines they print."""
+    code = ("import sys\nimport horovod_tpu_torch as hvd\n"
+            "try:\n    hvd.init([0])\n"
+            "except ValueError as e:\n"
+            "    print('REFUSED', hvd.is_initialized(), e, flush=True)\n"
+            "    sys.exit(0)\nsys.exit(1)\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HOROVOD_TPU_", "MASTER_", "TORCHELASTIC_"))}
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2", "--",
+         sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+        env=env, capture_output=True, text=True, timeout=300)
+    _check(proc.returncode == 0,
+           f"subset refusal job: exit {proc.returncode}\n"
+           f"{proc.stderr[-3000:]}")
+    return [line for line in proc.stdout.splitlines()
+            if line.startswith("REFUSED")]
+
+
+def phase_subset_nccl():
+    """Phase 39: ``hvd.init(ranks=[3, 1, 2])`` on four cards (only with
+    four or more; otherwise a line says it did not run): the subset
+    trains the headline model and runs the in-step collectives; then the
+    launcher's refusal."""
+    label = "subset nccl"
+    if torch.cuda.device_count() < 4:
+        print(f"{label}: not run (it needs four CUDA devices, this machine "
+              f"has {torch.cuda.device_count()})")
+        return None
+    t0 = time.perf_counter()
+    got = _spawn(_subset_worker, 4, timeout=900, exitcodes=True)
+    _check(all(isinstance(got.get(r), dict) for r in range(4)),
+           f"{label} failed: {got}")
+    _check(got[0] == {"refused": SUBSET_OUT, "initialized": False,
+                      "dist": False} and got["exitcodes"] == [0] * 4,
+           f"{label}: launched rank 0 gave {got[0]}, exit codes "
+           f"{got['exitcodes']}")
+    print(f"{label}: launched rank 0 raised {SUBSET_OUT!r} before any "
+          f"rendezvous and exited 0")
+    steps = WARMUP + TIMED
+    flops = _model_flops(DEPTH)
+    members = [got[r] for r in SUBSET]
+    for launched, m in zip(SUBSET, members):
+        step_s = statistics.median(m["times"][WARMUP:])
+        print(f"{label}: launched rank {launched} -> rank {m['rank']} of "
+              f"{m['size']} on cuda:{m['device']}; losses "
+              + ", ".join(f"{x:.4f}" for x in m["losses"])
+              + f"; step {step_s * 1e3:.1f} ms (median of {TIMED}; all "
+              + ", ".join(f"{t * 1e3:.1f}" for t in m["times"])
+              + f" ms), {BATCH * SEQ / step_s:.0f} tokens/s per GPU, MFU "
+              f"{flops / step_s / PEAK_BF16_FLOPS:.3f} at 989 TFLOP/s, peak "
+              f"memory {m['peak_gb']:.2f} GiB, launches {m['launches']}, "
+              f"clocks {m['clocks']}")
+        _check(m["size"] == 3 and m["rank"] == SUBSET.index(launched)
+               and m["device"] == launched,
+               f"{label}: launched rank {launched} is rank {m['rank']} of "
+               f"{m['size']} on cuda:{m['device']}")
+        _check(all(m["same"]),
+               f"{label}: parameters differ across the ranks after steps "
+               f"{[i for i, s in enumerate(m['same']) if not s]}")
+        _check(all(math.isfinite(x) for x in m["losses"])
+               and m["losses"][-1] < m["losses"][0]
+               and m["losses"] == members[0]["losses"],
+               f"{label}: losses {m['losses']}")
+        _check(all(m["launches"][k] == DEPTH * steps for k in FLASH)
+               and m["launches"][FUSED] == 0,
+               f"{label}: launches {m['launches']}, expected "
+               f"{DEPTH * steps} of each of {FLASH}")
+        _check(m["broadcast_permute_bad"] == m["broadcast_psum_bad"] == 0,
+               f"{label}: broadcast of the parameters: "
+               f"{m['broadcast_permute_bad']} (permute) and "
+               f"{m['broadcast_psum_bad']} (psum) of {m['n_params']} differ "
+               "from the root's")
+        _check(all(m["checks"].values()),
+               f"{label}: rank {m['rank']}: {m['checks']}")
+    print(f"{label}: the parameters bit-identical on the three ranks after "
+          f"each of {steps} steps; injit.broadcast of all "
+          f"{members[0]['n_params']} parameters from subset rank "
+          f"{SUBSET_ROOT} equal to the root's in both modes; "
+          f"{sorted(members[0]['checks'])} of {SUBSET_SHAPE} integer-valued "
+          "f32 equal to numpy bit for bit on every rank")
+    for name in members[0]["ms"]:
+        ms = [m["ms"][name] for m in members]
+        nbytes = members[0]["nbytes"] * (3 if name.startswith("allgather")
+                                         else 1)
+        print(f"{label}: {name} of {members[0]['nbytes'] / 2 ** 20:.2f} MiB "
+              f"a rank: ms by rank {[round(t, 3) for t in ms]}, algorithm "
+              f"bandwidth {nbytes / (max(ms) * 1e-3) / 1e9:.1f} GB/s "
+              f"({nbytes / 2 ** 20:.0f} MiB over the slowest rank's time)")
+    lines = _refusal_job()
+    _check(lines == [f"REFUSED False {SUBSET_REFUSED}"] * 2,
+           f"{label}: under the launcher: {lines}")
+    print(f"{label}: under python -m horovod_tpu_torch.run -np 2 both "
+          f"children raised {SUBSET_REFUSED!r}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": members[0]["launches"]}
+
+
+# Phase 40: the multi-rank example twins through the launcher, at the JAX
+# examples' defaults; pod_training at its JAX test's 60 steps.
+TWIN_RUNS = ("long_context --attn ulysses_flash", "pod_training --steps 60",
+             "model_parallel", "pipeline_transformer")
+TWIN_STEPS = {"pod_training --steps 60": 60, "model_parallel": 100,
+              "pipeline_transformer": 40}
+LONG_CONTEXT = dict(depth=8, steps=20, seq=8192)
+
+
+def _twin_worker() -> None:
+    """One process of a phase-40 job: the twin named by
+    ``CHIP_SMOKE_TWIN`` (its module and arguments) through its ``main``,
+    then one ``ELASTIC`` event with its result and this process's kernel
+    launches."""
+    import importlib
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _cuda
+    name, *args = os.environ["CHIP_SMOKE_TWIN"].split()
+    module = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    result = module.main(args)
+    seconds = time.perf_counter() - t0
+    _elastic_emit("twin", rank=hvd.rank(),
+                  device=hvd.local_devices()[0].index, result=result,
+                  seconds=seconds,
+                  launches={k: _cuda.LAUNCHES[k] for k in FLASH + (FUSED,)})
+
+
+def phase_twins_nccl():
+    """Phase 40: each of ``TWIN_RUNS`` as ``python -m horovod_tpu_torch.run
+    -np 4`` on four cards (only with four or more; otherwise a line says
+    it did not run).  Every job exits 0; the twins with a JAX test meet
+    its bar; ``long_context``'s losses are finite and fall, and P1-P3
+    launch depth x steps on every rank."""
+    import shutil
+    label = "twins nccl"
+    if torch.cuda.device_count() < 4:
+        print(f"{label}: not run (it needs four CUDA devices, this machine "
+              f"has {torch.cuda.device_count()})")
+        return None
+    root = CKPT_ROOT / "phase40"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    runs = {}
+    try:
+        for key in TWIN_RUNS:
+            _, out, _, events, wall = _elastic_job(
+                f"{label} {key}", root, ["-np", "4"],
+                {"CHIP_SMOKE_TWIN": key}, timeout=600,
+                worker="--twin-worker")
+            twins = sorted((e for e in events if e["kind"] == "twin"),
+                           key=lambda e: e["rank"])
+            _check([e["rank"] for e in twins] == [0, 1, 2, 3]
+                   and sorted(e["device"] for e in twins) == [0, 1, 2, 3],
+                   f"{label} {key}: reports {twins}")
+            said = [line for line in out.splitlines()
+                    if line.strip() and "ELASTIC " not in line]
+            print(f"{label} {key}: job {wall:.1f} s, main() "
+                  f"{twins[0]['seconds']:.1f} s on rank 0 (init and build "
+                  "included); it printed:\n  " + "\n  ".join(said))
+            runs[key] = (twins, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    twins, out = runs["long_context --attn ulysses_flash"]
+    losses = twins[0]["result"]
+    want = LONG_CONTEXT["depth"] * LONG_CONTEXT["steps"]
+    tps = re.search(r"ulysses_flash attention, seq (\d+) over 4 ranks: "
+                    r"(\d+) tokens/sec", out)
+    _check(len(losses) == LONG_CONTEXT["steps"]
+           and all(math.isfinite(x) for x in losses)
+           and losses[-1] < losses[0] and tps is not None
+           and int(tps.group(1)) == LONG_CONTEXT["seq"],
+           f"{label} long_context: losses {losses}, tokens/sec line {tps}")
+    for e in twins:
+        _check(all(e["launches"][k] == want for k in FLASH)
+               and e["launches"][FUSED] == 0 and e["result"] == losses,
+               f"{label} long_context rank {e['rank']}: launches "
+               f"{e['launches']}, expected {want} of each of {FLASH}")
+    print(f"{label} long_context: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {int(tps.group(2)) / 4:.0f} tokens/s per GPU; "
+          f"P1-P3 launched {twins[0]['launches']} on rank 0")
+    loss0, final = runs["pod_training --steps 60"][0][0]["result"]
+    _check(math.isfinite(final) and final < 0.05 * loss0,
+           f"{label} pod_training: final {final} not below 0.05 x {loss0}")
+    losses = runs["model_parallel"][0][0]["result"]
+    _check(losses[-1] < 0.5 * losses[0],
+           f"{label} model_parallel: loss {losses[0]} -> {losses[-1]}")
+    losses = runs["pipeline_transformer"][0][0]["result"]
+    _check(losses[-1] < losses[0]
+           and "pipeline stages=4 " in runs["pipeline_transformer"][1],
+           f"{label} pipeline_transformer: loss {losses[0]} -> "
+           f"{losses[-1]}")
+    for key, steps in TWIN_STEPS.items():
+        twins = runs[key][0]
+        print(f"{label} {key}: {steps} steps, {steps / twins[0]['seconds']:.1f}"
+              " steps/s of main() on rank 0 (init and build included)")
+    return {"launches_long_context":
+            runs["long_context --attn ulysses_flash"][0][0]["launches"]}
+
+
+def _spawn(target, n: int, timeout: float = 300,
+           exitcodes: bool = False) -> dict:
     """Run ``target(rank, port, results)`` in ``n`` spawned processes;
     {rank: result}, or an "exit"/"timeout" entry when a worker fails or
-    ``timeout`` seconds pass without every result."""
+    ``timeout`` seconds pass without every result; with ``exitcodes``,
+    also the workers' exit codes under "exitcodes"."""
     import queue
     import torch.multiprocessing as mp
     port = _free_port()
@@ -5196,6 +5592,8 @@ def _spawn(target, n: int, timeout: float = 300) -> dict:
             if p.is_alive():
                 p.kill()
                 p.join()
+    if exitcodes:
+        got["exitcodes"] = [p.exitcode for p in procs]
     return got
 
 
@@ -5899,6 +6297,9 @@ def main() -> None:
         {"tenants": _sets_tenants_worker, "publish": _sets_publish_worker}[
             os.environ["CHIP_SMOKE_SET_MODE"]]()
         return
+    if sys.argv[1:] == ["--twin-worker"]:
+        _twin_worker()         # one process of a phase-40 job
+        return
     gpu = _gpu_line()
     usage = phase_device()
     import horovod_tpu_torch as hvd
@@ -5936,6 +6337,12 @@ def main() -> None:
     phase_topo_nccl()
     _free()
     phase_sets_nccl()
+    _free()
+    # Phases 39-40 too: phase 39 leaves card 0 to the parent (launched
+    # rank 0 is outside the subset), phase 40's rank 0 shares it.
+    subset = phase_subset_nccl()
+    _free()
+    twins = phase_twins_nccl()
     _free()
     f32_launches = phase_models_f32()
     _free()
@@ -5994,6 +6401,12 @@ def main() -> None:
             row = _kernel_row(name, rep, SOURCES[name], launches[name], err,
                               ms, plain_ms, flops, nbytes, lib, call,
                               usage[name])
+            # Phase 39's subset step (subset rank 0) and phase 40's
+            # long_context (rank 0); null on fewer than four cards.
+            row["launches_subset"] = (subset["launches"][name] if subset
+                                      else None)
+            row["launches_long_context"] = (
+                twins["launches_long_context"][name] if twins else None)
             if name in ulysses_shape:
                 # The same kernel at the shape ulysses_flash gives it on
                 # four cards, and its launches there (one rank's).

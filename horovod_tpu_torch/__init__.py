@@ -29,7 +29,11 @@ model save/load (:mod:`.checkpoint`), the async checkpoint stream
 (:mod:`.ckpt_stream`), the launcher (:mod:`.run`) and elastic membership
 (:mod:`.elastic`), and the multi-tenant planes: process sets
 (:mod:`.process_set`, each over one host's processes) and the
-parameter publisher (:mod:`.publish`)::
+parameter publisher (:mod:`.publish`), rank subsets (``init(ranks=)``)
+and the in-step collectives of :mod:`.ops.injit` (``allreduce``,
+``allgather`` along any axis, ``broadcast``, ``reducescatter``,
+``alltoall``, with JAX's gradients), with the example twins of
+:mod:`.examples`::
 
     import horovod_tpu_torch as hvd
     hvd.init()                                   # cuda:local_rank, NCCL
@@ -61,12 +65,16 @@ parameter publisher (:mod:`.publish`)::
     # HOROVOD_TPU_PROCESS_SETS="train:0,1;serve:2,3" on every process
     out = hvd.allreduce(x, name="eval", process_set="serve")
     state = hvd.ParameterPublisher(ckpt_dir, "serve").poll()  # 2 and 3
+
+    hvd.init(ranks=[3, 1, 2])    # env-launched, no HOROVOD_TPU_COORD_ADDR
+    y = hvd.injit.broadcast(x, root_rank=0, mode="permute")
 """
 
 from horovod_tpu_torch.basics import (      # noqa: F401
-    NotInitializedError, controller, get_topology, hierarchical_mesh, init,
-    is_initialized, local_rank, local_size, mpi_threads_supported,
-    process_count, process_index, rank, shutdown, size, wire_dtype,
+    NotInitializedError, controller, devices, get_topology,
+    hierarchical_mesh, init, is_initialized, local_devices, local_rank,
+    local_size, mpi_threads_supported, process_count, process_index, rank,
+    ranks_mesh, shutdown, size, wire_dtype,
 )
 # The module itself is callable: hvd.metrics() is the merged snapshot
 # (basics.metrics), hvd.metrics.registry the controller-side registry.
@@ -98,5 +106,8 @@ from horovod_tpu_torch.process_set import (      # noqa: F401
     reconfigure_process_set, remove_process_set,
 )
 from horovod_tpu_torch.publish import ParameterPublisher   # noqa: F401
+# The in-step collectives and the reduction op names.
+from horovod_tpu_torch.ops import injit                    # noqa: F401
+from horovod_tpu_torch.ops.injit import AVERAGE, MAX, MIN, SUM  # noqa: F401
 
 __version__ = "0.1.0"

@@ -12,8 +12,14 @@ this process's GPU (``cuda:local_rank``) and start the controller.
 ``shutdown()`` stops the controller first.  ``hierarchical_mesh`` (:175),
 ``get_topology`` (:185), ``controller`` (:194), ``metrics`` (:198),
 ``wire_dtype`` (:209), ``mpi_threads_supported`` (:219),
-``process_index`` (:154) and ``process_count`` (:158) follow the
+``process_index`` (:154) and ``process_count`` (:158), ``local_devices``
+(:162), ``devices`` (:166) and ``ranks_mesh`` (:170) follow the
 reference.
+
+Rank subsets (``init(ranks=[...])``, reference :58): the launched ranks
+listed form the job, in the order given (:func:`.topology.resolve`); a
+launched process outside the list raises before it touches any
+rendezvous, and a job with a control plane refuses a subset.
 
 Elastic membership (``HOROVOD_TPU_ELASTIC=1``): the world group is made
 per membership generation on the rendezvous store that
@@ -40,7 +46,7 @@ import os
 import sys
 import threading
 import time
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -166,8 +172,25 @@ def _rebuild_world(generation: int, size: int, rank: int) -> float:
     return seconds
 
 
-def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
+def init(ranks: Optional[Sequence[int]] = None, *, device: str = "cuda",
+         init_method: Optional[str] = None) -> None:
     """Initialize the framework (later calls are no-ops).
+
+    ``ranks``: a subset of the launched ranks to form the job, as the
+    reference's ``init(ranks=)``: rank r of the job is the launched rank
+    ``ranks[r]``, so ``[3, 1, 2]`` makes launched rank 3 rank 0; a
+    launched process outside the subset raises the reference's
+    ``RuntimeError`` and makes no process group.  Only a job without a
+    control plane takes a subset (``HOROVOD_TPU_COORD_ADDR`` unset, as
+    under an env launch); under ``python -m horovod_tpu_torch.run`` it is
+    refused with the reference's ``ValueError``.  The members make a world
+    group of ``len(ranks)`` ranks: under ``env://`` its store is hosted by
+    the subset's first member, so ``MASTER_ADDR`` must name that
+    member's host.  Each member keeps the GPU of its launch
+    (``HOROVOD_TPU_LOCAL_RANK``; without it, host discovery ranks the
+    members of a host by their launched ranks).  ``HOROVOD_TPU_PROCESS_SETS``
+    names ranks of the subset (its rank space, as the reference seeds its
+    registry after ``resolve``).
 
     ``device``: ``"cuda"`` (default) selects GPU ``local_rank`` and an NCCL
     world group; ``"cpu"`` a gloo group.  ``init_method``: rendezvous of the
@@ -183,7 +206,7 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
     with _state.lock:
         if _state.initialized:
             return
-        topo = _topology_mod.resolve()
+        topo = _topology_mod.resolve(ranks)
         if topo.local_size != 1:
             raise ValueError(
                 f"horovod_tpu_torch runs one rank per process; "
@@ -231,6 +254,13 @@ def init(*, device: str = "cuda", init_method: Optional[str] = None) -> None:
                 # their reconfigure; the admitted standby joins it here.
                 _init_world(kind, topo.size, topo.rank, None,
                             controller.generation)
+                _warm_world(device)
+            elif _state.owns_world and kind == "cuda":
+                # NCCL binds the group to the device of its first
+                # collective; a barrier issued first would guess the
+                # device from the rank (rank % device count), which a
+                # rank subset's member (rank 0 on launched rank 3's GPU)
+                # does not match: the barrier then hangs.
                 _warm_world(device)
             # The process sets' groups, after the world's: a set group
             # that cannot form fails init with its cause.
@@ -311,6 +341,27 @@ def process_index() -> int:
 def process_count() -> int:
     """Number of processes (the size: one rank per process)."""
     return _require_init().topology.process_count
+
+
+def devices() -> Tuple[torch.device, ...]:
+    """The devices of the job that this process can address: its own
+    (one process a GPU, as the reference's multi-process topology,
+    ``horovod_tpu/topology.py:342-350``)."""
+    return (_require_init().device,)
+
+
+def local_devices() -> Tuple[torch.device, ...]:
+    """This process's device, as a one-element tuple."""
+    return (_require_init().device,)
+
+
+def ranks_mesh():
+    """The world's 1-D ``("ranks",)`` mesh
+    (:func:`horovod_tpu_torch.parallel.mesh.ranks_mesh`), the default
+    mesh of the in-step collectives and the parallel modules."""
+    _require_init()
+    from horovod_tpu_torch.parallel import mesh as _mesh_mod
+    return _mesh_mod.ranks_mesh()
 
 
 def get_topology() -> _topology_mod.Topology:

@@ -1325,7 +1325,12 @@ class Controller:
         topology = self.topology
         store = dist.distributed_c10d._get_default_store()
         digest = hashlib.sha256(host_fingerprint().encode()).hexdigest()[:16]
-        store.set(f"htpu/host/{topology.process_index}", digest)
+        # A rank subset's member ranks among its host's members by the
+        # rank it was launched with, never by its subset rank.
+        launched = (topology.process_index if topology.launched_rank is None
+                    else topology.launched_rank)
+        store.set(f"htpu/host/{topology.process_index}",
+                  f"{digest}:{launched}")
         keys = [f"htpu/host/{i}" for i in range(topology.process_count)]
         timeout_s = float(os.environ.get(
             "HOROVOD_TPU_CONTROL_TIMEOUT_S", "60"))
@@ -1339,9 +1344,12 @@ class Controller:
                 "hvd.init() (init is collective across processes). "
                 "Raise HOROVOD_TPU_CONTROL_TIMEOUT_S if startup is "
                 "legitimately slow.") from None
-        hosts = [store.get(k).decode() for k in keys]
-        host_procs = [i for i, h in enumerate(hosts) if h == digest]
-        self.host_local_rank = host_procs.index(topology.process_index)
+        hosts, order = zip(*(store.get(k).decode().split(":")
+                             for k in keys))
+        host_procs = sorted((int(order[i]), i) for i, h in enumerate(hosts)
+                            if h == digest)
+        self.host_local_rank = [i for _, i in host_procs].index(
+            topology.process_index)
         self.host_local_size = len(host_procs)
         self.num_hosts = len(set(hosts))
 

@@ -100,9 +100,10 @@ def quorum_ok(survivors: int, ranks_per_process: int,
     return survivors * ranks_per_process >= min_ranks_floor
 
 
-def init(**kwargs) -> None:
-    """``hvd.init()`` for elastic jobs (keyword arguments are
-    :func:`horovod_tpu_torch.init`'s).
+def init(ranks=None, **kwargs) -> None:
+    """``hvd.init()`` for elastic jobs (``ranks`` and the keyword
+    arguments are :func:`horovod_tpu_torch.init`'s; an elastic job has a
+    control plane, so a subset is refused, as in the reference).
 
     Identical to :func:`horovod_tpu_torch.init` except for standbys: a
     standby whose admission wait expires without a seat (the job finished
@@ -110,9 +111,9 @@ def init(**kwargs) -> None:
     that was never used is success, not failure.
     """
     try:
-        basics.init(**kwargs)
+        basics.init(ranks, **kwargs)
     except Exception as exc:   # noqa: BLE001 -- an unseated spare has no job
-        if is_standby():
+        if is_standby() and ranks is None:
             print(f"horovod_tpu elastic: standby never admitted ({exc}); "
                   "exiting cleanly", file=sys.stderr)
             raise SystemExit(0)

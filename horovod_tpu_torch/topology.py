@@ -9,14 +9,22 @@ variables the job is one rank.  ``host_fingerprint`` (:115) and
 intra-host and cross-host groups of :mod:`.parallel.mesh` and the
 controller's host discovery, which sets ``local_rank`` when
 ``HOROVOD_TPU_LOCAL_RANK`` is unset (:func:`local_rank_is_explicit`).
-Rank subsets are not ported yet.
+
+Rank subsets (``resolve(ranks)``, reference :293-377): the launched
+ranks listed in ``ranks`` form a job of ``len(ranks)`` ranks, rank r
+being the launched rank ``ranks[r]``; a launched process outside the list
+raises.  As in the reference, a job whose control plane spans processes
+(``HOROVOD_TPU_COORD_ADDR`` with more than one process, every job of
+``python -m horovod_tpu_torch.run``) refuses a subset: the subset is the
+reference's mode of several processes without a control plane, where the
+in-step path works and the eager collectives raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,13 +35,16 @@ class Topology:
     * ``rank``       -- this process's global rank;
     * ``local_rank`` -- this process's index among the processes of its
       host, which is also the index of its GPU;
-    * ``local_size`` -- ranks driven by this process (1: one GPU each).
+    * ``local_size`` -- ranks driven by this process (1: one GPU each);
+    * ``launched_rank`` -- in a rank subset, this process's rank in the
+      job as launched (``HOROVOD_TPU_RANK``); ``None`` otherwise.
     """
 
     size: int
     rank: int
     local_rank: int
     local_size: int
+    launched_rank: Optional[int] = None
 
     # One rank per process: the reference's process queries
     # (``horovod_tpu/topology.py``) are the rank queries.
@@ -67,15 +78,23 @@ def local_rank_is_explicit() -> bool:
     return os.environ.get("HOROVOD_TPU_LOCAL_RANK", "") != ""
 
 
-def resolve() -> Topology:
+def resolve(ranks: Optional[Sequence[int]] = None) -> Topology:
     """Read ``HOROVOD_TPU_SIZE``, ``HOROVOD_TPU_RANK``,
     ``HOROVOD_TPU_LOCAL_RANK`` and ``HOROVOD_TPU_LOCAL_SIZE``; without them
     the job is a single rank.  ``local_rank`` is 0 until ``init()`` folds
-    in the discovered one, unless the variable sets it."""
+    in the discovered one, unless the variable sets it.
+
+    ``ranks``: a subset of the launched ranks (module docstring), checked
+    with the reference's texts (``horovod_tpu/topology.py:316,356,359,
+    371``).  The member keeps the ``local_rank`` of its launch."""
     size = _env_int("HOROVOD_TPU_SIZE", 1)
     rank = _env_int("HOROVOD_TPU_RANK", 0)
     local_rank = _env_int("HOROVOD_TPU_LOCAL_RANK", 0)
     local_size = _env_int("HOROVOD_TPU_LOCAL_SIZE", 1)
+    if (ranks is not None and os.environ.get("HOROVOD_TPU_COORD_ADDR")
+            and _env_int("HOROVOD_TPU_PROCESS_COUNT", size) > 1):
+        raise ValueError(
+            "rank subsets are not supported in multi-process mode")
     # An elastic standby's env-derived rank is a placeholder ABOVE the
     # live rank space (the launcher hands spares process indices past the
     # worker range); the controller adopts the real seat at admission
@@ -90,8 +109,21 @@ def resolve() -> Topology:
         raise RuntimeError(
             f"horovod_tpu_torch: bad local layout (local_rank "
             f"{local_rank}, local_size {local_size})")
-    return Topology(size=size, rank=rank, local_rank=local_rank,
-                    local_size=local_size)
+    if ranks is None:
+        return Topology(size=size, rank=rank, local_rank=local_rank,
+                        local_size=local_size)
+    ranks = [int(r) for r in ranks]
+    if sorted(set(ranks)) != sorted(ranks):
+        raise ValueError("duplicate ranks in subset")
+    if any(r < 0 or r >= size for r in ranks):
+        raise ValueError(
+            f"rank subset {ranks} out of range for {size} devices")
+    if rank not in ranks:
+        raise RuntimeError(
+            "this process owns no devices in the requested rank subset")
+    return Topology(size=len(ranks), rank=ranks.index(rank),
+                    local_rank=local_rank, local_size=local_size,
+                    launched_rank=rank)
 
 
 def host_fingerprint(warn_truncation: bool = False) -> str:

@@ -50,22 +50,26 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_group(target, n, *args, fingerprints=None):
-    """Run ``target(rank, port, results, fingerprint, *args)`` in ``n``
-    spawned processes of one gloo group; returns {rank: result}, each
-    within 120 s."""
+def run_group(target, n, *args, fingerprints=None, init=True,
+              timeout=120):
+    """Run ``target(rank, *args)`` in ``n`` spawned processes of one gloo
+    group, each initialised with ``hvd.init(device="cpu")`` on a TCP
+    rendezvous (``init=False``: ``target(rank, init_method, *args)``,
+    which initialises itself); returns {rank: result}, each within
+    ``timeout`` seconds."""
     ctx = tmp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_entry, args=(
         target, r, n, port, results,
-        fingerprints[r] if fingerprints else "", args)) for r in range(n)]
+        fingerprints[r] if fingerprints else "", args, init))
+        for r in range(n)]
     for p in procs:
         p.start()
     got = {}
     try:
         for _ in procs:
-            rank, out = results.get(timeout=120)
+            rank, out = results.get(timeout=timeout)
             if isinstance(out, str):
                 raise AssertionError(f"rank {rank}:\n{out}")
             got[rank] = out
@@ -82,7 +86,7 @@ def run_group(target, n, *args, fingerprints=None):
     return got
 
 
-def _entry(target, rank, n, port, results, fingerprint, args):
+def _entry(target, rank, n, port, results, fingerprint, args, init=True):
     try:
         env = {"HOROVOD_TPU_SIZE": str(n), "HOROVOD_TPU_RANK": str(rank),
                "HOROVOD_TPU_LOCAL_RANK": str(rank),
@@ -97,6 +101,11 @@ def _entry(target, rank, n, port, results, fingerprint, args):
         # Tiny models: one thread each keeps the group from oversubscribing
         # the cores that the test runner's other workers share.
         torch.set_num_threads(1)
+        if not init:
+            out = target(rank, f"tcp://127.0.0.1:{port}", *args)
+            hvd.shutdown()
+            results.put((rank, out))
+            return
         hvd.init(device="cpu", init_method=f"tcp://127.0.0.1:{port}")
         out = target(rank, *args)
         hvd.shutdown()

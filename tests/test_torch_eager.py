@@ -228,6 +228,10 @@ def test_native_core_build_failure_takes_the_python_path(monkeypatch, fault):
     ctrl = core.Controller(resolve(), "cpu")
     assert not ctrl._use_cpp
     ctrl.stop()
+    # The controller made outside init seeded the process-set registry;
+    # drop it, as shutdown does, so a later init re-seeds it.
+    from horovod_tpu_torch import process_set
+    process_set.reset()
 
 
 def test_a_library_missing_a_symbol_fails_at_load(monkeypatch):
