@@ -447,6 +447,40 @@ the checkout.  Phases, in order; any failure ends the run:
    line (the JAX tests' bars); ``long_context``'s losses are finite and
    fall, and P1-P3 launch depth x steps on every rank.  Printed: each
    twin's lines, tokens/s per GPU or steps/s.
+41. The single-process example twins on the card (after phase 32), each
+   as ``python -m horovod_tpu_torch.examples.<name>`` from the checkout,
+   ``mnist_advanced``, the estimator's pair and ``word2vec`` side by side,
+   then the ResNet pair alone:
+   ``mnist_advanced`` at its defaults (4 epochs, batch 64) into a
+   temporary ``--checkpoint-dir``: test accuracy above 0.9 and
+   ``checkpoint-3`` written; ``mnist_estimator`` twice into one
+   ``--model-dir``, ``--steps 200`` then ``--steps 40``: ``global_step=200``
+   then ``global_step=240`` (the resume); ``imagenet_resnet50`` at full
+   width (224², batch 32, bf16, ``--steps-per-epoch 5``), ``--epochs 1``
+   then ``--epochs 2`` into one directory: ``epoch 0:`` printed once across
+   both runs, every loss finite, images/s and peak memory printed;
+   ``word2vec`` at its defaults (vocab 5000, dim 128, batch 128, 200
+   steps): its ``pairs/sec`` line, a final loss below the first, and the
+   sparse route's own count of what it reduced: two slice sets a step,
+   ``emb_out``'s with the context and negative rows (batch x (1 + 8)).
+   Printed: each run's lines and seconds.
+42. The kernel tools' twins, called in-process: ``tools.devtime`` on
+   ``fwd,128,128``, ``bwd,128,128,pallas_split`` and
+   ``bwd,128,128,pallas_fused`` at B 8, H 16, T 2048, D 128: P1 once a rep
+   forward, P1 + P2 + P3 or P1 + P6 once a rep, exactly; each ms/rep
+   (the kernels' own time, the span printed beside it) at least its
+   kernels' bound (phase 2's) and at most 1.5 x the sum of their phase-2
+   event times, both printed.  ``tools.tsweep`` at T 2048
+   and 8192 (B 1, H 16, D 128): every row measured, P1-P3 once each a
+   forward + backward on the flash rows, no kernel on the full rows; P1-P3
+   against their plain versions at T 8192 at phase
+   2's limits, and flash's dq, dk and dv against ``full_attention``'s at T
+   2048 within ``TOL_GRAD``.  ``tools.step_profile`` on the headline step:
+   P1-P3 12 launches each a profiled step (P6 none), the kernel time a
+   step no more than the device span a step, the span at most
+   ``PROFILE_SLACK`` x phase 7's event-timed step, the kernel time within
+   ``TOL_STEP_PROFILE`` of phase 32's; then ``step_profile resnet``: a
+   finite loss and a non-empty table.  Phases 41-42 print their seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -5721,8 +5755,8 @@ def phase_profiler(depth: int):
     wall_ms = (time.perf_counter() - t0) * 1e3
     span = profiling.device_time_ms(log_dir)
     dev_ms = profiling.device_time_ms(log_dir, per=2)
-    kernel_ms = sum(float(e.get("dur", 0.0)) for e in profiling.device_events(
-        profiling.load_trace_events(log_dir))) / 1e3 / 2
+    kernel_ms = sum(ms for _, ms, _ in profiling.kernel_table(log_dir,
+                                                              per=2))
     rows = profiling.per_op_rooflines(log_dir)
     shutil.rmtree(log_dir, ignore_errors=True)
     _check(dev_ms is not None, "profiler: the trace has no device events")
@@ -5760,6 +5794,195 @@ def phase_profiler(depth: int):
           + " | ".join(out.strip().splitlines()[-3:]))
     _check(bool(line), f"examples.synthetic_benchmark printed {out!r}")
     print(f"profiler: phase {time.perf_counter() - t_start:.1f} s")
+    return {"kernel_ms": kernel_ms, "span_ms": dev_ms, "step_ms": step_ms}
+
+
+# ------------------------------------------ single-process twins and tools
+
+W2V = dict(steps=200, batch=128, neg=8)   # word2vec's defaults
+# Phase 42: step_profile's kernel time a step against phase 32's (the same
+# step, another model instance and capture).
+TOL_STEP_PROFILE = 0.15
+# Phase 42: devtime's ms/rep at most this many times the sum of its
+# kernels' phase-2 event times (the rest of a rep: the delta's and the
+# cotangent's elementwise passes).
+DEVTIME_SLACK = 1.5
+DEVTIME_SPECS = {"fwd,128,128": ("flash_fwd",),
+                 "bwd,128,128,pallas_split": FLASH,
+                 "bwd,128,128,pallas_fused": ("flash_fwd", FUSED)}
+TSWEEP_TS = (2048, 8192)
+
+
+def _twin_chain(runs) -> list:
+    """Run the example twins ``runs`` ((args, label), ...) one after the
+    other through ``_run_example``; their outputs, each run's lines and
+    seconds printed."""
+    outs = []
+    for args, label in runs:
+        t0 = time.perf_counter()
+        outs.append(_run_example(args))
+        print(f"twins: {label} ({time.perf_counter() - t0:.1f} s): "
+              + " | ".join(outs[-1].strip().splitlines()[-4:]), flush=True)
+    return outs
+
+
+def phase_example_twins():
+    """Phase 41: the single-process example twins on the card, at their
+    JAX examples' defaults (see the module docstring).  Most of a run is
+    its process's start (~17 s on an H100 machine), so ``mnist_advanced``,
+    the two ``mnist_estimator`` runs and ``word2vec`` run side by side;
+    ``imagenet_resnet50``'s two runs then run alone, so that its images/s
+    is its own."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_twins") as tmp:
+        ck, md, rd = (os.path.join(tmp, n) for n in
+                      ("mnist_advanced", "mnist_estimator", "resnet"))
+        chains = (
+            ((["mnist_advanced", "--checkpoint-dir", ck], "mnist_advanced"),),
+            tuple((["mnist_estimator", "--steps", str(n), "--model-dir",
+                    md], f"mnist_estimator --steps {n}") for n in (200, 40)),
+            ((["word2vec"], "word2vec"),))
+        with ThreadPoolExecutor(len(chains)) as pool:
+            (adv,), est, (w2v,) = pool.map(_twin_chain, chains)
+        acc = float(re.search(r"test accuracy: ([0-9.]+)", adv).group(1))
+        _check(acc > 0.9, f"mnist_advanced: test accuracy {acc} <= 0.9")
+        _check(os.path.isdir(os.path.join(ck, "checkpoint-3")),
+               f"mnist_advanced wrote no checkpoint-3: {os.listdir(ck)}")
+        _check("global_step=200 " in est[0] and "global_step=240 " in est[1],
+               f"mnist_estimator did not resume: {est}")
+        common = ["--image-size", "224", "--batch-size", "32",
+                  "--steps-per-epoch", "5", "--checkpoint-dir", rd]
+        outs = _twin_chain(tuple(
+            (["imagenet_resnet50", "--epochs", str(e)] + common,
+             f"imagenet_resnet50 --epochs {e}") for e in (1, 2)))
+    both = "".join(outs)
+    losses = [float(x) for x in re.findall(r"^epoch \d+: loss=(\S+)", both,
+                                           re.M)]
+    _check(both.count("epoch 0:") == 1 and "epoch 1:" in outs[1],
+           f"imagenet_resnet50 did not resume past epoch 0: {outs}")
+    _check(len(losses) == 2 and all(math.isfinite(x) for x in losses),
+           f"imagenet_resnet50 losses {losses}")
+    for o in outs:
+        print("twins: imagenet_resnet50: " + re.search(
+            r"^.*images/sec per rank.*$", o, re.M).group(0))
+    first, final = (float(x) for x in re.search(
+        r"losses unrounded: first (\S+), final (\S+)", w2v).groups())
+    sets, rows = (int(x) for x in re.search(
+        r"sparse route: (\d+) slice sets, (\d+) rows", w2v).groups())
+    want_rows = W2V["steps"] * W2V["batch"] * (1 + 1 + W2V["neg"])
+    print(f"twins: word2vec loss {first} -> {final}; the sparse route "
+          f"reduced {sets} slice sets of {rows} rows (want "
+          f"{2 * W2V['steps']}, {want_rows})")
+    _check("pairs/sec" in w2v, f"word2vec printed no pairs/sec: {w2v}")
+    _check(final < first, f"word2vec loss did not fall: {first} -> {final}")
+    _check(sets == 2 * W2V["steps"] and rows == want_rows,
+           f"word2vec: the embedding gradients did not all take the sparse "
+           f"route ({sets} slice sets, {rows} rows)")
+    print(f"twins: phase {time.perf_counter() - t_start:.1f} s")
+
+
+def _bound_ms(work) -> float:
+    flops, nbytes = work
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+
+def _tools_devtime(k) -> None:
+    from horovod_tpu_torch.tools import devtime
+    event = {"flash_fwd": k["times"]["fwd"],
+             "flash_bwd_dkdv": k["times"]["dkdv"],
+             "flash_bwd_dq": k["times"]["dq"], FUSED: k["times"][FUSED]}
+    results = devtime.main(list(DEVTIME_SPECS))
+    for (spec, kernels), r in zip(DEVTIME_SPECS.items(), results):
+        _check("error" not in r and r["ms"] is not None,
+               f"devtime {spec}: {r}")
+        want = {n: 1.0 for n in kernels}
+        bound = sum(_bound_ms(k["work"][n]) for n in kernels)
+        ceiling = DEVTIME_SLACK * sum(event[n] for n in kernels)
+        print(f"tools: devtime {spec}: {r['ms']:.4f} ms/rep of kernels "
+              f"(span {r['span_ms']:.4f}), bound "
+              f"{bound:.4f} ms, phase-2 event times "
+              f"{sum(event[n] for n in kernels):.4f} ms "
+              f"({r['ms'] / sum(event[n] for n in kernels):.3f}x), launches "
+              f"a rep {r['launches']}")
+        _check(r["launches"] == want,
+               f"devtime {spec}: launches a rep {r['launches']}, want {want}")
+        _check(bound <= r["ms"] <= ceiling,
+               f"devtime {spec}: {r['ms']} ms/rep outside [bound {bound}, "
+               f"{DEVTIME_SLACK} x phase 2's {ceiling / DEVTIME_SLACK}]")
+
+
+def _tools_tsweep() -> None:
+    from horovod_tpu_torch.tools import devtime, tsweep
+    results = tsweep.main([str(t) for t in TSWEEP_TS])
+    for (T, impl), r in sorted(results.items()):
+        want = {n: 1.0 for n in FLASH} if impl == "flash" else {}
+        print(f"tools: tsweep T={T} {impl}: {r}")
+        _check(r.get("ms") is not None and r["launches"] == want,
+               f"tsweep T={T} {impl}: {r}; launches a rep want {want}")
+    _free()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    B, H, D = tsweep.B, tsweep.H, tsweep.D
+    _run_case(_case(B, H, TSWEEP_TS[-1], D, True, None, gen),
+              f"tsweep B={B} H={H} T={TSWEEP_TS[-1]} D={D} causal")
+    q, k, v, do = devtime.inputs("cuda", B, TSWEEP_TS[0], H, D, seed=SEED)
+    grads = {}
+    for name, fn in tsweep.IMPLS:
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        loss = (fn(qq, kk, vv).float() * do.float()).sum()
+        grads[name] = torch.autograd.grad(loss, (qq, kk, vv))
+    errs = [_rel_fro(a, b) for a, b in zip(grads["flash"], grads["full"])]
+    print(f"tools: tsweep T={TSWEEP_TS[0]}: flash vs full_attention "
+          f"gradients, rel fro dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"{errs[2]:.3e} (limit {TOL_GRAD})")
+    _check(all(e <= TOL_GRAD for e in errs),
+           f"tsweep: flash gradients stray from full_attention's: {errs}")
+
+
+def _tools_step_profile(plain, profiler) -> None:
+    from horovod_tpu_torch.tools import step_profile
+    r = step_profile.main([])
+    step_ms = plain["step_s"] * 1e3
+    launches = {n: r["launches"].get(n, 0) for n in FLASH + (FUSED,)}
+    print(f"tools: step_profile: step {r['step_ms']:.2f} ms, kernels "
+          f"{r['kernel_ms']:.2f} ms a step (phase 32: "
+          f"{profiler['kernel_ms']:.2f}; phase 7's step {step_ms:.2f}), "
+          f"launches a step {launches}, losses {r['losses']}")
+    _check(all(launches[n] == DEPTH for n in FLASH) and launches[FUSED] == 0,
+           f"step_profile launches a step {launches}, want {DEPTH} of P1-P3")
+    _check(r["step_ms"] is not None
+           and r["kernel_ms"] <= r["step_ms"] + 1e-6
+           and r["step_ms"] <= PROFILE_SLACK * step_ms,
+           f"step_profile: span {r['step_ms']} ms outside [kernels "
+           f"{r['kernel_ms']}, {PROFILE_SLACK} x step {step_ms}]")
+    _check(abs(r["kernel_ms"] / profiler["kernel_ms"] - 1)
+           <= TOL_STEP_PROFILE,
+           f"step_profile: kernels {r['kernel_ms']} ms a step against phase "
+           f"32's {profiler['kernel_ms']}")
+    _check(all(math.isfinite(x) for x in r["losses"]),
+           f"step_profile losses {r['losses']}")
+    del r
+    _free()
+    r = step_profile.main(["resnet"])
+    print(f"tools: step_profile resnet: step {r['step_ms']:.2f} ms, "
+          f"kernels {r['kernel_ms']:.2f} ms, {len(r['rows'])} rows, losses "
+          f"{r['losses']}")
+    _check(bool(r["rows"]) and all(math.isfinite(x) for x in r["losses"]),
+           f"step_profile resnet: rows {len(r['rows'])}, losses "
+           f"{r['losses']}")
+
+
+def phase_tools(k, plain, profiler):
+    """Phase 42: the kernel tools' twins in this process (see the module
+    docstring)."""
+    t_start = time.perf_counter()
+    _tools_devtime(k)
+    _free()
+    _tools_tsweep()
+    _free()
+    _tools_step_profile(plain, profiler)
+    print(f"tools: phase {time.perf_counter() - t_start:.1f} s")
 
 
 # ------------------------------------------------- the precision autopilot
@@ -6378,7 +6601,11 @@ def main() -> None:
     phase_train_eager(DEPTH, plain, int8)
     phase_eager_train_nccl()
     _free()
-    phase_profiler(DEPTH)
+    profiler = phase_profiler(DEPTH)
+    _free()
+    phase_example_twins()
+    _free()
+    phase_tools(k, plain, profiler)
     _free()
     phase_train_auto(DEPTH, plain)
     t, e = k["times"], k["errs"]

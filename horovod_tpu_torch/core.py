@@ -1067,6 +1067,12 @@ class _LocalResponseCache:
 # a new generation (control.cc ApplyReconfigure).
 EVICTED_PREFIX = "evicted from the membership at generation "
 
+# The share of a tick's time at the coordinator (its wait for the other
+# processes and the round trip) that counts against the next tick's cycle
+# in the multi-process loop; see ``_background_loop_distributed``.
+TICK_PHASE_PULL = 0.5
+
+
 class Controller:
     """Per-process background controller.
 
@@ -1088,6 +1094,10 @@ class Controller:
         self.size = topology.size
         self.cycle_time_s = float(
             os.environ.get("HOROVOD_TPU_CYCLE_TIME_MS", "1.0")) / 1e3
+        # When the coordinator's response to the last tick arrived: every
+        # process receives it at about the same moment, so the
+        # multi-process loop paces its next tick from it.
+        self._response_at = 0.0
         self.fusion_threshold = int(
             os.environ.get("HOROVOD_TPU_FUSION_THRESHOLD",
                            str(DEFAULT_FUSION_THRESHOLD)))
@@ -1625,11 +1635,26 @@ class Controller:
                     self._shutdown.set()
                     self._fail_all(SHUT_DOWN_ERROR)
                 return
-            elapsed = time.monotonic() - t0
-            remaining = self.cycle_time_s - elapsed
+            # The next tick starts a cycle after this one, pulled back
+            # toward the coordinator's response.  Ticks are lockstep at
+            # the coordinator, so a process that started early waited
+            # there: timed from its own start alone (the reference's
+            # pacing), it would tick again at once while its peers slept,
+            # and tick phases would never line up.  A collective whose
+            # result a user thread turns into the next request (a
+            # replayed allreduce) then reaches the early process's frame
+            # too late and splits across two ticks on every replay, so
+            # no response-cache slot is ever assigned.  Timed from the
+            # response alone, the round trip would lengthen every
+            # period.  Counting TICK_PHASE_PULL of this tick's time at
+            # the coordinator against the cycle shrinks the spread of
+            # start times to that share of itself each tick, and leaves
+            # the rest of the round trip in the period.
+            waited = self._response_at - t0
+            remaining = (self.cycle_time_s - TICK_PHASE_PULL * waited
+                         - (time.monotonic() - self._response_at))
             if remaining > 0:
                 self._shutdown.wait(remaining)
-
 
     def _run_loop_once_distributed(self, shutting: bool) -> bool:
         """One negotiation tick over the TCP control plane; returns True if
@@ -1677,6 +1702,7 @@ class Controller:
             abort_rank=abort_rank, abort_reason=abort_reason,
             precision_ext=precision_ext)
         resp_blob = self._control.tick(blob, self.fusion_threshold)
+        self._response_at = time.monotonic()
         (responses, remote_shutdown, abort, _cache_ext,
          elastic_ext) = wire.parse_response_list_elastic(resp_blob)
         if abort is not None:

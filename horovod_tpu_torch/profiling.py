@@ -40,7 +40,7 @@ import socket
 import tempfile
 import time
 from collections import defaultdict
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 # H100 SXM: dense bf16 tensor-core peak and HBM3 bandwidth (NVIDIA's data
 # sheet), the roofline's defaults.
@@ -148,6 +148,22 @@ def kernel_stem(name: str) -> str:
     list: ``void at::native::f<4, ...>(...)`` -> ``at::native::f``."""
     name = re.sub(r"^void\s+", "", name)
     return re.split(r"[<(]", name, maxsplit=1)[0].strip() or name
+
+
+def kernel_table(log_dir: str, *,
+                 per: int = 1) -> List[Tuple[str, float, float]]:
+    """The device events of a captured trace grouped by
+    :func:`kernel_stem`: [(stem, ms, launches)] over ``per`` (the captured
+    steps or reps), by time, descending.  Their ms add up to the card's
+    busy time, which :func:`device_time_ms` spans; empty without device
+    events (the CPU)."""
+    tot, cnt = defaultdict(float), defaultdict(int)
+    for e in device_events(load_trace_events(log_dir)):
+        stem = kernel_stem(e.get("name", ""))
+        tot[stem] += float(e.get("dur", 0.0)) / 1e3
+        cnt[stem] += 1
+    return sorted(((n, ms / per, cnt[n] / per) for n, ms in tot.items()),
+                  key=lambda r: -r[1])
 
 
 def _op_bytes(args: dict) -> float:

@@ -17,7 +17,10 @@ all-gather over a ``torch.distributed`` group, which needs the same row
 count on every rank (the reference's tiled ``lax.all_gather`` has static
 shapes); :func:`allreduce_eager` is the negotiated allgather of the eager
 plane, which takes ragged row counts (``MPI_Allgatherv`` parity).
-``average=True`` divides the values by the number of ranks.
+``average=True`` divides the values by the number of ranks.  Each route
+counts the slice sets it reduced (``sparse.allreduces#route=spmd`` or
+``#route=eager``) and the rows this rank contributed
+(``sparse.rows#route=...``) in :func:`horovod_tpu_torch.metrics`.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from horovod_tpu_torch.metrics import registry as _metrics
 
 
 @dataclasses.dataclass
@@ -69,6 +74,7 @@ def allreduce(slices: IndexedSlices, *, average: bool = True,
     same number of rows; otherwise every rank raises ``ValueError``."""
     world = dist.get_world_size(group) if dist.is_initialized() else 1
     values, indices = slices.values, slices.indices
+    _count("spmd", values.shape[0])
     if world > 1:
         count = torch.tensor([values.shape[0]], dtype=torch.int64,
                              device=values.device)
@@ -99,6 +105,7 @@ def allreduce_eager(slices: IndexedSlices, *, average: bool = True,
     from horovod_tpu_torch.ops import eager
 
     nm = name or eager._auto_name("sparse.allreduce")
+    _count("eager", slices.values.shape[0])
     vh = eager.allgather_async(slices.values, name=f"{nm}.values")
     ih = eager.allgather_async(slices.indices, name=f"{nm}.indices")
     values = eager.synchronize(vh)
@@ -106,6 +113,11 @@ def allreduce_eager(slices: IndexedSlices, *, average: bool = True,
     if average:
         values = values / basics.size()
     return IndexedSlices(values, indices, slices.dense_shape)
+
+
+def _count(route: str, rows: int) -> None:
+    _metrics.inc(f"sparse.allreduces#route={route}")
+    _metrics.inc(f"sparse.rows#route={route}", int(rows))
 
 
 def apply_indexed_slices(dense: torch.Tensor, slices: IndexedSlices, *,

@@ -4,7 +4,8 @@ without a GPU.
 Every file of ``horovod_tpu_torch/``, ``chip_smoke.py``,
 ``flash_ablation.py`` and ``controller_ab.py`` is parsed, and
 any import of ``jax``, ``flax``, ``optax`` or ``horovod_tpu`` (the JAX
-package; ``horovod_tpu_torch`` is the port itself) fails its case.
+package; ``horovod_tpu_torch`` is the port itself) fails its case; a
+file of the package that imports ``bench`` or ``chip_smoke`` fails too.
 """
 
 import ast
@@ -46,9 +47,22 @@ def test_port_file_imports_no_jax(rel):
     assert not bad, f"{rel} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", [f for f in FILES
+                                 if f.startswith("horovod_tpu_torch/")])
+def test_package_file_imports_no_repo_script(rel):
+    """The package stands alone: it imports neither ``bench`` (which
+    imports jax) nor ``chip_smoke``."""
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    bad = sorted({m for m in _imported_modules(tree)
+                  if m.split(".")[0] in ("bench", "chip_smoke")})
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_scan_sees_the_whole_package():
     assert len(FILES) >= 15
     assert "horovod_tpu_torch/ops/flash_attention.py" in FILES
+    for tool in ("devtime", "tsweep", "step_profile"):
+        assert f"horovod_tpu_torch/tools/{tool}.py" in FILES
 
 
 EAGER_MODULES = ["cpp_core", "core", "metrics", "timeline", "wire",
