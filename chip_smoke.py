@@ -481,6 +481,31 @@ the checkout.  Phases, in order; any failure ends the run:
    ``PROFILE_SLACK`` x phase 7's event-timed step, the kernel time within
    ``TOL_STEP_PROFILE`` of phase 32's; then ``step_profile resnet``: a
    finite loss and a non-empty table.  Phases 41-42 print their seconds.
+43. The step's guard and instruments.  (a) One card, right after phase
+   7: phase 7's step built with ``HOROVOD_TPU_OBSERVE=1``, a timeline on
+   the controller (the native writer) and
+   ``HOROVOD_TPU_STEP_TIMEOUT_S=300``, for phase 7's 2 warm-up and 5
+   timed steps: the losses bit-identical to phase 7's, P1-P3 depth x
+   steps, one DISPATCH and one EXECUTE span a step on the
+   ``train_step[n]/dispatch`` and ``/execute`` lanes (each EXECUTE ending
+   after its DISPATCH), steps - 1 ``note_step`` records; its step ms
+   printed beside phase 7's, with the spans' and the observatory's
+   means.  (b) Four cards, right after phase 40 (otherwise a line says
+   it did not run): four processes with the native control plane each
+   build the headline model; with an ``allreduce_async`` of a CUDA
+   tensor outstanding on every rank the step raises the reference's
+   "... still outstanding ..." and launches nothing; after
+   ``synchronize`` it runs and the parameters are bit-identical on the
+   four ranks; then ``STEP_GUARD_STEPS`` flat int8 steps and as many on
+   ``hierarchical_mesh(ici_size=2)``: ``injit.bytes#wire_dtype=*`` and
+   ``injit.steps`` a step equal ``estimate_wire_plan`` of the parameters
+   on every rank, P1-P3 depth x steps, P4/P5 launched.  Then the crash
+   drill: four ``chip_smoke.py --drill-worker`` processes launched from
+   the environment with no control plane and
+   ``HOROVOD_TPU_STEP_TIMEOUT_S=8``; launched rank 3 exits 17 after
+   ``DRILL_STEPS`` steps; each survivor exits 83 with "step watchdog"
+   (or 3 with an error it surfaced) within ``DRILL_BOUND_S`` of the
+   crash; then every card is free again and 90% of it is written.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -6483,6 +6508,442 @@ def phase_auto_nccl():
 # Every TPU kernel of the JAX package (each function that reaches
 # pl.pallas_call), in PERF.md's order, with the port kernel that replaces
 # it.
+# Phase 43: the step's guard and instruments.  (a) on one card arms the
+# watchdog far above a step, so that only a hang could fire it; (b) runs
+# each four-card leg for STEP_GUARD_STEPS steps, and the crash drill arms
+# the watchdog at the reference's 8 s (tests/test_multicontroller.py:147)
+# with launched rank 3 exiting 17 after DRILL_STEPS steps; every survivor
+# must end within DRILL_BOUND_S of the crash.
+STEP_GUARD_TIMEOUT_S = 300
+STEP_GUARD_STEPS = 2
+DRILL_TIMEOUT_S = 8
+DRILL_STEPS = 3
+DRILL_BOUND_S = 60
+_STEP_LANE = re.compile(r"train_step(\[\d+\])?/(dispatch|execute)")
+
+
+def _step_lanes(path) -> dict:
+    """{"dispatch" / "execute": [(ph, name, ts)]} of the step's timeline
+    lanes in the trace at ``path``, and the lanes' names."""
+    events = json.loads(Path(path).read_text())
+    lane_of = {e["pid"]: e["args"]["name"] for e in events
+               if e.get("name") == "process_name"}
+    lanes, names = {}, set()
+    for e in events:
+        m = _STEP_LANE.fullmatch(lane_of.get(e.get("pid"), ""))
+        if m and e.get("ph") in ("B", "E"):
+            names.add(lane_of[e["pid"]])
+            lanes.setdefault(m.group(2), []).append(
+                (e["ph"], e.get("name"), e["ts"]))
+    return lanes, names
+
+
+def phase_step_guard(depth: int, plain: dict) -> dict:
+    """Phase 43(a): phase 7's step built with the observatory on
+    (``HOROVOD_TPU_OBSERVE=1``), a timeline on the controller (the native
+    writer where the core is built) and ``HOROVOD_TPU_STEP_TIMEOUT_S``,
+    for phase 7's steps, timed as phase 7 times them: the losses
+    bit-identical to phase 7's, P1-P3 depth x steps, one DISPATCH and one
+    EXECUTE a step (each EXECUTE ending after its DISPATCH), steps - 1
+    ``note_step`` records; the step's ms beside phase 7's."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import basics, cpp_core, observe
+    from horovod_tpu_torch.metrics import registry
+    from horovod_tpu_torch.ops import _cuda
+    from horovod_tpu_torch.spmd import make_train_step
+    from horovod_tpu_torch.timeline import Timeline
+    label = "step guard"
+    controller = basics._state.controller
+    tmp = tempfile.mkdtemp(prefix="smoke_guard")
+    path = os.path.join(tmp, "timeline.json")
+    observing = observe.enabled()
+    os.environ.update(HOROVOD_TPU_OBSERVE="1",
+                      HOROVOD_TPU_STEP_TIMEOUT_S=str(STEP_GUARD_TIMEOUT_S))
+    observe.set_enabled(True)
+    controller.timeline = (cpp_core.CppTimeline(path)
+                           if cpp_core.available() else Timeline(path))
+    writer = type(controller.timeline).__name__
+    steps = WARMUP + TIMED
+    try:
+        model, tokens, loss_fn = _train_setup(depth)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, loss_fn, opt)
+        torch.cuda.synchronize()
+        before = registry.snapshot()
+        _cuda.reset_launches()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = step(tokens)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        launches = dict(_cuda.LAUNCHES)
+        after = registry.snapshot()
+        time.sleep(0.5)     # the watcher stamps the last EXECUTE's end
+    finally:
+        timeline, controller.timeline = controller.timeline, None
+        timeline.close()
+        observe.set_enabled(observing)
+        for knob in ("HOROVOD_TPU_OBSERVE", "HOROVOD_TPU_STEP_TIMEOUT_S"):
+            os.environ.pop(knob, None)
+    lanes, lane_names = _step_lanes(path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    notes = (after["counters"].get("step.count", 0)
+             - before["counters"].get("step.count", 0))
+
+    def mean_ms(name):
+        h0 = before["histograms"].get(name, {"sum": 0.0, "count": 0})
+        h1 = after["histograms"][name]
+        return (h1["sum"] - h0["sum"]) / (h1["count"] - h0["count"]) * 1e3
+
+    step_s = statistics.median(times[WARMUP:])
+    gap = step_s / plain["step_s"] - 1
+    spans = {k: [e - b for (_, _, b), (_, _, e) in zip(v[0::2], v[1::2])]
+             for k, v in lanes.items()}
+    print(f"{label}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + (", bit-identical to phase 7's" if losses == plain["losses"]
+             else ", DIFFERENT from phase 7's"))
+    print(f"{label}: step {step_s * 1e3:.2f} ms (median of {TIMED}; all "
+          + ", ".join(f"{t * 1e3:.2f}" for t in times) + " ms) beside "
+          f"phase 7's {plain['step_s'] * 1e3:.2f} ms in this run "
+          f"({gap * 100:+.2f}%), launches {launches}")
+    print(f"{label}: {writer} lanes {sorted(lane_names)}: DISPATCH "
+          f"{len(spans.get('dispatch', []))} spans, median "
+          f"{statistics.median(spans.get('dispatch', [0])) / 1e3:.2f} ms; "
+          f"EXECUTE {len(spans.get('execute', []))}, median "
+          f"{statistics.median(spans.get('execute', [0])) / 1e3:.2f} ms; "
+          f"note_step records {notes}: step {mean_ms('step.seconds'):.2f} "
+          f"ms, stall (host issue inside the call) "
+          f"{mean_ms('step.stall_seconds'):.2f} ms, compute "
+          f"{mean_ms('step.compute_seconds'):.2f} ms (means)")
+    _check(losses == plain["losses"],
+           f"{label}: losses {losses} differ from phase 7's "
+           f"{plain['losses']}")
+    for name in FLASH + (FUSED,) + GENERAL:
+        want = depth * steps if name in FLASH else 0
+        _check(launches[name] == want,
+               f"{label}: {name} launched {launches[name]} times, expected "
+               f"{want}")
+    for lane, activity in (("dispatch", "DISPATCH"), ("execute", "EXECUTE")):
+        evs = lanes.get(lane, [])
+        _check([ph for ph, _, _ in evs] == ["B", "E"] * steps
+               and [n for ph, n, _ in evs if ph == "B"] == [activity] * steps,
+               f"{label}: the {lane} lane holds {evs}, expected one "
+               f"{activity} a step")
+    d_end = [ts for ph, _, ts in lanes["dispatch"] if ph == "E"]
+    x_end = [ts for ph, _, ts in lanes["execute"] if ph == "E"]
+    _check(len(lane_names) == 2 and all(x > d for x, d in zip(x_end, d_end)),
+           f"{label}: lanes {lane_names}, an EXECUTE ends before its "
+           f"DISPATCH: {list(zip(d_end, x_end))}")
+    _check(notes == steps - 1,
+           f"{label}: {notes} note_step records, expected {steps - 1}")
+    return {"launches": launches, "step_s": step_s, "gap": gap}
+
+
+def _guard_nccl_worker(rank: int, port: int, results) -> None:
+    """Phase 43(b) on rank ``rank`` of four (card ``rank``), with the
+    native control plane (the eager plane needs it): the guard first, on
+    the freshly built model, then the flat and two-tier int8 legs."""
+    try:
+        os.environ.update({
+            "HOROVOD_TPU_SIZE": "4", "HOROVOD_TPU_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_RANK": str(rank),
+            "HOROVOD_TPU_LOCAL_SIZE": "1",
+            "HOROVOD_TPU_COORD_ADDR": f"127.0.0.1:{port + 1}"})
+        for knob in ("HOROVOD_TPU_INJIT_WIRE_DTYPE",
+                     "HOROVOD_TPU_INJIT_INT8_FLOOR",
+                     "HOROVOD_TPU_STEP_TIMEOUT_S",
+                     "HOROVOD_TPU_PROCESS_COUNT"):
+            os.environ.pop(knob, None)
+        import torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.metrics import registry
+        from horovod_tpu_torch.ops import _cuda
+        from horovod_tpu_torch.ops.quantized_collectives import (
+            estimate_wire_plan)
+        from horovod_tpu_torch.spmd import make_train_step
+        hvd.init(init_method=f"tcp://127.0.0.1:{port}")
+        dev = hvd.local_devices()[0]
+        model = _lm("flash", DEPTH, SEQ, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 80 + rank)
+        tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                               device=dev)
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        def digest():
+            views = [None] * hvd.size()
+            dist.all_gather_object(views, _digest(
+                {str(i): _fingerprint(p) for i, p in enumerate(params)}))
+            return len(set(views)) == 1
+
+        out = {"device": dev.index, "same_before": digest()}
+        # The guard.  Each name completes only once all four ranks have
+        # submitted it: ranks 0-2 call the step while their "guard.b" is
+        # outstanding, rank 3 while its "guard.a" is, so every rank calls
+        # it with its own handle in flight; then each submits the other.
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(model, _lm_loss, opt)
+        store = dist.distributed_c10d._get_default_store()
+        x = torch.full((1024,), float(rank + 1), device=dev)
+        first, second = (("guard.a", "guard.b") if rank == 3
+                         else ("guard.b", "guard.a"))
+        handles = [hvd.allreduce_async(x, average=False, name=first)]
+        hazard = hvd.controller().mesh_async_hazard()
+        _cuda.reset_launches()
+        try:
+            step(tokens)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        launched = sum(_cuda.LAUNCHES.values())
+        store.set(f"smoke/guard/{rank}", "1")
+        store.wait([f"smoke/guard/{r}" for r in range(4)])
+        handles.append(hvd.allreduce_async(x, average=False, name=second))
+        sums = [hvd.synchronize(h) for h in handles]
+        out["guard"] = {
+            "hazard": hazard, "raised": raised, "launched": launched,
+            "sums_ok": all(torch.equal(t, torch.full_like(x, 10.0))
+                           for t in sums),
+            "hazard_after": hvd.controller().mesh_async_hazard()}
+        loss, t = _timed_steps(step, tokens, 1)
+        out["guard"].update(loss=loss[0], ms=t[0] * 1e3, same=digest())
+        del opt, step
+        _free()
+        mesh = hvd.hierarchical_mesh(ici_size=2)
+        out["grid"] = mesh.grid
+        for leg, m in (("flat int8", None), ("two-tier int8", mesh)):
+            opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            step = make_train_step(model, _lm_loss, opt, compression="int8",
+                                   mesh=m)
+            plan = estimate_wire_plan(params, hvd.size(), "int8",
+                                      hierarchical=m is not None)
+            want = {f"injit.bytes#wire_dtype={k}": v for k, v in plan.items()}
+            want["injit.steps"] = 1
+            _cuda.reset_launches()
+            deltas, losses, times = [], [], []
+            for _ in range(STEP_GUARD_STEPS):
+                c0 = registry.snapshot()["counters"]
+                loss, t = _timed_steps(step, tokens, 1)
+                c1 = registry.snapshot()["counters"]
+                deltas.append({k: c1[k] - c0.get(k, 0) for k in c1
+                               if k.startswith("injit.")
+                               and c1[k] != c0.get(k, 0)})
+                losses += loss
+                times += t
+            out[leg] = {"want": want, "deltas": deltas, "losses": losses,
+                        "times": times,
+                        "launches": {k: _cuda.LAUNCHES[k] for k in FLASH + (
+                            FUSED, "int8_quantize", "int8_dequantize")}}
+            del opt, step
+            _free()
+        torch.cuda.synchronize()
+        hvd.shutdown()
+        results.put((rank, out))
+    except BaseException as e:   # reported to the parent, which fails
+        results.put((rank, repr(e)))
+        raise
+
+
+def _drill_worker() -> None:
+    """One process of phase 43(b)'s crash drill (``--drill-worker``),
+    launched from the environment with no control plane: the headline
+    step for ``DRILL_STEPS`` steps, then launched rank 3 exits 17 and the
+    others go on stepping until the step watchdog (or a surfaced error)
+    ends them."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.spmd import make_train_step
+    rank = int(os.environ["HOROVOD_TPU_RANK"])
+    hvd.init(init_method="tcp://127.0.0.1:"
+             + os.environ["CHIP_SMOKE_DRILL_PORT"])
+    dev = hvd.local_devices()[0]
+    model = _lm("flash", DEPTH, SEQ, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90 + rank)
+    tokens = torch.randint(0, VOCAB, (BATCH, SEQ + 1), generator=gen,
+                           device=dev)
+    step = make_train_step(model, _lm_loss, torch.optim.SGD(
+        model.parameters(), lr=0.01, momentum=0.9))
+    for i in range(DRILL_STEPS):
+        print(f"STEP {i} LOSS {float(step(tokens))!r}", flush=True)
+    if rank == 3:
+        print(f"CRASHING {time.time()!r}", flush=True)
+        os._exit(17)     # no shutdown: its NCCL peers wait on it for ever
+    print("SURVIVOR_CONTINUES", flush=True)
+    try:
+        for i in range(DRILL_STEPS, 200):
+            print(f"STEP {i} LOSS {float(step(tokens))!r}", flush=True)
+    except Exception as exc:   # noqa: BLE001 -- a surfaced error counts
+        print(f"SURVIVOR_ERROR {type(exc).__name__}: {str(exc)[:300]}",
+              flush=True)
+        os._exit(3)
+    print("SURVIVOR_FINISHED", flush=True)
+
+
+def _crash_drill(label: str) -> dict:
+    """Four ``--drill-worker`` processes, one card each, with
+    ``HOROVOD_TPU_STEP_TIMEOUT_S=DRILL_TIMEOUT_S``: {"codes", "after_s"
+    (each process's exit, seconds after the crash), "outs"}.  torch's own
+    NCCL watchdog is kept from ending a survivor first: its timeout is
+    torch's default (printed), and its async error handling is off, so
+    that the port's watchdog is what gets measured."""
+    import tempfile
+    from torch.distributed import distributed_c10d
+    port = _free_port()
+    tmp = tempfile.mkdtemp(prefix="smoke_drill")
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("HOROVOD_TPU_", "MASTER_"))}
+    procs, logs = [], []
+    for r in range(4):
+        env = dict(base, HOROVOD_TPU_SIZE="4", HOROVOD_TPU_RANK=str(r),
+                   HOROVOD_TPU_LOCAL_RANK=str(r), HOROVOD_TPU_LOCAL_SIZE="1",
+                   HOROVOD_TPU_STEP_TIMEOUT_S=str(DRILL_TIMEOUT_S),
+                   CHIP_SMOKE_DRILL_PORT=str(port),
+                   TORCH_NCCL_ASYNC_ERROR_HANDLING="0")
+        logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--drill-worker"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    ended = {}
+    deadline = time.monotonic() + 300
+    try:
+        while len(ended) < 4 and time.monotonic() < deadline:
+            for r, p in enumerate(procs):
+                if r not in ended and p.poll() is not None:
+                    ended[r] = time.time()
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    crash = re.search(r"CRASHING (\S+)", outs[3])
+    crash_t = float(crash.group(1)) if crash else None
+    print(f"{label}: crash drill, torch's NCCL timeout "
+          f"{distributed_c10d._get_default_timeout('nccl')} against the "
+          f"port's {DRILL_TIMEOUT_S} s watchdog")
+    return {"codes": [p.returncode for p in procs], "outs": outs,
+            "after_s": [ended[r] - crash_t if crash_t and r in ended
+                        else None for r in range(4)]}
+
+
+def _cards_free(label: str) -> list:
+    """After the drill: each card's free memory, polled until it holds
+    no more than this process reserves on it (plus 4 GiB for contexts),
+    then 90% of it allocated and written.  [(seconds to free, free GiB)]."""
+    out = []
+    for d in range(4):
+        t0 = time.perf_counter()
+        total = torch.cuda.get_device_properties(d).total_memory
+        while True:
+            free = torch.cuda.mem_get_info(d)[0]
+            if (free >= total - torch.cuda.memory_reserved(d) - 4 * 2 ** 30
+                    or time.perf_counter() - t0 > 30):
+                break
+            time.sleep(0.1)
+        big = torch.empty(int(free * 0.9), dtype=torch.uint8,
+                          device=f"cuda:{d}")
+        big.fill_(1)
+        torch.cuda.synchronize(d)
+        del big
+        torch.cuda.empty_cache()
+        out.append((time.perf_counter() - t0, free / 2 ** 30))
+    return out
+
+
+def phase_step_guard_nccl():
+    """Phase 43(b) on four cards (only with four or more; otherwise a line
+    says it did not run): the wire counters of the flat and two-tier int8
+    steps against ``estimate_wire_plan`` on every rank, the guard with an
+    eager allreduce of a CUDA tensor outstanding, and the crash drill."""
+    label = "step guard nccl"
+    if torch.cuda.device_count() < 4:
+        print(f"{label}: not run (it needs four CUDA devices, this machine "
+              f"has {torch.cuda.device_count()})")
+        return None
+    t0 = time.perf_counter()
+    got = _spawn(_guard_nccl_worker, 4, timeout=600)
+    _check(all(isinstance(got.get(r), dict) for r in range(4)),
+           f"{label} failed: {got}")
+    for r in range(4):
+        out, g = got[r], got[r]["guard"]
+        print(f"{label}: rank {r} on cuda:{out['device']}: guard: hazard "
+              f"{g['hazard']}, raised {g['raised']!r}, then loss "
+              f"{g['loss']:.4f} in {g['ms']:.1f} ms, parameters the same on "
+              f"the four ranks before {out['same_before']} and after "
+              f"{g['same']}")
+        _check(g["hazard"] >= 1 and g["raised"] is not None
+               and "outstanding" in g["raised"] and g["launched"] == 0,
+               f"{label}: rank {r}: the step with a handle in flight: "
+               f"{g}")
+        _check(g["sums_ok"] and g["hazard_after"] == 0
+               and out["same_before"] and g["same"]
+               and math.isfinite(g["loss"]),
+               f"{label}: rank {r}: after synchronize: {g}, parameters "
+               f"same before {out['same_before']}")
+        _check(out["grid"] == ((0, 1), (2, 3)),
+               f"{label}: rank {r}: grid {out['grid']}")
+        for leg in ("flat int8", "two-tier int8"):
+            o = out[leg]
+            print(f"{label}: rank {r} {leg}: injit a step {o['deltas']} "
+                  f"(estimate {o['want']}); losses "
+                  + ", ".join(f"{x:.4f}" for x in o["losses"])
+                  + "; ms " + ", ".join(f"{t * 1e3:.1f}" for t in o["times"])
+                  + f"; launches {o['launches']}")
+            _check(all(d == o["want"] for d in o["deltas"]),
+                   f"{label}: rank {r} {leg}: counters {o['deltas']} != "
+                   f"the estimate {o['want']}")
+            _check(all(math.isfinite(x) for x in o["losses"])
+                   and all(o["launches"][k] == DEPTH * STEP_GUARD_STEPS
+                           for k in FLASH) and o["launches"][FUSED] == 0,
+                   f"{label}: rank {r} {leg}: {o['losses']}, "
+                   f"{o['launches']}")
+        flat = out["flat int8"]
+        _check("injit.bytes#wire_dtype=int8" in flat["want"]
+               and min(flat["launches"]["int8_quantize"],
+                       flat["launches"]["int8_dequantize"]) > 0
+               and "injit.bytes#wire_dtype=int8"
+               not in out["two-tier int8"]["want"],
+               f"{label}: rank {r}: wire plans {flat['want']}, "
+               f"{out['two-tier int8']['want']}, launches "
+               f"{flat['launches']}")
+    legs_s = time.perf_counter() - t0
+    drill = _crash_drill(label)
+    drill_s = time.perf_counter() - t0 - legs_s
+    for r in range(4):
+        tail = drill["outs"][r].strip().splitlines()[-2:]
+        after = drill["after_s"][r]
+        print(f"{label}: drill rank {r}: exit {drill['codes'][r]}, "
+              + (f"{after:.2f} s after the crash" if after is not None
+                 else "no crash time") + f"; last lines {tail}")
+    _check(drill["codes"][3] == 17 and "CRASHING" in drill["outs"][3],
+           f"{label}: launched rank 3 did not crash as planned: "
+           f"{drill['codes'][3]}\n{drill['outs'][3][-2000:]}")
+    for r in range(3):
+        code, text = drill["codes"][r], drill["outs"][r]
+        after = drill["after_s"][r]
+        _check("SURVIVOR_CONTINUES" in text
+               and "SURVIVOR_FINISHED" not in text
+               and ((code == 83 and "step watchdog" in text)
+                    or (code == 3 and "SURVIVOR_ERROR" in text)),
+               f"{label}: drill survivor {r} exited {code}:\n{text[-3000:]}")
+        _check(after is not None and after <= DRILL_BOUND_S,
+               f"{label}: drill survivor {r} ended {after} s after the "
+               f"crash (bound {DRILL_BOUND_S} s)")
+    cards = _cards_free(label)
+    print(f"{label}: after the drill, each card free again in "
+          + ", ".join(f"{s:.2f} s ({gb:.1f} GiB free, 90% of it written)"
+                      for s, gb in cards))
+    print(f"{label}: legs {legs_s:.1f} s, drill {drill_s:.1f} s")
+    return {r: got[r] for r in range(4)}
+
+
 TPU_KERNELS = (
     ("flash_fwd", "horovod_tpu/ops/flash_attention.py:255"),
     ("flash_fwd", "horovod_tpu/ops/flash_attention.py:351"),
@@ -6522,6 +6983,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--twin-worker"]:
         _twin_worker()         # one process of a phase-40 job
+        return
+    if sys.argv[1:] == ["--drill-worker"]:
+        _drill_worker()        # one process of phase 43's crash drill
         return
     gpu = _gpu_line()
     usage = phase_device()
@@ -6567,10 +7031,14 @@ def main() -> None:
     _free()
     twins = phase_twins_nccl()
     _free()
+    guard_nccl = phase_step_guard_nccl()
+    _free()
     f32_launches = phase_models_f32()
     _free()
     phase_reference()
     plain = phase_train(DEPTH)
+    _free()
+    guard = phase_step_guard(DEPTH, plain)
     _free()
     one = phase_train(DEPTH, one_pass=True)
     check_one_pass(one, plain)
@@ -6634,6 +7102,9 @@ def main() -> None:
                                       else None)
             row["launches_long_context"] = (
                 twins["launches_long_context"][name] if twins else None)
+            # Phase 43(a): the headline step inside the guard, the
+            # watchdog, the observatory and the timeline lanes.
+            row["launches_step_guard"] = guard["launches"][name]
             if name in ulysses_shape:
                 # The same kernel at the shape ulysses_flash gives it on
                 # four cards, and its launches there (one rank's).
@@ -6659,7 +7130,13 @@ def main() -> None:
             launches_auto=(auto_nccl[0]["auto"]["launches"][name]
                            if auto_nccl else None),
             launches_auto_eager=(auto_nccl[0]["eager auto"]["launches"][name]
-                                 if auto_nccl else None)))
+                                 if auto_nccl else None),
+            # Phase 43: one card (no int8 there), and rank 0's flat int8
+            # leg on four cards (null on fewer).
+            launches_step_guard=guard["launches"][name],
+            launches_step_guard_int8=(
+                guard_nccl[0]["flat int8"]["launches"][name]
+                if guard_nccl else None)))
     # The general family: the same TPU kernels, for the inputs P1-P3 do
     # not take; timed in f32 at the training shape, launched by the f32
     # models.
@@ -6678,7 +7155,8 @@ def main() -> None:
             name, rep, SOURCES["general"], f32_launches[name], err, gt[name],
             gt[plain_key], flops, nbytes, lib, call, usage[name],
             peak_flops=PEAK_TF32_FLOPS / 3),   # three TF32 products a term
-            bound_ffma_ms=general["bounds"][name]["ffma"]))
+            bound_ffma_ms=general["bounds"][name]["ffma"],
+            launches_step_guard=guard["launches"][name]))
     # The wide route: the same TPU kernels at head sizes above 256, timed
     # in f32 at WIDE_FULL_CASE (and WIDE_CASE beside it), launched by the
     # f32 model at D 384.
@@ -6705,7 +7183,8 @@ def main() -> None:
             bound_ffma_ms=flops / PEAK_F32_FLOPS * 1e3, status=status,
             shape="WIDE_FULL_CASE", ms_wide_case=st[name],
             device_ms_wide_case=sd[name],
-            plain_ms_wide_case=st[plain_key], library_ms_wide_case=st[lib]))
+            plain_ms_wide_case=st[plain_key], library_ms_wide_case=st[lib],
+            launches_step_guard=guard["launches"][name]))
     print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

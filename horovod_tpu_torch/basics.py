@@ -12,6 +12,7 @@ this process's GPU (``cuda:local_rank``) and start the controller.
 ``shutdown()`` stops the controller first.  ``hierarchical_mesh`` (:175),
 ``get_topology`` (:185), ``controller`` (:194), ``metrics`` (:198),
 ``wire_dtype`` (:209), ``mpi_threads_supported`` (:219),
+``check_mesh_async_ordering`` (:230),
 ``process_index`` (:154) and ``process_count`` (:158), ``local_devices``
 (:162), ``devices`` (:166) and ``ranks_mesh`` (:170) follow the
 reference.
@@ -399,6 +400,29 @@ def mpi_threads_supported() -> bool:
     plane is thread-safe, so this reports True once initialized."""
     _require_init()
     return True
+
+
+def check_mesh_async_ordering(what: str) -> None:
+    """Raise when dispatching a train step would race outstanding async
+    eager collectives on the shared NCCL world group (reference
+    ``basics.py:230-253``): the eager executor's thread issues their
+    collectives on the group the step's gradient reduction uses, so two
+    processes could order them differently and hang.  A no-op before
+    init, on the TCP data plane and in single-process jobs
+    (:meth:`.core.Controller.mesh_async_hazard` is 0 there).  Called by
+    every call of :func:`horovod_tpu_torch.spmd.make_train_step`'s step."""
+    c = _state.controller
+    if c is None:
+        return
+    n = c.mesh_async_hazard()
+    if n:
+        raise RuntimeError(
+            f"{what} would dispatch a jitted collective program while "
+            f"{n} async eager collective(s) are still outstanding on a "
+            f"shared multi-controller runtime.  Call synchronize() (or "
+            f"poll() until done) on every *_async handle before "
+            f"dispatching jitted steps, so all processes launch mesh "
+            f"programs in the same order (see docs/running.md).")
 
 
 def hierarchical_mesh(ici_size: Optional[int] = None):

@@ -1377,7 +1377,8 @@ class Controller:
         the ordering invariant the reference's coordinator enforces,
         ``operations.cc:1414-1433``).  0 on the TCP data plane and in
         single-process jobs, where background execution is
-        process-local."""
+        process-local.  Read by :func:`.basics.check_mesh_async_ordering`
+        at every call of :func:`.spmd.make_train_step`'s step."""
         ex = getattr(self, "_executor", None)
         if ex is None or not getattr(ex, "_mesh_is_global", False):
             return 0

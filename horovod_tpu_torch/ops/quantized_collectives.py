@@ -2,8 +2,8 @@
 
 Port of ``horovod_tpu/ops/quantized_collectives.py``: the constants
 (:52-73), the policy (:79-144), the codec (:150-262), the ring
-(:276-327), the bytes-on-wire estimate (:333-389) and the host wire image
-(:406-447).
+(:276-327), the bytes-on-wire estimate and its counters (:333-401) and the
+host wire image (:406-447).
 
 The codec is bit-exact with the JAX package's and with
 ``cpp/htpu/quantize.cc``: one f32 scale per :data:`BLOCK_ELEMS`-element
@@ -310,11 +310,20 @@ def _dtype_key(dtype: torch.dtype) -> str:
     return _DTYPE_KEYS.get(dtype, str(dtype).replace("torch.", ""))
 
 
-def estimate_wire_plan(leaves, n: int, compression) -> Dict[str, int]:
+def estimate_wire_plan(leaves, n: int, compression,
+                       hierarchical: bool = False) -> Dict[str, int]:
     """Per-step, per-rank bytes-on-wire estimate for a list of gradient
-    tensors on the flat ring, keyed by wire dtype.  Raw legs are modelled
-    as a bandwidth-optimal ring (``2(n-1)/n * payload``), the int8 leg with
-    its exact chunk and scale framing."""
+    tensors, keyed by wire dtype: the numbers behind the
+    ``injit.bytes#wire_dtype=*`` counters, which
+    :func:`horovod_tpu_torch.spmd.make_train_step` records through
+    :func:`record_wire_plan` at every call of a step over more than one
+    rank.  Raw legs are modelled as a bandwidth-optimal ring (``2(n-1)/n *
+    payload``), the int8 leg with its exact chunk and scale framing.  On
+    the two-tier path (``hierarchical``) no leaf rides the int8 ring:
+    floating leaves that are int8-eligible without the floor go as a bf16
+    snap, the others at their own dtype.  The ``"auto"`` marker counts
+    every leaf at its own dtype, as the JAX package counts its frozen
+    autopilot builds.  Estimates, not counts of what NCCL moved."""
     compression = resolve_injit_compression(compression)
     plan: Dict[str, int] = {}
     if n <= 1:
@@ -324,11 +333,15 @@ def estimate_wire_plan(leaves, n: int, compression) -> Dict[str, int]:
         shape = tuple(leaf.shape)
         dtype = leaf.dtype
         size = math.prod(shape) if shape else 1
-        if int8 and int8_eligible(shape, dtype):
+        if int8 and not hierarchical and int8_eligible(shape, dtype):
             key, nbytes = "int8", ring_wire_bytes(size, n)
         else:
-            wire = dtype
-            if dtype.is_floating_point and not int8:
+            if not dtype.is_floating_point:
+                wire = dtype
+            elif int8:
+                wire = (torch.bfloat16 if hierarchical and int8_eligible(
+                    shape, dtype, floor_bytes=0) else dtype)
+            else:
                 wire = getattr(compression, "wire_dtype", None) or dtype
             key = _dtype_key(wire)
             itemsize = torch.empty((), dtype=wire).element_size()
@@ -336,6 +349,18 @@ def estimate_wire_plan(leaves, n: int, compression) -> Dict[str, int]:
         if nbytes:
             plan[key] = plan.get(key, 0) + nbytes
     return plan
+
+
+def record_wire_plan(plan: Dict[str, int], steps: int = 1) -> None:
+    """Fold a wire plan into this process's metrics registry:
+    ``injit.bytes#wire_dtype=<key>`` grows by bytes x ``steps`` and
+    ``injit.steps`` by ``steps`` (one call per step call)."""
+    if not plan:
+        return
+    from horovod_tpu_torch.metrics import registry
+    for key, nbytes in plan.items():
+        registry.inc(f"injit.bytes#wire_dtype={key}", nbytes * steps)
+    registry.inc("injit.steps", steps)
 
 
 # -------------------------------------------- host wire image (parity)

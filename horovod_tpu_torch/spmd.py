@@ -53,10 +53,51 @@ name -- every leaf of the list handed to :func:`reduce_gradients` -- is
 keyed by its index, ``grads[3]``, as ``keystr`` keys a list.  The mirror
 is fed by the caller (``note_residual``), never by the step, as in the
 reference.
+
+The step ``make_train_step`` returns runs inside four layers, in the
+reference's order (``jax/spmd.py:668-678``), on every route (one step a
+call, ``steps_per_call``, ``mesh=``, ``compression="auto"``); from the
+inside out:
+
+* the async-ordering guard (``_ordering_guard``, reference :425-449):
+  :func:`..basics.check_mesh_async_ordering` raises before the step
+  issues anything while ``*_async`` eager collectives of CUDA tensors are
+  outstanding on the shared NCCL world group.  With
+  ``HOROVOD_TPU_STEP_TIMEOUT_S=<seconds>`` it also arms the step watchdog
+  (:class:`_StepWatchdog`, reference :244-313), which ends the process
+  with exit code 83 when a step does not complete within the deadline;
+* the wire counters (``_wire_metrics``, reference :370-389): over a world
+  group of more than one rank, every call adds
+  :func:`..ops.quantized_collectives.estimate_wire_plan` of the trainable
+  parameters to ``injit.bytes#wire_dtype=*`` and ``steps_per_call`` to
+  ``injit.steps``;
+* the observatory (``_wire_observe``, reference :392-422): under
+  ``HOROVOD_TPU_OBSERVE=1`` every call after the first feeds
+  :func:`..observe.note_step`;
+* the timeline lanes (:class:`_StepSpans`, reference :452-532):
+  ``train_step/dispatch`` (DISPATCH, the host call) and
+  ``train_step/execute`` (EXECUTE, from the call's return until the
+  device has run the step) when the controller has a timeline.
+
+A PyTorch step may block the host inside the call (gloo is synchronous;
+the auto route and the int8 ring read the host), so the watchdog arms at
+the call's entry; the call's end on the device is a ``torch.cuda.Event``
+recorded on the current stream after it (:class:`_Done`), which only the
+watcher threads wait on.  The reference's ``_GuardedStage``,
+``_GuardedExecutable`` and ``_wrap_with_stages`` (:315-367) keep the
+layers on JAX's ahead-of-time ``.lower``/``.trace`` surface, which a
+PyTorch step does not have: the layers here are plain closures.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
+import queue
+import sys
+import threading
+import time
+import types
 from typing import Callable, List, Optional
 
 import torch
@@ -64,6 +105,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from horovod_tpu_torch import basics as _basics
+from horovod_tpu_torch import observe as _observe
 from horovod_tpu_torch import precision as _precision
 from horovod_tpu_torch import scheduler as _sched
 from horovod_tpu_torch.compression import (Compressor, NoneCompressor,
@@ -340,7 +382,15 @@ def make_train_step(model: torch.nn.Module,
     the next call, never inside one.  The step does not feed the ladder:
     the caller does (``precision.get_autopilot().note_residual``).  The
     returned step then carries ``step.route`` (bucket name -> wire dtype
-    of the last rebuild) and ``step.rebuilds``."""
+    of the last rebuild) and ``step.rebuilds``.
+
+    Every call runs through the guard, the watchdog, the wire counters,
+    the observatory and the timeline lanes (module docstring).  Under
+    ``"auto"`` the counters count every leaf at its own dtype, as the
+    reference counts its frozen rebuilds (``compression=_AUTO_FROZEN``),
+    and the layers are built once: the reference builds them anew at
+    each rebuild, so its first call after one feeds no ``note_step`` and
+    writes to new lanes."""
     compression = _check_compression(compression)
     overlap = _sched.overlap_enabled(overlap)
     if steps_per_call < 1:
@@ -386,6 +436,8 @@ def make_train_step(model: torch.nn.Module,
     call = one_step
     if steps_per_call > 1:
         call = _stepping(one_step, steps_per_call)
+    call = _instrument(call, params, compression, steps_per_call,
+                       hierarchical=mesh is not None)
     if not auto:
         return call
 
@@ -422,6 +474,241 @@ def _stepping(one_step, steps_per_call: int):
         return torch.stack(losses).mean()
 
     return step
+
+
+class _Done:
+    """When one step call is done, as the watcher threads see it: not
+    while the call runs; after it returned, once the ``torch.cuda.Event``
+    recorded on the current stream after it has completed (at once when
+    the step returned a CPU tensor, or raised).  The caller's thread only
+    records the event; it never waits on the device."""
+
+    __slots__ = ("event", "returned")
+
+    def __init__(self) -> None:
+        self.event = None
+        self.returned = False
+
+    def finish(self, out) -> None:
+        """The call returned ``out`` (None when it raised)."""
+        if torch.is_tensor(out) and out.is_cuda:
+            event = torch.cuda.Event(blocking=True)
+            event.record(torch.cuda.current_stream(out.device))
+            self.event = event
+        self.returned = True
+
+    def ready(self) -> bool:
+        # A failed query counts as done: the error reaches the training
+        # loop itself, and a watcher must never die on one (a dead
+        # watchdog thread would disarm the timeout for the rest of the
+        # job while calls keep queueing).
+        if not self.returned:
+            return False
+        try:
+            return self.event is None or self.event.query()
+        except Exception:   # noqa: BLE001 -- see above
+            return True
+
+    def wait(self) -> None:
+        try:
+            if self.event is not None:
+                self.event.synchronize()
+        except Exception:   # noqa: BLE001 -- the step's error is the caller's
+            pass
+
+
+class _StepWatchdog:
+    """Opt-in liveness bound for a job with no control plane (reference
+    ``jax/spmd.py:244-313``): a process that dies inside a step leaves
+    the others blocked in a collective with no error.
+    ``HOROVOD_TPU_STEP_TIMEOUT_S=<seconds>`` arms it: each call is queued
+    at its entry, and a daemon thread polls every 0.2 s; when a call is
+    not done (:class:`_Done`) within the deadline, the process prints a
+    diagnostic and exits with code 83, so the orchestrator restarts the
+    job from its last checkpoint.  Calls pipeline, so each call's clock
+    starts when the watcher reaches it (the calls depend on each other,
+    so the previous one's end is about this one's start).  Unset, it
+    costs one read of the environment when the step is built."""
+
+    EXIT_CODE = 83
+
+    def __init__(self, timeout_s: float):
+        self.timeout_s = timeout_s
+        self._queue: "queue.Queue[_Done]" = queue.Queue()
+        self._thread = None
+
+    def _loop(self) -> None:
+        while True:
+            done = self._queue.get()
+            deadline = time.monotonic() + self.timeout_s
+            while not done.ready():
+                if time.monotonic() > deadline:
+                    print(
+                        f"horovod_tpu_torch: step watchdog: a dispatched "
+                        f"train step did not complete within "
+                        f"HOROVOD_TPU_STEP_TIMEOUT_S={self.timeout_s:g}s "
+                        f"— on a multi-host jit-only job this usually "
+                        f"means a peer process died mid-step and the "
+                        f"collective can never complete.  Aborting so "
+                        f"the orchestrator can restart from the last "
+                        f"checkpoint.", file=sys.stderr, flush=True)
+                    sys.stderr.flush()
+                    os._exit(self.EXIT_CODE)
+                time.sleep(0.2)
+
+    def watch(self) -> _Done:
+        """Queue a call at its entry; the caller finishes the result."""
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name="horovod_tpu_torch-step-watchdog")
+            self._thread.start()
+        done = _Done()
+        self._queue.put(done)
+        return done
+
+
+def _ordering_guard(fn):
+    """Check the async-ordering contract at every call, before the step
+    issues anything (:func:`..basics.check_mesh_async_ordering`), and
+    watch the call when ``HOROVOD_TPU_STEP_TIMEOUT_S`` is set (reference
+    ``jax/spmd.py:425-449``)."""
+    timeout_s = float(os.environ.get("HOROVOD_TPU_STEP_TIMEOUT_S", "0"))
+    watchdog = _StepWatchdog(timeout_s) if timeout_s > 0 else None
+
+    def step(batch):
+        _basics.check_mesh_async_ordering("make_train_step")
+        if watchdog is None:
+            return fn(batch)
+        done, out = watchdog.watch(), None
+        try:
+            out = fn(batch)
+        finally:
+            done.finish(out)
+        return out
+
+    return step
+
+
+def _wire_metrics(fn, params, compression, steps_per_call: int,
+                  hierarchical: bool):
+    """After every call over a world group of more than one rank, add the
+    wire plan of ``params`` to the ``injit.*`` counters (reference
+    ``jax/spmd.py:370-389``): a function of the shapes, the world size
+    and the wire policy, so it is computed once for each world size."""
+    cell: dict = {}
+
+    def step(batch):
+        out = fn(batch)
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        if cell.get("n") != n:
+            cell.update(n=n, plan=_qc.estimate_wire_plan(
+                params, n, compression, hierarchical=hierarchical))
+        _qc.record_wire_plan(cell["plan"], steps=steps_per_call)
+        return out
+
+    return step
+
+
+def _wire_observe(fn, steps_per_call: int):
+    """The observatory's step decomposition (reference
+    ``jax/spmd.py:392-422``): step = the time between two returns of the
+    call, stall = the time inside the call, each over ``steps_per_call``;
+    compute = step - stall; hidden and exposed communication are not
+    separable inside the step and are 0.  On a card the time inside the
+    call is the host's issue time, not a wait of the device: while the
+    host issues ahead of the device, that time overlaps device work."""
+    t_prev = [0.0]
+
+    def step(batch):
+        t_in = time.perf_counter()
+        out = fn(batch)
+        if not _observe.enabled():
+            t_prev[0] = 0.0
+            return out
+        t_out = time.perf_counter()
+        stall_s = (t_out - t_in) / steps_per_call
+        if t_prev[0] > 0.0:
+            step_s = max(0.0, (t_out - t_prev[0]) / steps_per_call)
+            _observe.note_step(step_s, max(0.0, step_s - stall_s),
+                               0.0, 0.0, stall_s)
+        t_prev[0] = t_out
+        return out
+
+    return step
+
+
+class _StepSpans:
+    """The step's two timeline lanes (reference ``jax/spmd.py:452-532``):
+    ``<name>/dispatch`` carries a DISPATCH span around the host call, and
+    ``<name>/execute`` an EXECUTE span from the call's return until the
+    device has run it, both edges stamped by one watcher thread, so the
+    training loop never waits on the instrument.  Each instance after the
+    first gets its own ``[n]`` suffix: two steps on one lane would
+    interleave their begin and end events.  Active only while the
+    controller has a timeline (``HOROVOD_TPU_TIMELINE``), through either
+    writer (:class:`..timeline.Timeline`, ``cpp_core.CppTimeline``);
+    otherwise a call costs one attribute read."""
+
+    _ids = itertools.count()
+
+    def __init__(self, name: str):
+        n = next(_StepSpans._ids)
+        suffix = f"[{n}]" if n else ""
+        lane = f"{name}{suffix}"
+        self._dispatch = types.SimpleNamespace(name=f"{lane}/dispatch")
+        self._execute = types.SimpleNamespace(name=f"{lane}/execute")
+        self._queue: "queue.Queue" = queue.Queue()
+        self._watcher = None
+
+    @staticmethod
+    def _timeline():
+        controller = _basics._state.controller
+        return controller.timeline if controller is not None else None
+
+    def _watch_loop(self) -> None:
+        # Both edges of EXECUTE are stamped here, so that its begin and
+        # end events nest even while calls pipeline ahead.
+        while True:
+            timeline, done = self._queue.get()
+            timeline.activity_start_all([self._execute], "EXECUTE")
+            done.wait()
+            timeline.activity_end_all([self._execute])
+
+    def instrument(self, fn):
+        def step(batch):
+            timeline = self._timeline()
+            if timeline is None:
+                return fn(batch)
+            timeline.activity_start_all([self._dispatch], "DISPATCH")
+            try:
+                out = fn(batch)
+            finally:
+                # A raising step must not leave an unbalanced begin event.
+                timeline.activity_end_all([self._dispatch])
+            done = _Done()
+            done.finish(out)
+            if self._watcher is None:
+                self._watcher = threading.Thread(
+                    target=self._watch_loop, daemon=True,
+                    name="horovod_tpu_torch-step-timeline")
+                self._watcher.start()
+            self._queue.put((timeline, done))
+            return out
+
+        return step
+
+
+def _instrument(fn, params, compression, steps_per_call: int,
+                hierarchical: bool):
+    """``fn`` inside the guard and watchdog, the wire counters, the
+    observatory and the timeline lanes, in the reference's order
+    (``jax/spmd.py:668-678``)."""
+    fn = _ordering_guard(fn)
+    fn = _wire_metrics(fn, params, compression, steps_per_call,
+                       hierarchical)
+    fn = _wire_observe(fn, steps_per_call)
+    return _StepSpans("train_step").instrument(fn)
 
 
 def make_eval_step(model: torch.nn.Module,
